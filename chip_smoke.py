@@ -6,7 +6,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit.
-  2. build: compiles gns_torch/csrc/segment.cu with nvcc (sm_90a), timed.
+  2. build: compiles the three CUDA sources of gns_torch/csrc (segment.cu:
+     K1, K2; fused_edge.cu: K3; megakernel.cu: K4) with nvcc for sm_90a,
+     one nvcc each, all started together, timed.
   3. kernels: K1 (segment-sum) and K2 (gather) against their plain twins on
      random data at the serving path's case300 index sets (S=1024,
      D in {1, 2, 4, 20, 60}, float32 and bfloat16 data), and each kernel's
@@ -21,9 +23,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      float32 as a sanity bound. Every distinct kernel launch of both runs
      is then replayed on its recorded input and held against its plain
      twin.
-  6. timing: predict grids/s, forward grids/s, the device's busy and idle
-     share of the forward from one profiler trace, and each kernel against
-     its bound, its plain twin and one PyTorch library call.
+  6. fused edge stage: gns_torch.ops.fused.fused_edge_stage (K3) at the
+     case300 dst index, S=1024, with step 0's phi heads of the shipped
+     checkpoint: one K3 launch per forward, against its plain twin on the
+     card and on CPU copies; its autograd backward (a recompute through K1
+     and K2, never a plain twin) against the twin's gradients on the CPU.
+  7. megakernel: gns_torch.ops.megakernel.megakernel_forward_batch (K4) on
+     the same 1024 case300 requests and checkpoint as phase 5: one K4
+     launch and no K1/K2 launch, against its plain twin on the CPU (worst
+     value and 99.9th percentile) and against the float32 forward on the
+     card (a sanity bound).
+  8. timing: predict grids/s, forward grids/s, the device's busy and idle
+     share of the forward from one profiler trace, each kernel against its
+     bound, its plain twin and one PyTorch library call where one computes
+     the same function, and K4 beside the eager forwards.
 Then one JSON line with every kernel's numbers, and last the
 {"ok": true, "device": ...} line.
 """
@@ -42,6 +55,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 S_SERVE = 1024
 CASE = 300
 # bfloat16 serving, card vs the port's CPU path on the same cases:
@@ -50,6 +64,21 @@ CASE = 300
 # worst and 4.883e-04 at p99.9, theta 2.441e-03 and 9.766e-04, last_loss
 # 6.174e-04 and 3.970e-04; each bound is about twice to four times those.
 BF16_CARD_VS_CPU = (("v", 7.5e-2, 2e-3), ("theta", 5e-3, 4e-3), ("last_loss", 2e-3, 1.5e-3))
+# K4 on the card vs its plain twin on the CPU, same 1024 case300 grids:
+# (output, atol on every value, bound on the 99.9th percentile). Both sum in
+# the same order and round the MLP operands to bf16 at the same places; only
+# the order of a dot product's adds differs, which can flip a bf16 rounding
+# that the K steps then carry at a few buses. Set from the NVIDIA H100 80GB
+# HBM3 readings: v 4.133e-03 worst and 0 at p99.9, theta 1.814e-03 and 0,
+# delta_p 7.599e-02 and 9.447e-05, delta_q 3.815e-06 and 2.384e-07,
+# total_loss 3.952e-05, last_loss 6.044e-05; each bound is about 2x to 4x
+# those (a p99.9 of 0 gets a bound of 1e-5).
+K4_CARD_VS_CPU = (
+    ("v", 1e-2, 1e-5), ("theta", 5e-3, 1e-5), ("delta_p", 0.2, 4e-4),
+    ("delta_q", 1.5e-5, 1e-6), ("total_loss", 1.5e-4, 1.5e-4), ("last_loss", 2e-4, 2e-4),
+)
+K3_FWD = dict(rtol=1e-5, atol=1e-5)  # exact float32; dot products add in another order
+K3_GRAD = dict(rtol=2e-4, atol=1e-5)  # tests/test_fused.py:61
 
 
 def log(*parts):
@@ -96,11 +125,15 @@ def phase_device() -> str:
 
 
 def phase_build(kern):
+    t0 = time.perf_counter()
     info = kern.build_kernels()
-    log(f"[build] {os.path.relpath(info['path'])} built in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "error" in line.lower():
-            log(f"[build] {line.strip()}")
+    check(set(info) == set(kern.SOURCES), f"built {sorted(info)}, sources {sorted(kern.SOURCES)}")
+    for name, one in info.items():
+        log(f"[build] {os.path.relpath(one['path'])} built in {one['seconds']:.2f} s")
+        for line in one["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"[build]   {line.strip()}")
+    log(f"[build] {len(info)} sources in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
 
 
 def case300_indices():
@@ -278,6 +311,39 @@ def phase_parity():
         check(ok, f"golden parity {name}")
 
 
+def wrappers() -> dict:
+    """The port's CUDA wrappers by kernel tag. Each adds one to its
+    `launches` where it launches its kernel, and nowhere else."""
+    from gns_torch.ops import segment_kernels as kern
+    from gns_torch.ops.fused import fused_edge_cuda
+    from gns_torch.ops.megakernel import megakernel_cuda
+
+    return {"K1": kern.segment_sum_cuda, "K2": kern.gather_cuda,
+            "K3": fused_edge_cuda, "K4": megakernel_cuda}
+
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {k: fn.launches for k, fn in wrappers().items()}
+
+
+def agree(tag, label, a, b, rtol, atol, key, p999=None):
+    """a (numpy, the card's) against b: allclose, finite, same shape, and
+    optionally the 99.9th percentile of |a - b| at most p999."""
+    err = np.abs(a.astype(np.float64) - b)
+    q = float(np.quantile(err, 0.999))
+    ok = bool(np.isfinite(a).all()) and a.shape == b.shape and np.allclose(a, b, rtol=rtol, atol=atol)
+    ok = ok and (p999 is None or q <= p999)
+    bound = "" if p999 is None else f" p99.9 <= {p999:g}"
+    log(f"[{tag}] {label} {key} shape {a.shape} max_abs_err {float(err.max()):.3e} "
+        f"p99.9 {q:.3e} (rtol {rtol:g} atol {atol:g}{bound}) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{label} {key}")
+
+
 def phase_serving(kern, seg):
     """Returns the cases, the card's model, its config, the float32 run's
     launch counts and the inputs of every distinct kernel launch of both
@@ -295,37 +361,27 @@ def phase_serving(kern, seg):
     pred = GNSPredictor(model, cfg, batch_size=S_SERVE, device="cuda")
     recorder = PathRecorder(kern, seg)
 
-    kern.reset_launch_counts()
+    reset_counts()
     with recorder:
         out = pred.predict(cases)
         torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in kern.KERNELS.items()}
-    want = {"K1": 1 + 4 * cfg.K, "K2": 2 + 5 * cfg.K}
+    launches = counts()
+    want = {"K1": 1 + 4 * cfg.K, "K2": 2 + 5 * cfg.K, "K3": 0, "K4": 0}
     log(f"[serving] float32 b{S_SERVE} launches {launches} (expected {want})")
     check(launches == want, f"launch counts {launches} != {want}")
 
-    def agree(label, a, b, rtol, atol, key, p999=None):
-        err = np.abs(a.astype(np.float64) - b)
-        q = float(np.quantile(err, 0.999))
-        ok = bool(np.isfinite(a).all()) and a.shape == b.shape and np.allclose(a, b, rtol=rtol, atol=atol)
-        ok = ok and (p999 is None or q <= p999)
-        bound = "" if p999 is None else f" p99.9 <= {p999:g}"
-        log(f"[serving] {label} {key} shape {a.shape} max_abs_err {float(err.max()):.3e} "
-            f"p99.9 {q:.3e} (rtol {rtol:g} atol {atol:g}{bound}) {'ok' if ok else 'MISMATCH'}")
-        check(ok, f"{label} {key}")
-
     ref = GNSPredictor(model_cpu, cfg, batch_size=S_SERVE, device="cpu").predict(cases)
     for key, rtol, atol in (("v", 2e-4, 2e-4), ("theta", 2e-4, 2e-4), ("last_loss", 5e-4, 0.0)):
-        agree("float32 card vs cpu", out[key], ref[key], rtol, atol, key)
+        agree("serving", "float32 card vs cpu", out[key], ref[key], rtol, atol, key)
 
     cfg16 = cfg.replace(compute_dtype="bfloat16")
     pred16 = GNSPredictor(model, cfg16, batch_size=S_SERVE, device="cuda")
-    kern.reset_launch_counts()
+    reset_counts()
     with recorder:
         out16 = pred16.predict(cases)
         torch.cuda.synchronize()
-    launches16 = {k: fn.launches for k, fn in kern.KERNELS.items()}
-    want16 = {"K1": 2 + 4 * cfg.K, "K2": 2 + 5 * cfg.K}
+    launches16 = counts()
+    want16 = {"K1": 2 + 4 * cfg.K, "K2": 2 + 5 * cfg.K, "K3": 0, "K4": 0}
     log(f"[serving] bfloat16 (fold on) launches {launches16} (expected {want16})")
     check(launches16 == want16, f"bf16 launch counts {launches16} != {want16}")
     # The card's bfloat16 path against the same port's bfloat16 path on
@@ -333,15 +389,236 @@ def phase_serving(kern, seg):
     # order of adds flips a bfloat16 rounding, which the K steps carry on.
     ref16 = GNSPredictor(model_cpu, cfg16, batch_size=S_SERVE, device="cpu").predict(cases)
     for key, atol, p999 in BF16_CARD_VS_CPU:
-        agree("bfloat16 card vs cpu", out16[key], ref16[key], 0.0, atol, key, p999)
+        agree("serving", "bfloat16 card vs cpu", out16[key], ref16[key], 0.0, atol, key, p999)
     # Sanity bound against float32 only. On this trained checkpoint gns_tpu's
     # own bfloat16 path differs from its float32 path by up to 0.087 in v
     # (256 of these grids; ~4% of buses beyond test_megakernel's 2e-2), and
     # tests/test_torch_serve.py holds the port's bf16 deviation to the JAX
     # package's.
     for key, rtol, atol in (("v", 0.0, 0.15), ("theta", 0.0, 2e-2), ("last_loss", 0.1, 5e-2)):
-        agree("bfloat16 vs float32", out16[key], out[key], rtol, atol, key)
+        agree("serving", "bfloat16 vs float32", out16[key], out[key], rtol, atol, key)
     return cases, model, cfg, launches, recorder.inputs
+
+
+class NoPlainTwins:
+    """While active, a plain twin of K1 / K2 called on a CUDA tensor fails
+    the run: the card's path must reach the kernels, never their twins."""
+
+    def __init__(self, kern):
+        self.kern = kern
+        self.saved = {}
+
+    def __enter__(self):
+        for name in ("segment_sum_plain", "gather_plain"):
+            fn = getattr(self.kern, name)
+            self.saved[name] = fn
+
+            def guard(data, *args, _fn=fn, _name=name):
+                check(not data.is_cuda, f"{_name} ran on a CUDA tensor on the card's path")
+                return _fn(data, *args)
+
+            setattr(self.kern, name, guard)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.kern, name, fn)
+        return False
+
+
+def k3_problem(model, seed: int = 0):
+    """K3's inputs at the case300 dst index, S=1024: step 0's phi heads of
+    the shipped checkpoint, m and feats from a seeded generator, about 10%
+    of the line_mask at 0."""
+    from gns_torch.models.gns import PHI_HEADS, _block
+    from gns_torch.ops.segment import SegmentIndex
+
+    batch, topo = case300_indices()
+    n, e = batch.buses.shape[1], batch.lines.shape[1]
+    latent = model.cfg.latent_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    m = torch.randn((S_SERVE, n, latent), generator=gen, device="cuda")
+    feats = torch.randn((S_SERVE, e, 5), generator=gen, device="cuda")
+    line_mask = (torch.rand((S_SERVE, e), generator=gen, device="cuda") > 0.1).float()
+    heads = {h: {k: t.detach().clone() for k, t in _block(getattr(model, h)[0]).items()}
+             for h in PHI_HEADS}
+    return m, feats, line_mask, SegmentIndex(topo.dst, n, "cuda"), heads, topo
+
+
+def phase_fused(kern, model, errs):
+    """K3 through its public entry point: forward and autograd backward on
+    the card; returns the forward's K3 launch count."""
+    from gns_torch.ops import fused
+    from gns_torch.ops.segment import SegmentIndex
+
+    m, feats, line_mask, idx, heads, topo = k3_problem(model)
+    params = [m, feats, line_mask] + fused._weights(heads)
+    for t in params:
+        t.requires_grad_(True)
+    reset_counts()
+    with NoPlainTwins(kern):
+        out = fused.fused_edge_stage(m, feats, line_mask, idx, heads)
+        torch.cuda.synchronize()
+        fwd = counts()
+        want = {"K1": 0, "K2": 0, "K3": 1, "K4": 0}
+        log(f"[fused] forward launches {fwd} (expected {want})")
+        check(fwd == want, f"K3 forward launches {fwd} != {want}")
+        sum((o * o).sum() for o in out).backward()
+        torch.cuda.synchronize()
+    bwd = {k: v - fwd[k] for k, v in counts().items()}
+    # the recompute: 1 K2 gather and 3 K1 sums; their adjoints: 3 K2 and 1 K1
+    want = {"K1": 4, "K2": 4, "K3": 0, "K4": 0}
+    log(f"[fused] backward launches {bwd} (expected {want}; no plain twin ran on the card)")
+    check(bwd == want, f"K3 backward launches {bwd} != {want}")
+
+    cpu = [t.detach().cpu().requires_grad_(True) for t in params]
+    heads_cpu = {h: dict(zip(fused._PARAMS, cpu[3 + 6 * i: 9 + 6 * i]))
+                 for i, h in enumerate(fused.PHI_HEADS)}
+    idx_cpu = SegmentIndex(topo.dst, idx.n, "cpu")
+    want_out = fused.fused_edge_stage_plain(cpu[0], cpu[1], cpu[2], idx_cpu, heads_cpu)
+    sum((o * o).sum() for o in want_out).backward()
+    with torch.no_grad():
+        on_card = fused.fused_edge_stage_plain(m, feats, line_mask, idx, heads)
+    names = [f"sum_{h}" for h in fused.PHI_HEADS]
+    for name, got, want_o, card in zip(names, out, want_out, on_card):
+        got = got.detach()
+        err = (got.cpu() - want_o.detach()).abs().max().item()
+        card_err = (got - card).abs().max().item()
+        errs["K3"] = max(errs["K3"], err, card_err)
+        ok = torch.allclose(got.cpu(), want_o.detach(), **K3_FWD) and torch.allclose(got, card, **K3_FWD)
+        log(f"[fused] {name} max_abs_err {err:.3e} vs the plain twin on the CPU, {card_err:.3e} "
+            f"on the card (rtol {K3_FWD['rtol']:g} atol {K3_FWD['atol']:g}) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"K3 {name} disagrees with its plain twin")
+    labels = ["m", "feats", "line_mask"] + [f"{h}.{n}" for h in fused.PHI_HEADS for n in fused._PARAMS]
+    worst, worst_label = 0.0, ""
+    for label, t, c in zip(labels, params, cpu):
+        # the share of the allowed error used: |got - want| / (atol + rtol |want|)
+        share = ((t.grad.cpu() - c.grad).abs()
+                 / (K3_GRAD["atol"] + K3_GRAD["rtol"] * c.grad.abs())).max().item()
+        if share > worst:
+            worst, worst_label = share, label
+        ok = torch.allclose(t.grad.cpu(), c.grad, **K3_GRAD)
+        if not ok:
+            log(f"[fused] grad {label} uses {share:.3f} of its tolerance MISMATCH")
+        check(ok, f"K3 backward: grad of {label} disagrees with the CPU autograd")
+    log(f"[fused] backward: all {len(labels)} gradients within rtol {K3_GRAD['rtol']:g} "
+        f"atol {K3_GRAD['atol']:g} of the plain twin's autograd on the CPU (the worst, "
+        f"{worst_label}, uses {worst:.3f} of its tolerance)")
+    return fwd["K3"]
+
+
+def phase_megakernel(kern, cases, model, cfg, errs):
+    """K4 through megakernel_forward_batch on the serving requests; returns
+    its K4 launch count."""
+    from gns_torch.models.gns import gns_forward_batch
+    from gns_torch.models.pretrained import load_pretrained
+    from gns_torch.ops.megakernel import megakernel_forward_batch, megakernel_forward_plain
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    batch = batch_from_cases(cases)
+    topo = extract_shared_topology(batch)
+    check(topo is not None, "the case300 requests do not share a topology")
+    reset_counts()
+    with NoPlainTwins(kern), torch.no_grad():
+        out = megakernel_forward_batch(model, cfg, batch, topo)
+        torch.cuda.synchronize()
+    got = counts()
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 1}
+    log(f"[megakernel] b{S_SERVE} launches {got} (expected {want})")
+    check(got == want, f"K4 launches {got} != {want}")
+
+    model_cpu, _ = load_pretrained(CASE, device="cpu")
+    with torch.no_grad():
+        ref = megakernel_forward_plain(model_cpu, cfg, batch, topo)
+        f32 = gns_forward_batch(model, cfg, batch, topo=topo, dense=batch.is_dense())
+    for key, atol, p999 in K4_CARD_VS_CPU:
+        a, b = getattr(out, key).cpu().numpy(), getattr(ref, key).numpy()
+        errs["K4"] = max(errs["K4"], float(np.abs(a.astype(np.float64) - b).max()))
+        agree("megakernel", "card vs plain twin on the cpu", a, b, 0.0, atol, key, p999)
+    # sanity bound only: bf16 MLPs against the float32 forward (ROADMAP §3)
+    for key, rtol, atol in (("v", 0.0, 0.15), ("theta", 0.0, 2e-2), ("last_loss", 0.1, 5e-2)):
+        agree("megakernel", "vs float32 forward", getattr(out, key).cpu().numpy(),
+              getattr(f32, key).cpu().numpy(), rtol, atol, key)
+    return got["K4"]
+
+
+def phase_timing_k34(model, cfg, cases, forward_ms, card):
+    """K3 and K4 at the main path's shapes, each against its bound and its
+    plain twin on the card, and K4 beside the eager forwards."""
+    from gns_torch.models.gns import _block, head_dims
+    from gns_torch.ops import fused
+    from gns_torch.ops.megakernel import megakernel_cuda, megakernel_inputs, megakernel_plain
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    results = {}
+    no_library = ("no single PyTorch call computes {}: it chains gathers, three MLPs "
+                  "and segment-sums{}, so library_ms is null")
+    m, feats, line_mask, idx, heads, _ = k3_problem(model, seed=1)
+    weights = fused._weights(heads)
+    s, n, latent = m.shape
+    e, hidden = idx.edges, weights[0].shape[0]
+    f_in = latent + 5
+    macs = s * e * 3 * (hidden * f_in + hidden * hidden + latent * hidden)
+    nbytes = 4 * (m.numel() + feats.numel() + line_mask.numel() + sum(w.numel() for w in weights)
+                  + idx.ids.numel() + idx.order.numel() + idx.indptr.numel() + 3 * s * n * latent)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * macs / FP32_FLOPS
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fused.fused_edge_cuda(m, feats, line_mask, idx, weights, 0.01))
+        plain = cuda_ms(lambda: fused.fused_edge_stage_plain(m, feats, line_mask, idx, heads), reps=20)
+    results["K3"] = dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops) * 1e3,
+                         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+    log(f"[timing] K3 fused edge stage case300 S={s} L={latent} H={hidden} float32: "
+        f"{ms * 1e3:.2f} us, bound {results['K3']['bound_ms'] * 1e3:.2f} us by "
+        f"{results['K3']['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s = {t_bytes * 1e6:.2f} us; "
+        f"{2 * macs / 1e9:.3f} GFLOP at 67 TFLOP/s float32 = {t_ops * 1e6:.2f} us), "
+        f"plain twin on the card {plain * 1e3:.2f} us")
+    log(f"[timing] K3 library_ms: " + no_library.format("the fused edge stage", ""))
+
+    batch = batch_from_cases(cases)
+    topo = extract_shared_topology(batch)
+    with torch.no_grad():
+        inp = megakernel_inputs(model, cfg, batch, topo)
+        ms = cuda_ms(lambda: megakernel_cuda(inp), reps=20, warmup=3)
+        plain = cuda_ms(lambda: megakernel_plain(inp), reps=5, warmup=2)
+    s, n = inp.bus_mask.shape
+    e, g, k = inp.line_mask.shape[1], inp.gen_mask.shape[1], len(inp.steps)
+    # MACs per grid and step of the model's own heads (phi per edge, L per
+    # bus), not of the fused layout, whose block-diagonal zeros K4 also
+    # multiplies: 1650 per edge and 1840 per bus at L=20, H=10
+    macs = {"edge": 0, "bus": 0}
+    for head, _, _ in head_dims(cfg):
+        block = _block(getattr(model, head)[0])
+        macs["edge" if head.startswith("phi") else "bus"] += sum(
+            block[w].numel() for w in ("w1", "w2", "w4"))
+    flops = 2 * s * k * (e * macs["edge"] + n * macs["bus"])
+    dense = 0  # the fused layout K4 multiplies, zeros included (not the bound)
+    for layers in inp.steps[0].values():
+        rows = e if layers["w1"].shape[1] == cfg.phi_in_dim else n
+        dense += rows * sum(layers[w].numel() for w in ("w1", "w2", "w4"))
+    dense_flops = 2 * s * k * dense
+    ints = [inp.src.ids, inp.dst.ids, inp.srcq, inp.dstq, inp.dst.order, inp.dst.indptr,
+            inp.src.order, inp.src.indptr, inp.gen.order, inp.gen.indptr]
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        inp.buses, inp.lines, inp.gens, inp.bus_mask, inp.line_mask, inp.gen_mask,
+        inp.wpack, inp.bpack, inp.discounts, *ints)) + 4 * (4 * s * n + 2 * s)
+    t_bytes, t_tc, t_f32 = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS, flops / FP32_FLOPS
+    results["K4"] = dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_tc) * 1e3,
+                         bound_by="bytes" if t_bytes >= t_tc else "operations", library_ms=None)
+    log(f"[timing] K4 megakernel case300 b{s} K={k}: {ms:.3f} ms per forward (CUDA events) = "
+        f"{s / ms * 1e3:.1f} grids/s; bound {results['K4']['bound_ms'] * 1e3:.2f} us by "
+        f"{results['K4']['bound_by']}: {macs['edge']} MACs per edge and {macs['bus']} per bus "
+        f"per step, {flops / 1e9:.2f} GFLOP of bf16-operand products at "
+        f"989 TFLOP/s (tensor cores) = {t_tc * 1e6:.2f} us, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+        f"{t_bytes * 1e6:.2f} us; on the float32 CUDA cores (67 TFLOP/s) the same products "
+        f"take {t_f32 * 1e6:.2f} us, and the fused layout this kernel multiplies, zeros "
+        f"included ({dense_flops / 1e9:.2f} GFLOP), {dense_flops / FP32_FLOPS * 1e6:.2f} us; "
+        f"plain twin on the card {plain:.3f} ms")
+    log(f"[timing] K4 beside the eager forward of the same run: float32 "
+        f"{forward_ms['float32']:.3f} ms, bfloat16 {forward_ms['bfloat16']:.3f} ms, K4 {ms:.3f} ms "
+        f"(card: {card})")
+    log(f"[timing] K4 library_ms: " + no_library.format(
+        "the whole forward", ", physics and reductions over K steps"))
+    return results
 
 
 def phase_profile(model, cfg, bt, graph, reps: int = 3):
@@ -426,6 +703,7 @@ def phase_timing(kern, seg, cases, model, cfg, card):
     from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
 
     log(f"[timing] card: {card}")
+    forward_ms = {}
     for dtype in ("float32", "bfloat16"):
         c = cfg.replace(compute_dtype=dtype)
         pred = GNSPredictor(model, c, batch_size=S_SERVE, device="cuda")
@@ -451,6 +729,7 @@ def phase_timing(kern, seg, cases, model, cfg, card):
         steps = pred.steps
         with torch.no_grad():
             fwd = cuda_ms(lambda: gns_forward(steps, c, bt, graph, dense=True), reps=20, warmup=3)
+        forward_ms[dtype] = fwd
         log(f"[timing] predict {dtype} b{S_SERVE}: {S_SERVE / wall:.1f} grids/s "
             f"end to end (host wall {wall * 1e3:.2f} ms, median of 3, host packing included); "
             f"forward alone {fwd:.3f} ms = {S_SERVE / fwd * 1e3:.1f} grids/s (CUDA events)")
@@ -514,7 +793,7 @@ def phase_timing(kern, seg, cases, model, cfg, card):
     k2_case(dst, n, 2, f32, "(v, theta) at dst")
     k2_case(rows_idx, e, 1, f32, "Q2 delta[src]")
     k2_case(rows_idx, e, 4, f32, "Q2 geometry[src]")
-    return results
+    return results, forward_ms
 
 
 def main() -> int:
@@ -524,26 +803,33 @@ def main() -> int:
     try:
         from gns_torch.ops import segment as seg
         from gns_torch.ops import segment_kernels as kern
+
+        wrappers()
     except ImportError as exc:
         fail(f"cannot import gns_torch next to this script: {exc}")
     t_start = time.perf_counter()
     card = phase_device()
     phase_build(kern)
-    errs = {"K1": 0.0, "K2": 0.0}
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
     phase_kernels(kern, seg, errs)
     phase_parity()
     cases, model, cfg, launches, recorded = phase_serving(kern, seg)
     phase_path_inputs(kern, recorded, errs)
     del recorded
-    timing = phase_timing(kern, seg, cases, model, cfg, card)
+    launches["K3"] = phase_fused(kern, model, errs)
+    launches["K4"] = phase_megakernel(kern, cases, model, cfg, errs)
+    timing, forward_ms = phase_timing(kern, seg, cases, model, cfg, card)
+    timing.update(phase_timing_k34(model, cfg, cases, forward_ms, card))
     kernels = []
     meta = {
-        "K1": ("segment_sum_csr", "gns_tpu/ops/pallas_segment.py:29"),
-        "K2": ("gather_rows", "gns_tpu/ops/pallas_segment.py:45"),
+        "K1": ("segment_sum_csr", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:29"),
+        "K2": ("gather_rows", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:45"),
+        "K3": ("fused_edge_kernel", "gns_torch/csrc/fused_edge.cu", "gns_tpu/ops/pallas_fused.py:50"),
+        "K4": ("megakernel", "gns_torch/csrc/megakernel.cu", "gns_tpu/ops/pallas_megakernel.py:88"),
     }
-    for k, (name, replaces) in meta.items():
+    for k, (name, source, replaces) in meta.items():
         kernels.append(dict(
-            name=f"{k} {name}", route="cuda", source="gns_torch/csrc/segment.cu",
+            name=f"{k} {name}", route="cuda", source=source,
             replaces=replaces, launches=launches[k], max_abs_err=errs[k], **timing[k],
         ))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

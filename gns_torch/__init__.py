@@ -9,7 +9,10 @@ Subpackages
 -----------
 utils     schema, config, case tables, grid preparation, augmentation
 ops       segment-sum / gather: the dispatch point, the CUDA kernels K1 / K2
-          (csrc/segment.cu) and their plain PyTorch twins
+          (csrc/segment.cu) and their plain PyTorch twins; the fused edge
+          stage K3 (fused.py, csrc/fused_edge.cu) and the whole-forward
+          megakernel K4 (megakernel.py, csrc/megakernel.cu), each with its
+          plain twin
 physics   the fused physics refresh (parity and paper modes)
 models    LearningBlock, the GNS module, weight conversion, checkpoints
 eval      the slack-angle decode

@@ -65,3 +65,17 @@ def module_from_jax_params(params_np, cfg: GNSConfig, device="cuda") -> GNS:
     sd = state_dict_from_params(params_np, cfg)
     model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()})
     return model
+
+
+def heads_from_jax(heads_np, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """One step's heads in gns_tpu's layout ({head: {"w1": (in, out), "b1":
+    (out,), ...}}, numpy) -> the port's (out, in) layout as float32 tensors
+    on `device`, the form models/gns.py `_block` gives and ops/fused.py
+    takes."""
+    return {
+        head: {
+            n: torch.tensor(_to_np(a).T.copy() if n.startswith("w") else _to_np(a), device=device)
+            for n, a in block.items()
+        }
+        for head, block in heads_np.items()
+    }

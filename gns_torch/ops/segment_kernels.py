@@ -1,10 +1,12 @@
-"""K1 (segment-sum) and K2 (row gather): the CUDA kernels and their plain twins.
+"""K1 (segment-sum) and K2 (row gather): the CUDA kernels and their plain twins,
+and the build of every CUDA source of the port.
 
 The kernels are in gns_torch/csrc/segment.cu; that file's header says
 which TPU kernels they replace, what bounds them and how. This module
-builds the source with nvcc at first use (into build/torch_kernels/ under
-the checkout, keyed by the source's hash), loads the library with ctypes,
-and wraps each entry point:
+builds each source of SOURCES (segment.cu here, fused_edge.cu for K3 in
+ops/fused.py, megakernel.cu for K4 in ops/megakernel.py) with nvcc at
+first use, into build/torch_kernels/ under the checkout keyed by the
+source's and flags' hash, loads the library with ctypes, and wraps K1/K2:
 
   segment_sum_cuda(data, order, indptr, n)  K1: (S, E, D) f32/bf16 -> (S, n, D) f32
   gather_cuda(data, ids)                    K2: (S, R, D) -> (S, E, D), same dtype
@@ -37,14 +39,25 @@ import time
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "segment.cu")
+# Every CUDA source of the port, by library name. Each builds into its own
+# shared library with a plain C interface.
+SOURCES = {
+    name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+    for name in ("segment", "fused_edge", "megakernel")
+}
+# Flags of one source beside NVCC_FLAGS. K4's physics must round after every
+# float32 operation, as its plain twin does, so nvcc may not contract a
+# multiply and an add into an FMA there (its dot products call fmaf).
+EXTRA_FLAGS = {"megakernel": ["--fmad=false"]}
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lib = None  # the loaded library, once built
+MAX_SHARED_BYTES = 232448  # 227 KB: the most shared memory an H100 block may use
+
+_libs = {}  # library name -> loaded ctypes.CDLL
 
 
 def _nvcc() -> str:
@@ -60,43 +73,70 @@ def _nvcc() -> str:
     )
 
 
-def build_kernels() -> dict:
-    """Compile csrc/segment.cu unless this source's library exists.
+def _flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
-    Returns {"path", "seconds", "log"}: seconds is 0.0 and log empty when
-    the library was already built.
+
+def _library_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libgns_{name}_{digest}.so")
+
+
+def build_kernels(names=None) -> dict:
+    """Compile each named source (default: all of SOURCES) unless its
+    library, keyed by the hash of the source and the flags, exists. One
+    nvcc per source, all started together.
+
+    Returns {name: {"path", "seconds", "log"}}: seconds is 0.0 and log
+    empty for a library that was already built.
     """
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libgns_segment_{digest}.so")
-    if os.path.exists(path):
-        return {"path": path, "seconds": 0.0, "log": ""}
+    names = list(SOURCES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{log}")
-    os.replace(tmp, path)
-    return {"path": path, "seconds": seconds, "log": log}
+    info, running = {}, {}
+    for name in names:
+        path = _library_path(name)
+        if os.path.exists(path):
+            info[name] = {"path": path, "seconds": 0.0, "log": ""}
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *_flags(name), "-o", tmp, SOURCES[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running[name] = (proc, path, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, path, tmp, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {SOURCES[name]}:\n{log}")
+            continue
+        os.replace(tmp, path)
+        info[name] = {"path": path, "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return info
+
+
+def library(name: str, signatures: dict):
+    """The loaded library of SOURCES[name], built at first use, with each
+    C function's (argtypes, restype) set from `signatures`."""
+    if name not in _libs:
+        lib = ctypes.CDLL(build_kernels([name])[name]["path"])
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_kernels()["path"])
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.gns_segment_sum.argtypes = [p, i, p, p, p, ll, ll, ll, ll, p]
-        lib.gns_segment_sum.restype = i
-        lib.gns_gather.argtypes = [p, p, p, ll, ll, ll, ll, p]
-        lib.gns_gather.restype = i
-        _lib = lib
-    return _lib
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return library("segment", {
+        "gns_segment_sum": ([p, i, p, p, p, ll, ll, ll, ll, p], i),
+        "gns_gather": ([p, p, p, ll, ll, ll, ll, p], i),
+    })
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device=None):
@@ -162,13 +202,6 @@ def gather_cuda(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 segment_sum_cuda.launches = 0
 gather_cuda.launches = 0
-
-KERNELS = {"K1": segment_sum_cuda, "K2": gather_cuda}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
 
 
 def segment_sum_plain(data: torch.Tensor, order: torch.Tensor,

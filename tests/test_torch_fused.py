@@ -1,0 +1,157 @@
+"""gns_torch K3, the fused edge stage, on the CPU against gns_tpu's
+`fused_edge_stage` in interpret mode (tests/test_fused.py's problem: S3,
+N14, E20, L8, H8).
+
+On the CPU the port's fused_edge_stage is its plain twin (gather_plain,
+F.linear, segment_sum_plain). The CUDA kernel runs only on the card, where
+chip_smoke.py holds it against this twin; here the CUDA wrapper must refuse
+CPU tensors. Tolerances: forward rtol 1e-5 / atol 1e-6 (exact float32 on
+both sides, sums in another order), gradients rtol 2e-4 / atol 1e-5
+(tests/test_fused.py:61)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gns_tpu.models.blocks import init_learning_block
+from gns_tpu.ops.pallas_fused import fused_edge_stage as j_fused_edge_stage
+from gns_torch.models.convert import heads_from_jax
+from gns_torch.ops import fused
+from gns_torch.ops.fused import fused_edge_cuda, fused_edge_stage, fused_edge_stage_plain
+from gns_torch.ops.segment import SegmentIndex
+
+torch.set_num_threads(1)
+S, N, E, L, H = 3, 14, 20, 8, 8
+SLOPE = 0.01
+FWD = dict(rtol=1e-5, atol=1e-6)
+GRAD = dict(rtol=2e-4, atol=1e-5)
+HEADS = ("phi_v", "phi_theta", "phi_m")
+
+
+@pytest.fixture(scope="module")
+def problem():
+    rng = np.random.default_rng(0)
+    m = rng.standard_normal((S, N, L)).astype(np.float32)
+    feats = rng.standard_normal((S, E, 5)).astype(np.float32)
+    mask = np.ones((S, E), np.float32)
+    mask[:, -2:] = 0.0
+    mask[1, 3] = 0.0
+    seg = rng.integers(0, N, E).astype(np.int32)
+    sp = {
+        h: jax.tree.map(np.asarray, init_learning_block(jax.random.key(i + 3), L + 5, H, L))
+        for i, h in enumerate(HEADS)
+    }
+    return m, feats, mask, seg, sp
+
+
+def _torch(problem, requires_grad=False):
+    m, feats, mask, seg, sp = problem
+    heads = heads_from_jax(sp, device="cpu")
+    t = [torch.tensor(a, requires_grad=requires_grad) for a in (m, feats, mask)]
+    if requires_grad:
+        for p in heads.values():
+            for w in p.values():
+                w.requires_grad_(True)
+    return (*t, SegmentIndex(seg, N), heads)
+
+
+def test_k3_plain_matches_pallas_interpret(problem):
+    m, feats, mask, seg, sp = problem
+    ref = j_fused_edge_stage(jnp.asarray(m), jnp.asarray(feats), jnp.asarray(mask),
+                             jnp.asarray(seg), sp, SLOPE, True)
+    tm, tf, tmask, idx, heads = _torch(problem)
+    for out in (fused_edge_stage(tm, tf, tmask, idx, heads, SLOPE),
+                fused_edge_stage_plain(tm, tf, tmask, idx, heads, SLOPE)):
+        assert len(out) == 3
+        for o, r in zip(out, ref):
+            assert o.shape == (S, N, L) and o.dtype == torch.float32
+            np.testing.assert_allclose(o.numpy(), np.asarray(r), **FWD)
+
+
+def test_k3_respects_mask(problem):
+    """Masked edges contribute nothing: zeroing their features, or dropping
+    them from the index, leaves the sums as they are."""
+    m, feats, mask, seg, sp = problem
+    tm, tf, tmask, idx, heads = _torch(problem)
+    out = fused_edge_stage(tm, tf, tmask, idx, heads, SLOPE)
+    out2 = fused_edge_stage(tm, tf * tmask[..., None], tmask, idx, heads, SLOPE)
+    for a, b in zip(out, out2):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **FWD)
+    keep = np.arange(E - 2)  # the last two edges are masked in every sample
+    out3 = fused_edge_stage(tm, tf[:, keep], tmask[:, keep], SegmentIndex(seg[keep], N),
+                            heads, SLOPE)
+    for a, b in zip(out, out3):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **FWD)
+
+
+def _jax_grads(problem):
+    m, feats, mask, seg, sp = problem
+
+    def loss(mm, ff, lm, sp_):
+        o = j_fused_edge_stage(mm, ff, lm, jnp.asarray(seg), sp_, SLOPE, True)
+        return sum((x ** 2).sum() for x in o)
+
+    return jax.grad(loss, argnums=(0, 1, 2, 3))(jnp.asarray(m), jnp.asarray(feats),
+                                                jnp.asarray(mask), sp)
+
+
+def _check_grads(problem, tm, tf, tmask, heads):
+    dm, dfeats, dmask, dsp = _jax_grads(problem)
+    np.testing.assert_allclose(tm.grad.numpy(), np.asarray(dm), **GRAD)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(dfeats), **GRAD)
+    np.testing.assert_allclose(tmask.grad.numpy(), np.asarray(dmask), **GRAD)
+    for h in HEADS:
+        for n, w in heads[h].items():
+            want = np.asarray(dsp[h][n])
+            got = w.grad.numpy()
+            np.testing.assert_allclose(got.T if n.startswith("w") else got, want,
+                                       err_msg=f"{h}.{n}", **GRAD)
+
+
+def test_k3_grads_match_jax_grad(problem):
+    """Gradients of m, feats, line_mask and all 18 weights against jax.grad
+    through gns_tpu's custom VJP."""
+    tm, tf, tmask, idx, heads = _torch(problem, requires_grad=True)
+    out = fused_edge_stage(tm, tf, tmask, idx, heads, SLOPE)
+    sum((x ** 2).sum() for x in out).backward()
+    _check_grads(problem, tm, tf, tmask, heads)
+
+
+def test_k3_autograd_function_recomputes_through_the_primitives(problem, monkeypatch):
+    """The card's autograd.Function, with the kernel's launch stood in for by
+    its plain twin: its backward (a recompute through ops/segment.py's
+    gather / segment_sum, which are K2 / K1 on the card) gives jax.grad's
+    gradients, and None for what needs none."""
+    def stand_in(m, feats, line_mask, index, weights, slope):
+        return fused._edge_stage(m, feats, line_mask, weights, slope,
+                                 lambda x: x.index_select(1, index.ids.long()),
+                                 lambda x: fused.kern.segment_sum_plain(
+                                     x, index.order, index.indptr, index.n))
+
+    monkeypatch.setattr(fused, "fused_edge_cuda", stand_in)
+    tm, tf, tmask, idx, heads = _torch(problem, requires_grad=True)
+    out = fused._FusedEdgeK3.apply(SLOPE, idx, tm, tf, tmask, *fused._weights(heads))
+    sum((x ** 2).sum() for x in out).backward()
+    _check_grads(problem, tm, tf, tmask, heads)
+
+    tm2, tf2, tmask2, _, heads2 = _torch(problem)
+    tm2.requires_grad_(True)
+    out = fused._FusedEdgeK3.apply(SLOPE, idx, tm2, tf2, tmask2, *fused._weights(heads2))
+    out[0].sum().backward()
+    assert tm2.grad is not None and tf2.grad is None
+
+
+def test_k3_cuda_wrapper_and_index_checks(problem):
+    tm, tf, tmask, idx, heads = _torch(problem)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_edge_cuda(tm, tf, tmask, idx, fused._weights(heads), SLOPE)
+    per_sample = SegmentIndex(np.tile(problem[3], (S, 1)), N)
+    with pytest.raises(ValueError, match="shared"):
+        fused_edge_stage(tm, tf, tmask, per_sample, heads, SLOPE)
+    with pytest.raises(ValueError):
+        fused_edge_stage(tm[:, :-1], tf, tmask, idx, heads, SLOPE)
+    with pytest.raises(ValueError):
+        fused_edge_stage(tm.to("meta"), tf, tmask, idx, heads, SLOPE)

@@ -175,12 +175,25 @@ def test_dispatch_rejects_bad_methods_and_devices():
 
 
 def test_kernel_source_and_build_dir():
-    """The kernels are built from the checkout's source into build/."""
+    """The kernels are built from the checkout's sources into build/, one
+    library per source, keyed by the source's and flags' hash."""
     import os
 
-    assert os.path.exists(kern.SOURCE) and kern.SOURCE.endswith(os.path.join("csrc", "segment.cu"))
+    symbols = {
+        "segment": ("gns_segment_sum", "gns_gather"),
+        "fused_edge": ("gns_fused_edge",),
+        "megakernel": ("gns_megakernel", "gns_megakernel_shared_bytes"),
+    }
+    assert set(kern.SOURCES) == set(symbols)
     assert kern.BUILD_DIR.endswith(os.path.join("build", "torch_kernels"))
     assert "arch=compute_90a,code=sm_90a" in kern.NVCC_FLAGS
-    src = open(kern.SOURCE).read()
-    for sym in ("gns_segment_sum", "gns_gather", "cudaGetLastError"):
-        assert sym in src
+    assert "--use_fast_math" not in kern.NVCC_FLAGS
+    for name, syms in symbols.items():
+        path = kern.SOURCES[name]
+        assert os.path.exists(path) and path.endswith(os.path.join("csrc", f"{name}.cu"))
+        src = open(path).read()
+        for sym in (*syms, "cudaGetLastError"):
+            assert sym in src
+        lib = kern._library_path(name)
+        assert os.path.dirname(lib) == kern.BUILD_DIR and f"libgns_{name}_" in lib
+    assert kern._library_path("megakernel") != kern._library_path("segment")
