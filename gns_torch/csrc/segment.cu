@@ -20,13 +20,24 @@
 // S*E*D + S*N*D elements moved), K2 none; at case300, S=1024, D=60 f32, K1
 // reads 101 MB and writes 74 MB, about 52 us at the HBM rate, and K2 for
 // m[dst] at D=20 moves about 58 MB, about 17 us. What the design does:
-//   K1: one thread per output element (s, n, d), neighbouring threads on
-//       neighbouring d, then n, so the output store is coalesced and the D
-//       threads of one (s, n) read one contiguous edge row together. Each
-//       thread walks its bus's edge list (order[indptr[n]:indptr[n+1]]) in
-//       edge order and accumulates in f32, so the result is deterministic
-//       and equal, add for add, to a sequential scatter (index_add_ on the
-//       CPU). Ids outside [0, N) were left out of the CSR by the host.
+//   K1: each segment is summed in f32 in edge order (order[indptr[n]] ..
+//       order[indptr[n+1] - 1]) with no atomics, so the result is
+//       deterministic and equal, add for add, to a sequential scatter
+//       (index_add_ on the CPU). Ids outside [0, N) were left out of the
+//       CSR by the host. Samples run on blockIdx.y (a stride loop past
+//       65535); all index arithmetic inside a sample is 32-bit (the host
+//       refuses E*D or N*D of 2^31 or more), with no div / mod per element.
+//       Wide rows (D > 4; the phi aggregate, D=60 f32 and D=30 bf16): one
+//       warp per bus and group of samples. indptr[n] and each order[j] are
+//       warp-uniform, so every lane runs the same trip count; a sample's
+//       row takes the widest words the row and its alignment allow (float4
+//       for a 240-byte f32 row, 4 bytes for a 60-byte bf16 row) on a
+//       power-of-two share of the lanes (16 for those 15-word rows, so two
+//       samples fill a warp); four edge rows are loaded before they are
+//       added, in order, and the output row is stored in the same words.
+//       Narrow rows (D <= 4; generator init D=4, physics pairs D=2, pg and
+//       in-degree D=1): one thread per (sample, bus) holds the whole row in
+//       registers, loaded as one float4 / float2 where aligned.
 //   K2: a copy of rows. Each thread moves one 16-, 8-, 4- or 2-byte word of
 //       an output row (the widest that divides the row), neighbouring
 //       threads on neighbouring words, then rows, so loads and stores are
@@ -39,36 +50,137 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1LL << 20;  // grid-stride beyond this
+constexpr int kThreads = 256;                // K2
+constexpr long long kMaxBlocks = 1LL << 20;  // K2: grid-stride beyond this
+constexpr int kWarpsPerBlock = 8;            // K1, wide rows: buses per block
+constexpr int kNarrowThreads = 128;          // K1, narrow rows: buses per block
+constexpr long long kMaxGridY = 65535;       // K1: samples per launch row, then a stride loop
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// out[s, n, d] = sum over j in [indptr[n], indptr[n+1]) of data[s, order[j], d]
-template <typename T>
-__global__ void segment_sum_csr(const T* __restrict__ data,
-                                const int* __restrict__ order,
-                                const int* __restrict__ indptr,
-                                float* __restrict__ out,
-                                long long S, long long E, long long N, long long D) {
-  const long long total = S * N * D;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const long long d = i % D;
-    const long long sn = i / D;
-    const long long n = sn % N;
-    const long long s = sn / N;
-    const T* col = data + s * E * D + d;
-    const int lo = indptr[n];
-    const int hi = indptr[n + 1];
-    float acc = 0.0f;
-    for (int j = lo; j < hi; ++j) {
-      acc += to_f32(col[(long long)order[j] * D]);
+// VEC elements of a row at p (aligned to VEC elements) as floats.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_words(const T* __restrict__ p, float* v) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (VEC == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p);
+      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else if constexpr (VEC == 2) {
+      const float2 q = *reinterpret_cast<const float2*>(p);
+      v[0] = q.x; v[1] = q.y;
+    } else {
+      v[0] = *p;
     }
-    out[i] = acc;
+  } else {
+    if constexpr (VEC == 4) {
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+      const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+      v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
+    } else if constexpr (VEC == 2) {
+      const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(p);
+      v[0] = __low2float(a); v[1] = __high2float(a);
+    } else {
+      v[0] = __bfloat162float(*p);
+    }
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_words(float* __restrict__ p, const float* v) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Wide rows: out[s, n, :] = sum over j in [indptr[n], indptr[n+1]) of
+// data[s, order[j], :]. One warp per bus n and group of 32 >> plog samples:
+// each sample's row gets 1 << plog lanes (the row's VEC-element words
+// rounded up to a power of two, at most 32), so a 15-word row shares the
+// warp with the next sample's instead of idling 17 lanes. The edge list is
+// the same for every lane, so all run the same trip count.
+template <typename T, int VEC>
+__global__ void segment_sum_warp(const T* __restrict__ data, const int* __restrict__ order,
+                                 const int* __restrict__ indptr, float* __restrict__ out,
+                                 int S, int E, int N, int D, int plog) {
+  const int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const int lane = threadIdx.x & 31;
+  const int lo = indptr[n], hi = indptr[n + 1];  // warp-uniform
+  const int words = D / VEC, per = 32 >> plog;
+  for (int s = blockIdx.y * per + (lane >> plog); s < S; s += gridDim.y * per) {
+    const T* x = data + (long long)s * E * D;
+    float* o = out + ((long long)s * N + n) * D;
+    for (int w = lane & ((1 << plog) - 1); w < words; w += 1 << plog) {
+      const int c = w * VEC;
+      float acc[VEC];
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[q] = 0.0f;
+      int j = lo;
+      for (; j + 4 <= hi; j += 4) {  // four rows in flight, added in edge order
+        float v[4][VEC];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) load_words<T, VEC>(x + order[j + r] * D + c, v[r]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) acc[q] += v[r][q];
+      }
+      float v[3][VEC];  // the last 0-3 rows, all loaded before any is added
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        if (j + r < hi) load_words<T, VEC>(x + order[j + r] * D + c, v[r]);
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        if (j + r < hi)
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) acc[q] += v[r][q];
+      store_words<VEC>(o + c, acc);
+    }
+  }
+}
+
+// Narrow rows (D <= 4): one thread per (s, n) holds the whole row.
+template <typename T, int D, int VEC>
+__global__ void segment_sum_narrow(const T* __restrict__ data, const int* __restrict__ order,
+                                   const int* __restrict__ indptr, float* __restrict__ out,
+                                   int S, int E, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int lo = indptr[n], hi = indptr[n + 1];
+  for (int s = blockIdx.y; s < S; s += gridDim.y) {
+    const T* x = data + (long long)s * E * D;
+    float acc[D];
+#pragma unroll
+    for (int q = 0; q < D; ++q) acc[q] = 0.0f;
+    int j = lo;
+    for (; j + 2 <= hi; j += 2) {  // two rows in flight, added in edge order
+      float v[2][D];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int q = 0; q < D; q += VEC) load_words<T, VEC>(x + order[j + r] * D + q, v[r] + q);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int q = 0; q < D; ++q) acc[q] += v[r][q];
+    }
+    if (j < hi) {
+      float v[D];
+#pragma unroll
+      for (int q = 0; q < D; q += VEC) load_words<T, VEC>(x + order[j] * D + q, v + q);
+#pragma unroll
+      for (int q = 0; q < D; ++q) acc[q] += v[q];
+    }
+    float* o = out + ((long long)s * N + n) * D;
+#pragma unroll
+    for (int q = 0; q < D; q += VEC) store_words<VEC>(o + q, acc + q);
   }
 }
 
@@ -95,6 +207,63 @@ inline unsigned int blocks_for(long long total) {
   return (unsigned int)(b < 1 ? 1 : b);
 }
 
+// Words of VEC elements fit a row of D when D is a multiple of VEC and
+// both base pointers are aligned to a word (then every row start is too).
+template <typename T>
+bool fits(int vec, long long D, const void* data, const float* out) {
+  return D % vec == 0 && reinterpret_cast<uintptr_t>(data) % (vec * sizeof(T)) == 0 &&
+         reinterpret_cast<uintptr_t>(out) % (vec * sizeof(float)) == 0;
+}
+
+template <typename T, int D>
+void launch_narrow(const T* data, const int* order, const int* indptr, float* out, int S, int E,
+                   int N, dim3 grid, cudaStream_t st) {
+  if constexpr (D % 4 == 0) {
+    if (fits<T>(4, D, data, out)) {
+      segment_sum_narrow<T, D, 4><<<grid, kNarrowThreads, 0, st>>>(data, order, indptr, out, S, E, N);
+      return;
+    }
+  }
+  if constexpr (D % 2 == 0) {
+    if (fits<T>(2, D, data, out)) {
+      segment_sum_narrow<T, D, 2><<<grid, kNarrowThreads, 0, st>>>(data, order, indptr, out, S, E, N);
+      return;
+    }
+  }
+  segment_sum_narrow<T, D, 1><<<grid, kNarrowThreads, 0, st>>>(data, order, indptr, out, S, E, N);
+}
+
+template <typename T>
+int launch_sum(const T* data, const int* order, const int* indptr, float* out, long long S,
+               long long E, long long N, long long D, cudaStream_t st) {
+  const int s = (int)S, e = (int)E, n = (int)N, d = (int)D;
+  if (D <= 4) {
+    const dim3 grid((unsigned int)((N + kNarrowThreads - 1) / kNarrowThreads),
+                    (unsigned int)(S < kMaxGridY ? S : kMaxGridY));
+    switch (d) {
+      case 1: launch_narrow<T, 1>(data, order, indptr, out, s, e, n, grid, st); break;
+      case 2: launch_narrow<T, 2>(data, order, indptr, out, s, e, n, grid, st); break;
+      case 3: launch_narrow<T, 3>(data, order, indptr, out, s, e, n, grid, st); break;
+      default: launch_narrow<T, 4>(data, order, indptr, out, s, e, n, grid, st); break;
+    }
+    return (int)cudaGetLastError();
+  }
+  const int vec = fits<T>(4, D, data, out) ? 4 : (fits<T>(2, D, data, out) ? 2 : 1);
+  int plog = 0;  // lanes per sample: the row's words rounded up to a power of two, <= 32
+  while ((1 << plog) < 32 && (1 << plog) < d / vec) ++plog;
+  const long long groups = (S + (32 >> plog) - 1) >> (5 - plog);
+  const dim3 grid((unsigned int)((N + kWarpsPerBlock - 1) / kWarpsPerBlock),
+                  (unsigned int)(groups < kMaxGridY ? groups : kMaxGridY));
+  const int threads = kWarpsPerBlock * 32;
+  if (vec == 4)
+    segment_sum_warp<T, 4><<<grid, threads, 0, st>>>(data, order, indptr, out, s, e, n, d, plog);
+  else if (vec == 2)
+    segment_sum_warp<T, 2><<<grid, threads, 0, st>>>(data, order, indptr, out, s, e, n, d, plog);
+  else
+    segment_sum_warp<T, 1><<<grid, threads, 0, st>>>(data, order, indptr, out, s, e, n, d, plog);
+  return (int)cudaGetLastError();
+}
+
 template <typename V>
 int launch_gather(const void* data, const int* ids, void* out,
                   long long S, long long R, long long E, long long row_bytes,
@@ -115,19 +284,15 @@ extern "C" {
 int gns_segment_sum(const void* data, int dtype, const int* order, const int* indptr,
                     float* out, long long S, long long E, long long N, long long D,
                     void* stream) {
-  const long long total = S * N * D;
-  if (total == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    segment_sum_csr<float><<<blocks_for(total), kThreads, 0, st>>>(
-        static_cast<const float*>(data), order, indptr, out, S, E, N, D);
-  } else if (dtype == 1) {
-    segment_sum_csr<__nv_bfloat16><<<blocks_for(total), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(data), order, indptr, out, S, E, N, D);
-  } else {
+  if (S * N * D == 0) return 0;
+  if (E * D >= (1LL << 31) || N * D >= (1LL << 31) || S >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_sum(static_cast<const float*>(data), order, indptr, out, S, E, N, D, st);
+  if (dtype == 1)
+    return launch_sum(static_cast<const __nv_bfloat16*>(data), order, indptr, out, S, E, N, D, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K2. data (S, R, row_bytes) -> out (S, E, row_bytes), rows picked by

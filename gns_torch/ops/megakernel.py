@@ -26,12 +26,25 @@ The twin transcribes `_kernel` (:88-247) in batched torch ops: a bf16
 operand is `x.to(torch.bfloat16).float()` feeding a float32 matmul (a bf16
 product is exact in float32), and every gather / sum is gather_plain /
 segment_sum_plain. It is used on the CPU and by chip_smoke.py, and by
-nothing on the card's path.
+nothing on the card's path. The kernel runs the MLPs per head on the
+tensor cores, so its dot products add in another order than the twin's.
+
+What the kernel reads beside the batch is laid out here, in Python, so the
+CPU tests reach it:
+  pack_step_weights   each step's fused weights as per-head, zero-padded
+                      16 x 8 bf16 B-operand tiles in mma lane order (the
+                      layout megakernel.cu's Dims describes), and the
+                      biases padded the same way; packed once per model;
+  phi_schedule        the work items of its edge and node stages (runs of
+                      at most 16 buses whose lines fill at most 16 dst-CSR
+                      rows, or one bus with more) and each row's bus with a
+                      last-row flag.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -44,10 +57,6 @@ from gns_torch.physics.common import build_graph
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch
 from gns_torch.utils.schema import GEN
-
-_LAYERS = ("w1", "w2", "w4")
-_BIASES = ("b1", "b2", "b4")
-
 
 class MegakernelInputs(NamedTuple):
     """Everything one launch reads, on one device."""
@@ -63,9 +72,14 @@ class MegakernelInputs(NamedTuple):
     gen: SegmentIndex  # generator bus ids (G,) into N, with their CSR
     srcq: torch.Tensor  # (E,) int32: src bus ids used as line rows (Q2), clipped to [0, E)
     dstq: torch.Tensor  # (E,) int32: the same for dst
-    wpack: torch.Tensor  # (K, kW) bfloat16: per step phi w1 w2 w4, L w1 w2 w4, (out, in)
-    bpack: torch.Tensor  # (K, kB) float32: their biases
-    steps: List[Dict[str, Dict[str, torch.Tensor]]]  # views of the packs, per step
+    items: torch.Tensor  # (T, 4) int32: work items (first bus, end bus, first row, end row)
+    row_bus: torch.Tensor  # (E,) int32: per dst-CSR row, bus << 1 | last row of its bus
+    dst_pos: torch.Tensor  # (E,) int32: each line's row in the dst CSR
+    src_pos: torch.Tensor  # (E,) int32: each line's row in the src CSR
+    gen_pos: torch.Tensor  # (G,) int32: each generator's row in the generator CSR
+    wpack: torch.Tensor  # (K, tiles x 128) bfloat16: pack_step_weights' tiles
+    bpack: torch.Tensor  # (K, biases) float32: the padded biases
+    steps: List[Dict[str, Dict[str, torch.Tensor]]]  # fused bf16 weights, f32 biases, per step
     discounts: torch.Tensor  # (K,) float32: gamma^(K - k)
     latent: int
     hidden: int
@@ -79,39 +93,160 @@ def _check_config(cfg: GNSConfig, topo) -> None:
         raise ValueError("megakernel requires a shared GridTopology")
 
 
-def megakernel_inputs(model: GNS, cfg: GNSConfig, batch: GridBatch, topo) -> MegakernelInputs:
-    """The launch's inputs on the model's device: the batch, the index sets
-    of the shared topology and the stacked fused weights of
-    step_params(fused_heads=True, fold_output="off", compute_dtype="float32"),
-    weights cast to bf16 and biases float32."""
-    _check_config(cfg, topo)
-    device = next(model.parameters()).device
-    fcfg = cfg.replace(fused_heads=True, fold_output="off", compute_dtype="float32")
-    with torch.no_grad():
-        steps = step_params(model, fcfg)
-    latent, hidden = cfg.latent_dim, cfg.hidden_dim
-    sizes = {  # (out, in) of each layer: phi w1 w2 w4, then L w1 w2 w4
-        "phi_fused": ((3 * hidden, latent + 5), (3 * hidden, 3 * hidden), (3 * latent, 3 * hidden)),
-        "L_fused": ((3 * hidden, 4 + 4 * latent), (3 * hidden, 3 * hidden), (2 + latent, 3 * hidden)),
-    }
+_ROWS = 16  # rows of an mma tile
+_PHI_L_BLOCK = (1, 0, 2)  # phi aggregate block read by L_theta, L_v, L_m
+
+
+def _fused_shapes(latent: int, hidden: int):
+    """(head, layer, (out, in)) of the fused layout, in pack order."""
+    return [("phi_fused", "w1", (3 * hidden, latent + 5)), ("phi_fused", "w2", (3 * hidden, 3 * hidden)),
+            ("phi_fused", "w4", (3 * latent, 3 * hidden)), ("L_fused", "w1", (3 * hidden, 4 + 4 * latent)),
+            ("L_fused", "w2", (3 * hidden, 3 * hidden)), ("L_fused", "w4", (2 + latent, 3 * hidden))]
+
+
+def _sel(first: int, valid: int, offset: int, width: int) -> List[int]:
+    """first + offset + j for j < width while offset + j < valid, else -1."""
+    return [first + offset + j if offset + j < valid else -1 for j in range(width)]
+
+
+def _tile_plan(latent: int, hidden: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Where each slot of one step's pack comes from: (tiles x 128,) indices
+    into the flat fused weights (the layers of _fused_shapes, each (out, in)
+    row-major, concatenated) and (biases,) indices into the flat fused
+    biases; -1 is padding (zero).
+
+    A tile is the B operand (16 k x 8 n) of one mma.sync m16n8k16: lane l
+    holds (n, k) = (l // 4, 2 (l % 4) + {0, 1, 8, 9}), B[k, n] = W[n, k]. The
+    tiles and biases are in the order megakernel.cu's Dims gives them:
+    phi w1 (n-tile major, k-tile minor; each head's hidden padded to 16),
+    phi w2 and w4 per head, L w1 per head (its own 4 + 2L inputs: v, theta,
+    dp, dq, m and its phi aggregate block, padded to 16k), L w2 per head, L
+    w4 (L_theta, L_v one n-tile each, then L_m)."""
+    if hidden > _ROWS:
+        raise ValueError(f"K4 needs hidden <= {_ROWS}, got {hidden}")
+    lat, hid = latent, hidden
+    lp = -(-lat // 8) * 8
+    pf, li = lat + 5, 4 + 2 * lat
+    kp, kl, nh, nl = -(-pf // 16), -(-li // 16), 2, lp // 8
+    shapes = [sh for _, _, sh in _fused_shapes(lat, hid)]
+    offs = np.cumsum([0] + [o * i for o, i in shapes])
+    lane = np.arange(32)
+    nn = np.repeat((lane // 4)[:, None], 4, axis=1)
+    kk = np.stack([2 * (lane % 4) + d for d in (0, 1, 8, 9)], axis=1)
+    tiles = []
+
+    def tile(layer, rows, cols):
+        r, c = np.asarray(rows)[nn], np.asarray(cols)[kk]
+        tiles.append(np.where((r >= 0) & (c >= 0), offs[layer] + r * shapes[layer][1] + c, -1))
+
+    for nt in range(3 * nh):  # phi w1: every head reads the whole edge input
+        head, half = divmod(nt, nh)
+        for kt in range(kp):
+            tile(0, _sel(head * hid, hid, half * 8, 8), _sel(0, pf, kt * 16, 16))
+    for layer in (1, 2):  # phi w2, w4 per head
+        for h in range(3):
+            width, first = (hid, h * hid) if layer == 1 else (lat, h * lat)
+            for nt in range(nh if layer == 1 else nl):
+                tile(layer, _sel(first, width, nt * 8, 8), _sel(h * hid, hid, 0, 16))
+    for h, blk in enumerate(_PHI_L_BLOCK):  # L w1: the head's own inputs only
+        for nt in range(nh):
+            for kt in range(kl):
+                cols = []
+                for j in range(16):
+                    kin = kt * 16 + j
+                    cols.append(kin if kin < 4 + lat else
+                                4 + lat + blk * lat + kin - 4 - lat if kin < li else -1)
+                tile(3, _sel(h * hid, hid, nt * 8, 8), cols)
+    for h in range(3):  # L w2
+        for nt in range(nh):
+            tile(4, _sel(h * hid, hid, nt * 8, 8), _sel(h * hid, hid, 0, 16))
+    tile(5, [0] + [-1] * 7, _sel(0, hid, 0, 16))  # L w4: L_theta, L_v, L_m
+    tile(5, [1] + [-1] * 7, _sel(hid, hid, 0, 16))
+    for nt in range(nl):
+        tile(5, _sel(2, lat, nt * 8, 8), _sel(2 * hid, hid, 0, 16))
+
+    nb = [3 * hid, 3 * hid, 3 * lat, 3 * hid, 3 * hid, 2 + lat]
+    bo = np.cumsum([0] + nb)
+    bias = []
+    for layer in (0, 1):
+        bias += [i for h in range(3) for i in _sel(bo[layer] + h * hid, hid, 0, 16)]
+    bias += [i for h in range(3) for i in _sel(bo[2] + h * lat, lat, 0, lp)]
+    for layer in (3, 4):
+        bias += [i for h in range(3) for i in _sel(bo[layer] + h * hid, hid, 0, 16)]
+    bias += [bo[5]] + [-1] * 7 + [bo[5] + 1] + [-1] * 7 + _sel(bo[5] + 2, lat, 0, lp)
+    return np.concatenate(tiles).reshape(-1), np.asarray(bias, np.int64)
+
+
+def pack_step_weights(steps, latent: int, hidden: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each step's fused weights (step_params' fused float32 layout) as the
+    kernel's tiles: (K, tiles x 128) bf16 and (K, biases) float32 padded
+    biases, on the weights' device."""
+    widx, bidx = _tile_plan(latent, hidden)
+    shapes = _fused_shapes(latent, hidden)
     wrows, brows = [], []
     for st in steps:
-        wrows.append(torch.cat([st[h][w].reshape(-1) for h in sizes for w in _LAYERS]))
-        brows.append(torch.cat([st[h][b].reshape(-1) for h in sizes for b in _BIASES]))
-    wpack = torch.stack(wrows).to(torch.bfloat16).contiguous()
-    bpack = torch.stack(brows).float().contiguous()
+        flat_w = torch.cat([st[h][w].reshape(-1) for h, w, _ in shapes]).to(torch.bfloat16)
+        flat_b = torch.cat([st[h]["b" + w[1:]].reshape(-1) for h, w, _ in shapes]).float()
+        for flat, idx, rows in ((flat_w, widx, wrows), (flat_b, bidx, brows)):
+            pick = torch.as_tensor(np.clip(idx, 0, None), device=flat.device)
+            keep = torch.as_tensor(idx >= 0, device=flat.device)
+            rows.append(torch.where(keep, flat[pick], torch.zeros((), dtype=flat.dtype,
+                                                                  device=flat.device)))
+    return torch.stack(wrows).contiguous(), torch.stack(brows).contiguous()
 
-    views = []
-    for k in range(cfg.K):
-        wo = bo = 0
-        step = {}
-        for h, shapes in sizes.items():
-            step[h] = {}
-            for w, b, (o, i) in zip(_LAYERS, _BIASES, shapes):
-                step[h][w] = wpack[k, wo:wo + o * i].view(o, i)
-                step[h][b] = bpack[k, bo:bo + o]
-                wo, bo = wo + o * i, bo + o
-        views.append(step)
+
+def phi_schedule(indptr) -> Tuple[np.ndarray, np.ndarray]:
+    """The schedule of the kernel's edge and node stages over the dst CSR
+    (indptr (N + 1,)): the bus boundaries (T + 1,) of its work items, each
+    a run of at most 16 buses whose edges fill at most 16 rows, unless a
+    single bus has more (it then spans several tiles of its own item); and
+    per dst-CSR row (E,) its bus << 1 | 1 on the bus's last row."""
+    indptr = np.asarray(indptr, np.int64)
+    n = len(indptr) - 1
+    bounds = [0]
+    for b in range(n):
+        first = bounds[-1]
+        if b > first and (indptr[b + 1] - indptr[first] > _ROWS or b + 1 - first > _ROWS):
+            bounds.append(b)
+    if n > bounds[-1]:
+        bounds.append(n)
+    counts = np.diff(indptr)
+    bus = np.repeat(np.arange(len(counts)), counts)
+    last = np.zeros(int(indptr[-1]), np.int64)
+    last[indptr[1:][counts > 0] - 1] = 1
+    return np.asarray(bounds, np.int32), (bus * 2 + last).astype(np.int32)
+
+
+# model -> (signature, (wpack, bpack, steps)): the packs are built once per
+# model and kept on its device while its weights stay the same
+_PACKS: "weakref.WeakKeyDictionary[GNS, tuple]" = weakref.WeakKeyDictionary()
+
+
+def _packed(model: GNS, cfg: GNSConfig):
+    sig = (cfg.K, cfg.latent_dim, cfg.hidden_dim,
+           tuple((p.data_ptr(), p._version, str(p.device)) for p in model.parameters()))
+    hit = _PACKS.get(model)
+    if hit is not None and hit[0] == sig:
+        return hit[1]
+    fcfg = cfg.replace(fused_heads=True, fold_output="off", compute_dtype="float32")
+    with torch.no_grad():
+        fused = step_params(model, fcfg)
+        wpack, bpack = pack_step_weights(fused, cfg.latent_dim, cfg.hidden_dim)
+    steps = [{h: {n: t.to(torch.bfloat16) if n.startswith("w") else t.float()
+                  for n, t in layers.items()} for h, layers in st.items()} for st in fused]
+    _PACKS[model] = (sig, (wpack, bpack, steps))
+    return wpack, bpack, steps
+
+
+def megakernel_inputs(model: GNS, cfg: GNSConfig, batch: GridBatch, topo) -> MegakernelInputs:
+    """The launch's inputs on the model's device: the batch, the index sets
+    of the shared topology with the work items and CSR row maps, and the weights of
+    step_params(fused_heads=True, fold_output="off", compute_dtype="float32")
+    tile-packed for the kernel (once per model) and, for the twin, as fused
+    bf16 weights and float32 biases."""
+    _check_config(cfg, topo)
+    device = next(model.parameters()).device
+    wpack, bpack, steps = _packed(model, cfg)
 
     graph = build_graph(batch.buses, batch.lines, batch.generators, topo, device)
     for name in ("src", "dst", "gen"):
@@ -122,29 +257,47 @@ def megakernel_inputs(model: GNS, cfg: GNSConfig, batch: GridBatch, topo) -> Meg
     # pallas_megakernel.py:296 does (a no-op while E >= N)
     q2 = [torch.as_tensor(np.clip(np.asarray(ids), 0, e - 1).astype(np.int32), device=device)
           for ids in (topo.src, topo.dst)]
+    indptr = graph.dst.indptr.cpu().numpy()
+    bounds, row_bus = phi_schedule(indptr)
+    items = np.stack([bounds[:-1], bounds[1:], indptr[bounds[:-1]], indptr[bounds[1:]]], axis=1)
+    pos = []
+    for index in (graph.dst, graph.src, graph.gen):  # the inverse of each CSR's order
+        order = index.order.cpu().numpy()
+        inv = np.empty(order.size, np.int32)
+        inv[order] = np.arange(order.size, dtype=np.int32)
+        pos.append(torch.as_tensor(inv, device=device))
     bt = batch_tensors(batch, device)
     gamma = float(cfg.gamma)
     discounts = torch.tensor([gamma ** (cfg.K - k) for k in range(cfg.K)],
                              dtype=torch.float32, device=device)
     return MegakernelInputs(
         bt.buses, bt.lines, bt.generators, bt.bus_mask, bt.line_mask, bt.gen_mask,
-        graph.src, graph.dst, graph.gen, q2[0], q2[1], wpack, bpack, views, discounts,
-        latent, hidden, float(cfg.leaky_relu_slope),
+        graph.src, graph.dst, graph.gen, q2[0], q2[1],
+        torch.as_tensor(items.astype(np.int32), device=device).contiguous(),
+        torch.as_tensor(row_bus, device=device), *pos, wpack, bpack, steps, discounts,
+        cfg.latent_dim, cfg.hidden_dim, float(cfg.leaky_relu_slope),
     )
 
 
 def _library():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return kern.library("megakernel", {
-        "gns_megakernel": ([p] * 24 + [ll, i, i, i, i, i, i, f, p], i),
+        "gns_megakernel": ([p] * 20 + [i] + [p] * 9 + [ll, i, i, i, i, i, i, f, p], i),
         "gns_megakernel_shared_bytes": ([i, i, i, i, i], ll),
+        "gns_megakernel_blocks_per_sm": ([i, i, i, i, i], i),
         "gns_megakernel_step_sizes": ([i, i, i], ll),
     })
 
 
-def megakernel_cuda(inp: MegakernelInputs) -> Tuple[torch.Tensor, ...]:
+STAGES = ("inputs and state init", "step weights",
+          "edge and node stages (phi heads, aggregate, L heads)", "physics refresh and loss")
+
+
+def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None) -> Tuple[torch.Tensor, ...]:
     """One launch of K4. Returns v, theta, delta_p, delta_q (S, N) and the
-    (total, last) loss (S, 2), float32 on the card."""
+    (total, last) loss (S, 2), float32 on the card. With `clocks`, an
+    (S, len(STAGES)) int64 tensor on the card, the kernel also records each
+    grid's SM clock cycles per stage (chip_smoke.py reads them)."""
     dev = inp.buses.device
     kern._check_cuda("buses", inp.buses, (torch.float32,), 3)
     for name in ("lines", "gens"):
@@ -159,15 +312,25 @@ def megakernel_cuda(inp: MegakernelInputs) -> Tuple[torch.Tensor, ...]:
     if (inp.bus_mask.shape, inp.line_mask.shape, inp.gen_mask.shape) != ((s, n), (s, e), (s, g)):
         raise ValueError("masks do not match the batch")
     ints = [inp.src.ids, inp.dst.ids, inp.srcq, inp.dstq, inp.dst.order, inp.dst.indptr,
-            inp.src.order, inp.src.indptr, inp.gen.order, inp.gen.indptr]
+            inp.src.indptr, inp.gen.order, inp.gen.indptr, inp.dst_pos, inp.src_pos, inp.gen_pos,
+            inp.items.view(-1), inp.row_bus]
     for t in ints:
         kern._check_cuda("index", t, (torch.int32,), 1, dev)
     if (inp.src.n, inp.dst.n, inp.gen.n, inp.src.edges, inp.gen.edges) != (n, n, n, e, g):
         raise ValueError("index sets do not match the batch")
+    if (inp.dst.order.numel(), inp.src.order.numel(), inp.gen.order.numel(), inp.dst_pos.numel(),
+            inp.src_pos.numel(), inp.gen_pos.numel(), inp.row_bus.numel()) != (e, e, g, e, e, g, e):
+        raise ValueError("the CSRs and their row maps do not cover the lines and generators")
+    if inp.items.dim() != 2 or inp.items.shape[1] != 4 or inp.items.data_ptr() % 16:
+        raise ValueError("work items must be a 16-byte aligned (T, 4) int32 tensor")
     lib = _library()
     kern._check_cuda("wpack", inp.wpack, (torch.bfloat16,), 2, dev)
     kern._check_cuda("bpack", inp.bpack, (torch.float32,), 2, dev)
+    if inp.wpack.data_ptr() % 16 or inp.bpack.data_ptr() % 16:
+        raise ValueError("wpack / bpack must be 16-byte aligned (the kernel copies them as 16-byte words)")
     kern._check_cuda("discounts", inp.discounts, (torch.float32,), 1, dev)
+    if not 0.0 <= inp.slope <= 1.0:
+        raise ValueError(f"K4 takes a LeakyReLU slope in [0, 1], got {inp.slope}")
     want = (lib.gns_megakernel_step_sizes(inp.latent, inp.hidden, 0),
             lib.gns_megakernel_step_sizes(inp.latent, inp.hidden, 1))
     if want[0] < 0:
@@ -180,14 +343,19 @@ def megakernel_cuda(inp: MegakernelInputs) -> Tuple[torch.Tensor, ...]:
     if shared > kern.MAX_SHARED_BYTES:
         raise ValueError(f"a grid of N={n}, E={e}, G={g} needs {shared} bytes of shared "
                          f"memory, more than the {kern.MAX_SHARED_BYTES} a block can hold")
+    if clocks is not None:
+        kern._check_cuda("clocks", clocks, (torch.int64,), 2, dev)
+        if clocks.shape != (s, len(STAGES)):
+            raise ValueError(f"clocks must be ({s}, {len(STAGES)}), got {tuple(clocks.shape)}")
     outs = [torch.empty((s, n), dtype=torch.float32, device=dev) for _ in range(4)]
     loss = torch.empty((s, 2), dtype=torch.float32, device=dev)
     rc = lib.gns_megakernel(
         inp.buses.data_ptr(), inp.lines.data_ptr(), inp.gens.data_ptr(),
         inp.bus_mask.data_ptr(), inp.line_mask.data_ptr(), inp.gen_mask.data_ptr(),
-        *(t.data_ptr() for t in ints), inp.wpack.data_ptr(), inp.bpack.data_ptr(),
+        *(t.data_ptr() for t in ints), inp.items.shape[0],
+        inp.wpack.data_ptr(), inp.bpack.data_ptr(),
         inp.discounts.data_ptr(), *(o.data_ptr() for o in outs), loss.data_ptr(),
-        s, n, e, g, k, inp.latent, inp.hidden, inp.slope, kern._stream(dev),
+        None if clocks is None else clocks.data_ptr(), s, n, e, g, k, inp.latent, inp.hidden, inp.slope, kern._stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"K4 megakernel launch failed: cudaError {rc}")
@@ -196,6 +364,15 @@ def megakernel_cuda(inp: MegakernelInputs) -> Tuple[torch.Tensor, ...]:
 
 
 megakernel_cuda.launches = 0
+
+
+def megakernel_occupancy(inp: MegakernelInputs) -> Tuple[int, int]:
+    """(shared bytes one grid needs, grids the card keeps resident per SM)
+    for this batch's grid size, from the kernel library."""
+    lib = _library()
+    n, e, g = inp.buses.shape[1], inp.lines.shape[1], inp.gens.shape[1]
+    return (lib.gns_megakernel_shared_bytes(n, e, g, inp.latent, inp.hidden),
+            lib.gns_megakernel_blocks_per_sm(n, e, g, inp.latent, inp.hidden))
 
 
 def megakernel_plain(inp: MegakernelInputs) -> Tuple[torch.Tensor, ...]:

@@ -47,7 +47,7 @@ SOURCES = {
 }
 # Flags of one source beside NVCC_FLAGS. K4's physics must round after every
 # float32 operation, as its plain twin does, so nvcc may not contract a
-# multiply and an add into an FMA there (its dot products call fmaf).
+# multiply and an add into an FMA there (its products run on mma).
 EXTRA_FLAGS = {"megakernel": ["--fmad=false"]}
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = [

@@ -86,18 +86,28 @@ def test_k4_plain_matches_float32_forward(case):
 
 
 def test_k4_inputs_layout():
-    """The packs hold step_params' fused float32-path weights, bf16-cast,
-    and float32 biases; the discounts are gamma^(K-k)."""
+    """The packs hold the kernel's tiles: 56 tiles of 16 x 8 bf16 and 304
+    padded float32 biases per step at L=20, H=10; the twin's steps are
+    step_params' fused float32-path weights, bf16-cast, and float32 biases;
+    the discounts are gamma^(K-k); the work items cover the buses and the
+    row flags the dst CSR."""
     _, model, batch, topo = _setup(14)
     inp = megakernel_inputs(model, CFG, batch, topo)
     assert inp.wpack.dtype == torch.bfloat16 and inp.bpack.dtype == torch.float32
-    assert inp.wpack.shape == (4, 30 * 25 + 900 + 60 * 30 + 30 * 84 + 900 + 22 * 30)
+    assert inp.wpack.shape == (4, 56 * 128) and inp.bpack.shape == (4, 304)
     steps = step_params(model, CFG.replace(fused_heads=True, fold_output="off"))
     for k in range(CFG.K):
         for head in ("phi_fused", "L_fused"):
             for n, t in steps[k][head].items():
                 want = t.to(torch.bfloat16) if n.startswith("w") else t
                 assert torch.equal(inp.steps[k][head][n], want), (k, head, n)
+    items = inp.items.numpy()
+    assert items[0, 0] == 0 and items[-1, 1] == inp.bus_mask.shape[1]
+    assert np.array_equal(items[1:, 0], items[:-1, 1])
+    assert np.array_equal(items[:, 2:], inp.dst.indptr.numpy()[items[:, :2]])
+    assert inp.row_bus.numel() == inp.dst.order.numel()
+    for index, pos in ((inp.dst, inp.dst_pos), (inp.src, inp.src_pos), (inp.gen, inp.gen_pos)):
+        assert torch.equal(index.order[pos.long()], torch.arange(pos.numel(), dtype=torch.int32))
     np.testing.assert_allclose(inp.discounts.numpy(), [0.9 ** (4 - k) for k in range(4)],
                                rtol=1e-7)
     assert torch.equal(inp.srcq, inp.src.ids) and torch.equal(inp.dstq, inp.dst.ids)
