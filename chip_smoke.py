@@ -12,7 +12,11 @@ Phases, each printing its own lines; any failure exits non-zero:
   3. kernels: K1 (segment-sum) and K2 (gather) against their plain twins on
      random data at the serving path's case300 index sets (S=1024,
      D in {1, 2, 4, 20, 60}, float32 and bfloat16 data), and each kernel's
-     autograd backward (the other kernel) against the plain gradient.
+     autograd backward (the other kernel) against the plain gradient. K2
+     also on a flattened per-sample index, bf16 rows of 2 and 8, f32 rows
+     of 5, and data 2 bytes off a word, so that each of its variants
+     (narrow, word / wide) and unit widths runs; it must equal its twin bit
+     for bit, and its library's launch plan must equal the Python mirror.
   4. parity: the port's forward on the card against the reference golden
      tests/golden/multiphi_K4_L20_H10_case300_grid1.npz.
   5. serving: the shipped case300 checkpoint (K4/L20/H10, reference parity)
@@ -27,7 +31,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      case300 dst index, S=1024, with step 0's phi heads of the shipped
      checkpoint: one K3 launch per forward, against its plain twin on the
      card and on CPU copies; its autograd backward (a recompute through K1
-     and K2, never a plain twin) against the twin's gradients on the CPU.
+     and K2, never a plain twin) against the twin's gradients on the CPU;
+     then a made-up index with a 70-edge hub bus (a work item over two
+     tiles); ptxas must report no spill for K3.
   7. megakernel: gns_torch.ops.megakernel.megakernel_forward_batch (K4) on
      the same 1024 case300 requests and checkpoint as phase 5: one K4
      launch and no K1/K2 launch, against its plain twin on the CPU (worst
@@ -41,7 +47,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      bound, its plain twin and one PyTorch library call where one computes
      the same function, each also as kernel-only device time per launch
      from the profiler, K4 at K=1 beside K=4, and K4 beside the eager
-     forwards.
+     forwards. K2 is timed interleaved with index_select (a b b a, median
+     and range), also in bfloat16 at D=20 and D=2, and the host side of one
+     K2 launch part by part (the launch path before this design beside
+     now). K3 and K4 also one launch at a time with a warm and a cold L2
+     (after a 128 MB write), and K3's registers, shared bytes per block and
+     blocks per SM.
 Then one JSON line with every kernel's numbers, and last the
 {"ok": true, "device": ...} line.
 """
@@ -126,15 +137,91 @@ def device_us(fn, reps: int = 20, pattern: str = ""):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
-             and pattern in ev.name]
-    check(bool(spans), "the profiler recorded no device activity")
-    return sum(spans) / reps, len(spans) / reps
+    # A trace now and then comes back without device activity, or without
+    # some of it (seen in about one of a hundred traces of a run): a trace
+    # counts only with the same number of activities for every call; else
+    # trace again, up to six times in all.
+    for attempt in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
+                 and pattern in ev.name]
+        if spans and len(spans) % reps == 0:
+            return sum(spans) / reps, len(spans) / reps
+        log(f"[timing] trace {attempt + 1} of 6 recorded {len(spans)} device activities matching "
+            f"{pattern!r} over {reps} calls: not the same number per call")
+    fail("the profiler did not record every call's device activity")
+
+
+def abba(a, b, rounds: int = 3):
+    """Readings of two measurements taken in the order a b b a, `rounds`
+    times over, so that a drift of the card or the host falls on both
+    alike: (a's readings, b's readings)."""
+    ra, rb = [], []
+    for _ in range(rounds):
+        ra.append(a())
+        rb.append(b())
+        rb.append(b())
+        ra.append(a())
+    return ra, rb
+
+
+def spread(readings) -> str:
+    """Median and range of a list of readings in us."""
+    return (f"{statistics.median(readings):.2f} us (range {min(readings):.2f} to "
+            f"{max(readings):.2f}, n={len(readings)})")
+
+
+def behind(mine, theirs) -> str:
+    """Whether the readings `mine` lose to `theirs`: 'yes' when every one of
+    mine is above every one of theirs, 'no' when every one is below, else
+    'within noise' (the ranges overlap)."""
+    if min(mine) > max(theirs):
+        return "yes"
+    if max(mine) < min(theirs):
+        return "no"
+    return "within noise"
+
+
+def launch_us(fn, before, reps: int = 10) -> float:
+    """Mean us of fn alone between two CUDA events, each launch after
+    `before()` on the same stream (a sleep, or a write over the L2), so the
+    events time the device, not the host's launch pace."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    for start, end in marks:
+        before()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return 1e3 * sum(start.elapsed_time(end) for start, end in marks) / reps
+
+
+def warm_and_cold(fn, pattern: str, reps: int = 10) -> dict:
+    """fn's launches with the L2 as the previous launch left it (warm) and
+    after a 128 MB write, more than the H100's 50 MB L2 (cold): CUDA events
+    around each launch alone (a ~1 ms sleep ahead of each, so the host has
+    enqueued it before the device gets there), and the profiler's
+    kernel-only device time of the cold launches. In us."""
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+
+    def sleep():
+        torch.cuda._sleep(2_000_000)
+
+    def cold():
+        flush.fill_(1.0)
+        sleep()
+
+    out = dict(warm=launch_us(fn, sleep, reps), cold=launch_us(fn, cold, reps))
+    out["cold_device"], _ = device_us(lambda: (flush.fill_(1.0), fn()), reps=reps, pattern=pattern)
+    del flush
+    return out
 
 
 def phase_device() -> str:
@@ -161,7 +248,8 @@ def phase_build(kern) -> dict:
     for name, one in info.items():
         log(f"[build] {os.path.relpath(one['path'])} built in {one['seconds']:.2f} s")
         lines = [line.strip() for line in one["log"].splitlines()
-                 if "registers" in line or "spill" in line or "error" in line.lower()]
+                 if "registers" in line or "spill" in line or "entry function" in line
+                 or "error" in line.lower()]
         for line in lines:
             log(f"[build]   {line}")
         built[name] = (one["path"], lines)
@@ -202,6 +290,22 @@ def make_compare(errs: dict, tag: str):
     return compare
 
 
+def check_k2(kern, x, ids, compare, what, variants):
+    """K2 on x against its plain twin (bit for bit: a gather is a copy), and
+    its library's launch plan against the Python mirror of it."""
+    got = kern.gather_cuda(x, ids)
+    torch.cuda.synchronize()
+    want = kern.gather_plain(x.cpu(), ids.cpu())
+    on_card = kern.gather_plain(x, ids)
+    compare("K2", got, want, x.dtype, what, on_card)
+    check(torch.equal(got.cpu(), want) and torch.equal(got, on_card), f"K2 {what} is not bit-equal")
+    s, _, d = x.shape
+    args = (s, ids.numel(), d * x.element_size(), x.data_ptr(), got.data_ptr())
+    plan, mirror = kern.gather_plan_cuda(*args), kern.gather_plan(*args)
+    check(plan == mirror, f"K2 plan {plan} != its Python mirror {mirror} ({what})")
+    variants.setdefault(plan["variant"], set()).add(plan["unit"])
+
+
 def phase_kernels(kern, seg, errs):
     """K1 / K2 against their plain twins on random data at the case300
     index sets, S=1024, D in {1, 2, 4, 20, 60}, both dtypes; then each
@@ -217,6 +321,7 @@ def phase_kernels(kern, seg, errs):
     }
     gen = torch.Generator(device=dev).manual_seed(0)
     compare = make_compare(errs, "kernels")
+    variants = {}  # K2 plan variant -> unit bytes seen
 
     for dtype in (torch.float32, torch.bfloat16):
         for d in (1, 2, 4, 20, 60):
@@ -232,11 +337,30 @@ def phase_kernels(kern, seg, errs):
             for iname, rows in (("dst", n), ("src_rows", e)) if d in (1, 4) else (("dst", n),):
                 ix = idx[iname]
                 x = torch.randn((S_SERVE, rows, d), generator=gen, device=dev).to(dtype)
-                got = kern.gather_cuda(x, ix.ids)
-                torch.cuda.synchronize()
-                want = kern.gather_plain(x.cpu(), ix.ids.cpu())
-                on_card = kern.gather_plain(x, ix.ids)
-                compare("K2", got, want, dtype, f"{iname} D={d} {str(dtype)[6:]}", on_card)
+                check_k2(kern, x, ix.ids, compare, f"{iname} D={d} {str(dtype)[6:]}", variants)
+    # K2's other shapes and alignments: a flattened per-sample index (one
+    # sample, a (1, S*N) table), rows of 8 bf16 (one 16-byte word), and
+    # data 2 bytes off a 4-byte word (2-byte units)
+    flat = seg.SegmentIndex(np.tile(topo.dst, (64, 1)), n, dev)
+    for d in (1, 4):
+        x = torch.randn((64, n, d), generator=gen, device=dev)
+        check_k2(kern, flat._flat(x), flat.ids, compare, f"flattened per-sample dst D={d} float32",
+                 variants)
+    for d in (2, 8):
+        x = torch.randn((S_SERVE, n, d), generator=gen, device=dev).to(torch.bfloat16)
+        check_k2(kern, x, idx["dst"].ids, compare, f"dst D={d} bfloat16", variants)
+    x = torch.randn((S_SERVE, n, 5), generator=gen, device=dev)  # 20-byte rows: 4-byte units
+    check_k2(kern, x, idx["dst"].ids, compare, "dst D=5 float32", variants)
+    base = torch.randn((S_SERVE * n * 20 + 1,), generator=gen, device=dev).to(torch.bfloat16)
+    x = base[1:1 + S_SERVE * n * 2].view(S_SERVE, n, 2)
+    check_k2(kern, x, idx["dst"].ids, compare, "dst D=2 bfloat16, data 2 bytes off", variants)
+    x = base[1:1 + S_SERVE * n * 20].view(S_SERVE, n, 20)
+    check_k2(kern, x, idx["dst"].ids, compare, "dst D=20 bfloat16, data 2 bytes off", variants)
+    names = {0: "narrow", 1: "word / wide"}
+    log(f"[kernels] K2 variants checked, with the plan's unit bytes: "
+        + "; ".join(f"{names[v]} {sorted(u)}" for v, u in sorted(variants.items())))
+    check(variants == {0: {2, 4}, 1: {2, 4, 8, 16}},
+          f"K2 variants and unit bytes checked {variants}, want narrow 2 and 4, word / wide 2 to 16")
 
     # autograd: K1's backward launches K2, K2's launches K1
     x = torch.randn((S_SERVE, e, 60), generator=gen, device=dev, requires_grad=True)
@@ -481,7 +605,7 @@ def k3_problem(model, seed: int = 0):
     return m, feats, line_mask, SegmentIndex(topo.dst, n, "cuda"), heads, topo
 
 
-def phase_fused(kern, model, errs):
+def phase_fused(kern, model, errs, built):
     """K3 through its public entry point: forward and autograd backward on
     the card; returns the forward's K3 launch count."""
     from gns_torch.ops import fused
@@ -540,6 +664,38 @@ def phase_fused(kern, model, errs):
     log(f"[fused] backward: all {len(labels)} gradients within rtol {K3_GRAD['rtol']:g} "
         f"atol {K3_GRAD['atol']:g} of the plain twin's autograd on the CPU (the worst, "
         f"{worst_label}, uses {worst:.3f} of its tolerance)")
+
+    # a hub bus with 70 in-edges (a work item over several tiles) beside
+    # buses with none, which case300 (in-degree < 10) never reaches
+    rng = np.random.default_rng(3)
+    dst = np.concatenate([np.full(70, 5), rng.integers(0, 30, 60)])
+    rng.shuffle(dst)
+    hub = SegmentIndex(dst, 32, "cuda")
+    check(np.diff(hub.indptr.cpu().numpy()).max() > fused.ROWS, "the hub index has no hub")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hm = torch.randn((64, 32, m.shape[2]), generator=gen, device="cuda")
+    hf = torch.randn((64, len(dst), 5), generator=gen, device="cuda")
+    hk = (torch.rand((64, len(dst)), generator=gen, device="cuda") > 0.1).float()
+    hw = [w.detach() for w in fused._weights(heads)]
+    with torch.no_grad():
+        got = fused.fused_edge_cuda(hm, hf, hk, hub, hw, 0.01)
+        torch.cuda.synchronize()
+        on_card = fused.fused_edge_stage_plain(hm, hf, hk, hub, heads)
+    want_h = fused.fused_edge_stage_plain(hm.cpu(), hf.cpu(), hk.cpu(), SegmentIndex(dst, 32, "cpu"),
+                                          {h: {k: t.detach().cpu() for k, t in p.items()}
+                                           for h, p in heads.items()})
+    for name, g, w, c in zip(names, got, want_h, on_card):
+        err = max((g.cpu() - w).abs().max().item(), (g - c).abs().max().item())
+        errs["K3"] = max(errs["K3"], err)
+        ok = torch.allclose(g.cpu(), w, **K3_FWD) and torch.allclose(g, c, **K3_FWD)
+        log(f"[fused] hub index (70-edge bus, S=64) {name} max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"K3 {name} on the hub index disagrees with its plain twin")
+
+    spills = [line for line in built["fused_edge"][1] if "spill" in line]
+    log(f"[fused] ptxas: " + " | ".join(built["fused_edge"][1]))
+    check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills),
+          "K3's ptxas report shows spills (or none was printed)")
     return fwd["K3"]
 
 
@@ -618,7 +774,7 @@ def phase_megakernel(kern, cases, model, cfg, errs, built, bf16_readings):
     return got["K4"]
 
 
-def phase_timing_k34(model, cfg, cases, forward_ms, card):
+def phase_timing_k34(model, cfg, cases, forward_ms, card, built):
     """K3 and K4 at the main path's shapes, each against its bound and its
     plain twin on the card, and K4 beside the eager forwards."""
     from gns_torch.models.gns import _block, head_dims
@@ -652,6 +808,30 @@ def phase_timing_k34(model, cfg, cases, forward_ms, card):
         f"{results['K3']['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s = {t_bytes * 1e6:.2f} us; "
         f"{2 * macs / 1e9:.3f} GFLOP at 67 TFLOP/s float32 = {t_ops * 1e6:.2f} us), "
         f"plain twin on the card {plain * 1e3:.2f} us")
+    with torch.no_grad():
+        wc = warm_and_cold(lambda: fused.fused_edge_cuda(m, feats, line_mask, idx, weights, 0.01),
+                           "fused_edge_kernel")
+    results["K3"].update(cold_ms=wc["cold"] / 1e3, cold_device_ms=wc["cold_device"] / 1e3)
+    log(f"[timing] K3 one launch alone (CUDA events): warm L2 {wc['warm']:.2f} us, cold L2 "
+        f"{wc['cold']:.2f} us (after a 128 MB write), cold device {wc['cold_device']:.2f} us "
+        f"(profiler); bound {results['K3']['bound_ms'] * 1e3:.2f} us")
+    shared, per_sm, threads, sms = fused.fused_edge_occupancy(latent, hidden)
+    log(f"[timing] K3 occupancy: {threads} threads and {shared} bytes of shared memory per block, "
+        f"{per_sm} blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+        f"{sms} SMs; ptxas: " + " | ".join(built["fused_edge"][1]))
+    with torch.no_grad():
+        clocks = torch.zeros((per_sm * sms * threads // 32, len(fused.CLOCK_PHASES)),
+                             dtype=torch.int64, device="cuda")
+        fused.fused_edge_cuda(m, feats, line_mask, idx, weights, 0.01, clocks)
+        torch.cuda.synchronize()
+    c = clocks[clocks[:, 3] > 0].double()
+    per_unit = (c[:, :3].sum(0) / c[:, 3].sum()).tolist()
+    total = c[:, :3].sum(1)
+    log(f"[timing] K3 phase clocks (SM cycles per warp, the kernel's own `clocks`, {c.shape[0]} warps, "
+        f"{int(c[:, 3].min())} to {int(c[:, 3].max())} units of up to {fused.ROWS} CSR rows each): per "
+        f"unit " + "; ".join(f"{name} {v:.0f} ({100 * v / sum(per_unit):.1f}%)"
+                             for name, v in zip(fused.CLOCK_PHASES, per_unit))
+        + f"; per warp {total.mean():.0f} mean, {total.min():.0f} min, {total.max():.0f} max")
     log(f"[timing] K3 library_ms: " + no_library.format("the fused edge stage", ""))
 
     batch = batch_from_cases(cases)
@@ -703,6 +883,12 @@ def phase_timing_k34(model, cfg, cases, forward_ms, card):
         f"{tile_flops / BF16_TC_FLOPS * 1e6:.2f} us at 989 TFLOP/s; plain twin on the card "
         f"{plain:.3f} ms")
     with torch.no_grad():
+        wc = warm_and_cold(lambda: megakernel_cuda(inp), "megakernel", reps=5)
+    results["K4"].update(cold_ms=wc["cold"] / 1e3, cold_device_ms=wc["cold_device"] / 1e3)
+    log(f"[timing] K4 one launch alone (CUDA events): warm L2 {wc['warm']:.2f} us, cold L2 "
+        f"{wc['cold']:.2f} us (after a 128 MB write), cold device {wc['cold_device']:.2f} us "
+        f"(profiler)")
+    with torch.no_grad():
         clocks = torch.zeros((s, len(STAGES)), dtype=torch.int64, device="cuda")
         megakernel_cuda(inp, clocks)
         torch.cuda.synchronize()
@@ -752,14 +938,20 @@ def phase_profile(model, cfg, bt, graph, reps: int = 3):
         return [start.elapsed_time(end) for start, end in marks]
 
     untraced = windows()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced = windows()
+    for attempt in range(6):  # as device_us: a trace that missed activity is traced again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = windows()
+        spans = sorted(
+            (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
+        )
+        if spans and len(spans) % reps == 0:
+            break
+        log(f"[profile] trace {attempt + 1} of 6 recorded {len(spans)} device activities over "
+            f"{reps} forwards: not the same number per forward")
+    check(bool(spans) and len(spans) % reps == 0,
+          "the profiler did not record every forward's device activity")
     window_ms = sum(traced)
-    spans = sorted(
-        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
-        if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
-    )
-    check(bool(spans), "the profiler recorded no device activity")
     busy_us, reach = 0.0, float("-inf")
     for lo, hi in spans:  # union of the intervals
         if hi > reach:
@@ -783,7 +975,7 @@ def phase_profile(model, cfg, bt, graph, reps: int = 3):
         key=lambda r: -dev_us(r),
     )
     total = sum(dev_us(r) for r in rows)
-    for label, pat in (("K1", "segment_sum_"), ("K2", "gather_rows")):
+    for label, pat in (("K1", "segment_sum_"), ("K2", "gns_gather_")):
         mine = [r for r in rows if pat in r.key]
         t = sum(dev_us(r) for r in mine)
         log(f"[profile]   {label} {pat}: {t / reps / 1e3:.3f} ms per forward, "
@@ -793,6 +985,95 @@ def phase_profile(model, cfg, bt, graph, reps: int = 3):
         if t > 0:
             log(f"[profile]   {t / reps / 1e3:8.3f} ms {100 * t / total:5.1f}% "
                 f"x{r.count // reps:<4d} {r.key[:90]}")
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host microseconds per call of fn (perf_counter over `reps` calls,
+    after a warm-up), then a synchronize outside the window."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def phase_launch_path(kern, ix, rows: int):
+    """The host side of one K2 launch at Q2 D=1 (S=1024, 411 rows), part by
+    part: what the launch path before this design paid (the signature table
+    built and the library looked up per call, two _check_cuda,
+    torch.empty(device=), torch.cuda.current_stream) beside what it pays
+    now, a whole call of the old path, then whole calls of gather_cuda and
+    index_select timed interleaved (a b b a)."""
+    import ctypes
+
+    x = torch.randn((S_SERVE, rows, 1), device="cuda")
+    ids, dev = ix.ids, x.get_device()
+    ids_l = ids.long()
+    out = x.new_empty((S_SERVE, ids.numel(), 1))
+    fn = kern.function("gns_gather")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dtypes = (torch.float32, torch.bfloat16)
+
+    def old_lookup():
+        sig = {"gns_segment_sum": ([p, i, p, p, p, ll, ll, ll, ll, p], i),
+               "gns_gather": ([p, p, p, ll, ll, ll, ll, p], i)}
+        return kern.library("segment"), sig
+
+    def old_checks():
+        kern._check_cuda("data", x, dtypes, 3)
+        kern._check_cuda("ids", ids, (torch.int32,), 1, x.device)
+
+    def new_checks():
+        return (x.is_cuda and x.dtype in dtypes and x.dim() == 3 and x.is_contiguous()
+                and ids.is_cuda and ids.dtype == torch.int32 and ids.dim() == 1
+                and ids.is_contiguous() and ids.get_device() == dev)
+
+    def launch():
+        return fn(x.data_ptr(), ids.data_ptr(), out.data_ptr(), S_SERVE, rows, ids.numel(), 4,
+                  kern._stream_of(dev))
+
+    def old_gather():
+        old_lookup()
+        old_checks()
+        o = torch.empty((S_SERVE, ids.numel(), 1), dtype=x.dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), ids.data_ptr(), o.data_ptr(), S_SERVE, rows, ids.numel(), 4, stream)
+        check(rc == 0, f"K2 launch failed: cudaError {rc}")
+        return o
+
+    parts = [
+        ("signature table + library lookup (before)", old_lookup),
+        ("bound function lookup (now)", lambda: kern.function("gns_gather")),
+        ("two _check_cuda (before)", old_checks),
+        ("combined check (now)", new_checks),
+        ("torch.empty(device=) (before)", lambda: torch.empty(
+            (S_SERVE, ids.numel(), 1), dtype=x.dtype, device=x.device)),
+        ("new_empty (now)", lambda: x.new_empty((S_SERVE, ids.numel(), 1))),
+        ("torch.cuda.current_stream().cuda_stream (before)",
+         lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        (f"raw current stream (now; {'torch._C._cuda_getCurrentRawStream' if kern._raw_stream else 'public API'})",
+         lambda: kern._stream_of(dev)),
+        ("ctypes call with nothing to launch (S=0): the FFI alone",
+         lambda: fn(x.data_ptr(), ids.data_ptr(), out.data_ptr(), 0, rows, ids.numel(), 4,
+                    kern._stream_of(dev))),
+        ("ctypes call, the launch itself", launch),
+        ("whole call, the launch path before this design", old_gather),
+    ]
+    for label, f in parts:
+        log(f"[launch path] K2 Q2 D=1: {label}: {host_us(f):.2f} us host per call")
+    mine, theirs = abba(lambda: host_us(lambda: kern.gather_cuda(x, ids)),
+                        lambda: host_us(lambda: x.index_select(1, ids_l)))
+    log(f"[launch path] K2 Q2 D=1 whole calls, a b b a: gather_cuda now {spread(mine)} host per "
+        f"call; index_select {spread(theirs)}; gather_cuda behind: {behind(mine, theirs)}")
+    # the handle follows the current stream: on a side stream it is that stream's
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        check(kern._stream_of(dev) == side.cuda_stream, "the stream handle did not follow the current stream")
+    check(kern._stream_of(dev) == torch.cuda.current_stream().cuda_stream, "stream handle is stale")
 
 
 def phase_timing(kern, seg, cases, model, cfg, card):
@@ -879,6 +1160,8 @@ def phase_timing(kern, seg, cases, model, cfg, card):
                     bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations")
 
     def k2_case(ix, rows_in, d, dtype, label):
+        """K2 beside index_select, the two timed interleaved (a b b a), in
+        CUDA-event time (3 rounds) and in kernel-only device time (1)."""
         x = torch.randn((S_SERVE, rows_in, d), generator=gen, device="cuda").to(dtype)
         esz = x.element_size()
         uniq = int(np.unique(ix.ids.cpu().numpy()).size)
@@ -886,27 +1169,28 @@ def phase_timing(kern, seg, cases, model, cfg, card):
         def kernel():
             return kern.gather_cuda(x, ix.ids)
 
-        ms = cuda_ms(kernel)
         plain = cuda_ms(lambda: kern.gather_plain(x, ix.ids))
         ids_l = ix.ids.long()
 
         def library():
             return x.index_select(1, ids_l)
 
-        lib = cuda_ms(library)
-        dev, acts = device_us(kernel, pattern="gather_rows")
-        lib_dev, lib_acts = device_us(library)
+        ms, lib = abba(lambda: 1e3 * cuda_ms(kernel), lambda: 1e3 * cuda_ms(library))
+        dev, lib_dev = abba(lambda: device_us(kernel, pattern="gns_gather_")[0],
+                            lambda: device_us(library)[0], rounds=1)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[timing] K2 {label} D={d} {str(dtype)[6:]}: {ms * 1e3:.2f} us (CUDA events), "
-            f"{dev:.2f} us device (profiler, x{acts:g} per call), bound "
-            f"{bound * 1e3:.2f} us ({nbytes / 1e6:.1f} MB), plain {plain * 1e3:.2f} us, "
-            f"index_select {lib * 1e3:.2f} us (CUDA events), {lib_dev:.2f} us device (x{lib_acts:g})")
-        verdict = "kernel" if dev > lib_dev else ("host launch path" if ms > lib else "neither")
-        log(f"[timing] K2 {label} D={d}: behind index_select in device time: "
-            f"{'yes' if dev > lib_dev else 'no'}; in CUDA-event time: {'yes' if ms > lib else 'no'} "
-            f"(a loss is in: {verdict})")
-        return dict(ms=ms, plain_ms=plain, bound_ms=bound, library_ms=lib, device_ms=dev / 1e3,
-                    bound_by="bytes")
+        what = f"K2 {label} D={d} {str(dtype)[6:]}"
+        log(f"[timing] {what}: bound {bound * 1e3:.2f} us ({nbytes / 1e6:.1f} MB), plain "
+            f"{plain * 1e3:.2f} us (CUDA events)")
+        log(f"[timing] {what} CUDA events, K2 then index_select, a b b a: K2 {spread(ms)}; "
+            f"index_select {spread(lib)}")
+        log(f"[timing] {what} device (profiler, the kernel alone), a b b a: K2 {spread(dev)}; "
+            f"index_select {spread(lib_dev)}")
+        log(f"[timing] {what}: behind index_select in device time: {behind(dev, lib_dev)}; "
+            f"in CUDA-event time: {behind(ms, lib)}")
+        med = statistics.median
+        return dict(ms=med(ms) / 1e3, plain_ms=plain, bound_ms=bound, library_ms=med(lib) / 1e3,
+                    device_ms=med(dev) / 1e3, bound_by="bytes")
 
     f32, bf16 = torch.float32, torch.bfloat16
     results["K1"] = k1_case(dst, e, 60, f32, "phi aggregate at dst")
@@ -919,6 +1203,9 @@ def phase_timing(kern, seg, cases, model, cfg, card):
     k2_case(dst, n, 2, f32, "(v, theta) at dst")
     k2_case(rows_idx, e, 1, f32, "Q2 delta[src]")
     k2_case(rows_idx, e, 4, f32, "Q2 geometry[src]")
+    k2_case(dst, n, 20, bf16, "m[dst]")
+    k2_case(dst, n, 2, bf16, "(v, theta) at dst")
+    phase_launch_path(kern, rows_idx, e)
     return results, forward_ms
 
 
@@ -942,14 +1229,14 @@ def main() -> int:
     cases, model, cfg, launches, recorded, bf16_readings = phase_serving(kern, seg)
     phase_path_inputs(kern, recorded, errs)
     del recorded
-    launches["K3"] = phase_fused(kern, model, errs)
+    launches["K3"] = phase_fused(kern, model, errs, built)
     launches["K4"] = phase_megakernel(kern, cases, model, cfg, errs, built, bf16_readings)
     timing, forward_ms = phase_timing(kern, seg, cases, model, cfg, card)
-    timing.update(phase_timing_k34(model, cfg, cases, forward_ms, card))
+    timing.update(phase_timing_k34(model, cfg, cases, forward_ms, card, built))
     kernels = []
     meta = {
         "K1": ("segment_sum_warp / segment_sum_narrow", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:29"),
-        "K2": ("gather_rows", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:45"),
+        "K2": ("gns_gather_narrow / gns_gather_wide", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:45"),
         "K3": ("fused_edge_kernel", "gns_torch/csrc/fused_edge.cu", "gns_tpu/ops/pallas_fused.py:50"),
         "K4": ("megakernel", "gns_torch/csrc/megakernel.cu", "gns_tpu/ops/pallas_megakernel.py:88"),
     }

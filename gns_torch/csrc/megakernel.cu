@@ -52,7 +52,7 @@
 //     head, zero-padded, bf16, so a lane reads its fragment as one 8-byte
 //     word; each step's pack is copied to shared memory as it is;
 //   * the edge and node stages run per work item of whole buses
-//     (ops/megakernel.py phi_schedule: at most 16 buses whose edges fill at
+//     (ops/segment.py schedule_items at 16: at most 16 buses whose edges fill at
 //     most 16 rows, or one bus of more): bus n's messages read m[n] only, so
 //     one warp runs the phi heads over its buses' edges in dst-CSR order,
 //     sums the masked outputs (o + b4) * line_mask per bus in that order in

@@ -38,13 +38,37 @@
 //       Narrow rows (D <= 4; generator init D=4, physics pairs D=2, pg and
 //       in-degree D=1): one thread per (sample, bus) holds the whole row in
 //       registers, loaded as one float4 / float2 where aligned.
-//   K2: a copy of rows. Each thread moves one 16-, 8-, 4- or 2-byte word of
-//       an output row (the widest that divides the row), neighbouring
-//       threads on neighbouring words, then rows, so loads and stores are
-//       coalesced and every load is as wide as the row allows.
-// Neither stages data in shared memory: each input row is read by the few
-// threads of one output row, so there is no reuse for shared memory to
-// capture, and the edge lists of a case (max in-degree < 10) are short.
+//       K1 stages nothing in shared memory: each input row is read by the
+//       few threads of one output row, so there is no reuse to capture, and
+//       the edge lists of a case (max in-degree < 10) are short.
+//   K2: a copy of rows, bit for bit. Samples run on blockIdx.y (a stride
+//       loop past 65535), all index math inside a sample is 32-bit, and the
+//       variant is picked by the row's size and the pointers' alignment
+//       (gather_plan, mirrored by ops/segment_kernels.py gather_plan):
+//       Narrow rows (2 to 16 bytes, but not one aligned 8- or 16-byte
+//       word: D=1 and D=3 f32, D <= 8 bf16 but D=4 and D=8; the pg and Q2
+//       delta gathers, bf16 (v, theta)): a row is too small to keep a
+//       thread busy, so each thread writes one aligned 16-byte chunk of
+//       the sample's output (several consecutive edges;
+//       the sample's first and last chunk, which it may share with the
+//       neighbouring sample, unit by unit), so stores are 16-byte and
+//       coalesced. Units are 4 bytes where the row and pointers allow,
+//       else 2; the units per row are a template constant, so finding a
+//       unit's edge is a multiply and a shift. An id is loaded once per
+//       chunk it reaches. The source table is read in place: a sample's
+//       table (1.2 to 1.6 KB on the serving path) stays in L1 / L2 while the block
+//       reads it, and copying it into shared memory first (as the TPU
+//       kernel kept the whole (1, N, D) block in VMEM) was slower or no
+//       faster on the card at the serving path's shapes (PERF.md).
+//       Word rows (one aligned 8- or 16-byte word: D=2 and D=4 f32, D=4
+//       and D=8 bf16) and wide rows (> 16 bytes: m[dst] at D=20 f32): one
+//       block per tile of edges of a sample stages the tile's ids in
+//       shared memory once, and its threads copy the tile's words (16-byte
+//       where the row and pointers allow) in order, neighbouring threads
+//       on neighbouring words, rows back to back; the row of a word is a
+//       32-bit multiply-high by a host-made reciprocal, exact for the
+//       tile's word count. For a row of one word the copy is a thread per
+//       row, which on the card beat 16-byte chunks of two 8-byte rows.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,8 +78,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;                // K2
-constexpr long long kMaxBlocks = 1LL << 20;  // K2: grid-stride beyond this
+constexpr int kNarrowGatherThreads = 256;    // K2, rows of 2-16 bytes but one 8- or 16-byte word
+constexpr int kChunksPerThread = 2;          // K2, narrow: 16-byte chunks per thread and block pass
+constexpr int kWideThreads = 256;            // K2, rows of whole 8- or 16-byte words, or > 16 bytes
+constexpr int kWideWordsPerThread = 4;       // K2, wide: words per thread in a tile
+constexpr int kMaxTileEdges = 1024;          // K2, wide: ids staged per block
 constexpr int kWarpsPerBlock = 8;            // K1, wide rows: buses per block
 constexpr int kNarrowThreads = 128;          // K1, narrow rows: buses per block
 constexpr long long kMaxGridY = 65535;       // K1: samples per launch row, then a stride loop
@@ -184,27 +211,144 @@ __global__ void segment_sum_narrow(const T* __restrict__ data, const int* __rest
   }
 }
 
-// out[s, e, w] = data[s, ids[e], w] over rows of W words of type V.
-template <typename V>
-__global__ void gather_rows(const V* __restrict__ data,
-                            const int* __restrict__ ids,
-                            V* __restrict__ out,
-                            long long S, long long R, long long E, long long W) {
-  const long long total = S * E * W;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const long long w = i % W;
-    const long long se = i / W;
-    const long long e = se % E;
-    const long long s = se / E;
-    out[i] = data[(s * R + ids[e]) * W + w];
+// C units of type U (16 bytes) stored as one 16-byte word.
+template <typename U>
+__device__ __forceinline__ void store_chunk(U* p, const U* v) {
+  if constexpr (sizeof(U) == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w[q] = (uint32_t)v[2 * q] | ((uint32_t)v[2 * q + 1] << 16);
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-inline unsigned int blocks_for(long long total) {
-  long long b = (total + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return (unsigned int)(b < 1 ? 1 : b);
+// K2, rows of W units of type U, W * sizeof(U) <= 16: out[s, e, :] =
+// data[s, ids[e], :]. A sample's output is cut into the 16-byte chunks of
+// its address range; chunk k covers its units [k C - head, k C - head + C).
+// Block (x, y) writes chunks [x per, (x + 1) per) of samples y, y + gridDim.y, ...
+template <typename U, int W>
+__global__ void __launch_bounds__(kNarrowGatherThreads) gns_gather_narrow(
+    const U* __restrict__ data, const int* __restrict__ ids, U* __restrict__ out,
+    int S, int R, int E, int per) {
+  constexpr int C = 16 / sizeof(U);
+  const int units = E * W;
+  for (int s = blockIdx.y; s < S; s += gridDim.y) {
+    const U* tab = data + (long long)s * R * W;
+    U* dst = out + (long long)s * units;
+    const int head = (int)((reinterpret_cast<uintptr_t>(dst) & 15) / sizeof(U));
+    const int chunks = (head + units + C - 1) / C;
+    const int k1 = min(chunks, (int)(blockIdx.x + 1) * per);
+    for (int k = blockIdx.x * per + threadIdx.x; k < k1; k += blockDim.x) {
+      const int h0 = k * C - head;
+      if (h0 >= 0 && h0 + C <= units) {
+        U v[C];
+        int last = -1, id = 0;
+#pragma unroll
+        for (int q = 0; q < C; ++q) {
+          const int e = (h0 + q) / W;  // W is a constant: a multiply and a shift
+          if (e != last) { id = __ldg(ids + e); last = e; }
+          v[q] = tab[id * W + (h0 + q - e * W)];
+        }
+        store_chunk<U>(dst + h0, v);
+      } else {  // the sample's first or last chunk: only its own units
+        for (int q = 0; q < C; ++q) {
+          const int h = h0 + q;
+          if (h < 0 || h >= units) continue;
+          const int e = h / W;
+          dst[h] = tab[__ldg(ids + e) * W + (h - e * W)];
+        }
+      }
+    }
+  }
+}
+
+// K2, rows of W words of type V (one aligned 8- or 16-byte word, or rows
+// over 16 bytes): block (x, y) copies edges [x tile, x tile + tile) of
+// samples y, y + gridDim.y, ...; the tile's ids are staged once. Word f of
+// the tile is word f - r W of its row r = f / W: f itself for W = 1, else
+// umulhi(f, magic), exact while tile * W * W < 2^32 (host).
+template <typename V>
+__global__ void __launch_bounds__(kWideThreads) gns_gather_wide(
+    const V* __restrict__ data, const int* __restrict__ ids, V* __restrict__ out,
+    int S, int R, int E, int W, int tile, unsigned int magic) {
+  __shared__ int sid[kMaxTileEdges];
+  const int e0 = blockIdx.x * tile;
+  const int n = min(tile, E - e0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) sid[i] = ids[e0 + i];
+  __syncthreads();
+  const int words = n * W;
+  for (int s = blockIdx.y; s < S; s += gridDim.y) {
+    const V* src = data + (long long)s * R * W;
+    V* dst = out + ((long long)s * E + e0) * W;
+#pragma unroll 4
+    for (int f = threadIdx.x; f < words; f += blockDim.x) {
+      const int r = W == 1 ? f : (int)__umulhi((unsigned int)f, magic);
+      dst[f] = src[sid[r] * W + (f - r * W)];
+    }
+  }
+}
+
+// K2's launch plan, a pure function of the shape and the two addresses;
+// ops/segment_kernels.py gather_plan mirrors it and chip_smoke.py checks the
+// two agree. variant 0: narrow; 1: word / wide.
+struct GatherPlan {
+  int variant, unit, units_per_row, grid_x, grid_y, per;
+  unsigned int magic;
+};
+
+GatherPlan gather_plan(long long S, long long E, long long row_bytes, uintptr_t data,
+                       uintptr_t out) {
+  GatherPlan p{};
+  const uintptr_t align = data | out;
+  p.grid_y = (int)(S < kMaxGridY ? S : kMaxGridY);
+  if (row_bytes <= 16 && !((row_bytes == 8 || row_bytes == 16) && align % row_bytes == 0)) {
+    p.unit = (row_bytes % 4 == 0 && align % 4 == 0) ? 4 : 2;
+    p.units_per_row = (int)(row_bytes / p.unit);
+    const long long c = 16 / p.unit, units = E * p.units_per_row;
+    const long long chunks = (units + c - 1) / c + 1;  // most a sample's range can touch
+    p.per = kNarrowGatherThreads * kChunksPerThread;
+    p.grid_x = (int)((chunks + p.per - 1) / p.per);
+    return p;
+  }
+  p.variant = 1;
+  p.unit = (row_bytes % 16 == 0 && align % 16 == 0) ? 16
+         : (row_bytes % 8 == 0 && align % 8 == 0) ? 8
+         : (row_bytes % 4 == 0 && align % 4 == 0) ? 4 : 2;
+  p.units_per_row = (int)(row_bytes / p.unit);
+  long long most = (long long)kWideThreads * kWideWordsPerThread / p.units_per_row;
+  most = most < 1 ? 1 : (most > kMaxTileEdges ? kMaxTileEdges : most);
+  const long long tiles = (E + most - 1) / most;
+  p.per = (int)((E + tiles - 1) / tiles);  // balanced tiles
+  p.grid_x = (int)((E + p.per - 1) / p.per);
+  p.magic = p.units_per_row == 1 ? 0u
+                                 : (unsigned int)((1ULL << 32) / (unsigned long long)p.units_per_row + 1);
+  return p;
+}
+
+// The narrow kernel for the plan's units per row W (1 .. 16 / sizeof(U)).
+template <typename U, int W = 1>
+int launch_narrow_gather(const GatherPlan& p, const void* data, const int* ids, void* out,
+                         int S, int R, int E, cudaStream_t st) {
+  if constexpr (W * sizeof(U) > 16) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (p.units_per_row != W)
+      return launch_narrow_gather<U, W + 1>(p, data, ids, out, S, R, E, st);
+    gns_gather_narrow<U, W><<<dim3(p.grid_x, p.grid_y), kNarrowGatherThreads, 0, st>>>(
+        static_cast<const U*>(data), ids, static_cast<U*>(out), S, R, E, p.per);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename V>
+int launch_wide_gather(const GatherPlan& p, const void* data, const int* ids, void* out,
+                       int S, int R, int E, cudaStream_t st) {
+  gns_gather_wide<V><<<dim3(p.grid_x, p.grid_y), kWideThreads, 0, st>>>(
+      static_cast<const V*>(data), ids, static_cast<V*>(out), S, R, E, p.units_per_row, p.per,
+      p.magic);
+  return (int)cudaGetLastError();
 }
 
 // Words of VEC elements fit a row of D when D is a multiple of VEC and
@@ -264,17 +408,6 @@ int launch_sum(const T* data, const int* order, const int* indptr, float* out, l
   return (int)cudaGetLastError();
 }
 
-template <typename V>
-int launch_gather(const void* data, const int* ids, void* out,
-                  long long S, long long R, long long E, long long row_bytes,
-                  cudaStream_t stream) {
-  const long long W = row_bytes / (long long)sizeof(V);
-  const long long total = S * E * W;
-  gather_rows<V><<<blocks_for(total), kThreads, 0, stream>>>(
-      static_cast<const V*>(data), ids, static_cast<V*>(out), S, R, E, W);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -295,24 +428,43 @@ int gns_segment_sum(const void* data, int dtype, const int* order, const int* in
   return (int)cudaErrorInvalidValue;
 }
 
+// K2's launch plan for these arguments, as the 7 ints variant, unit bytes,
+// units per row, grid x, grid y, per (chunks per block, or edges per
+// tile), magic (as a signed int). Returns 0.
+int gns_gather_plan(long long S, long long E, long long row_bytes, const void* data,
+                    const void* out, int* plan) {
+  const GatherPlan p = gather_plan(S, E, row_bytes, reinterpret_cast<uintptr_t>(data),
+                                   reinterpret_cast<uintptr_t>(out));
+  const int v[7] = {p.variant, p.unit, p.units_per_row, p.grid_x, p.grid_y, p.per, (int)p.magic};
+  for (int i = 0; i < 7; ++i) plan[i] = v[i];
+  return 0;
+}
+
 // K2. data (S, R, row_bytes) -> out (S, E, row_bytes), rows picked by
 // ids (E,) in [0, R). row_bytes must be a multiple of 2 and both pointers
-// aligned to the word width this picks (the wrapper checks).
+// 2-byte aligned; R * row_bytes and E * row_bytes under 2^31 (the wrapper
+// checks).
 int gns_gather(const void* data, const int* ids, void* out,
                long long S, long long R, long long E, long long row_bytes,
                void* stream) {
   if (S * E * row_bytes == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uintptr_t align = reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(out);
-  if (row_bytes % 16 == 0 && align % 16 == 0)
-    return launch_gather<uint4>(data, ids, out, S, R, E, row_bytes, st);
-  if (row_bytes % 8 == 0 && align % 8 == 0)
-    return launch_gather<uint2>(data, ids, out, S, R, E, row_bytes, st);
-  if (row_bytes % 4 == 0 && align % 4 == 0)
-    return launch_gather<unsigned int>(data, ids, out, S, R, E, row_bytes, st);
-  if (row_bytes % 2 == 0 && align % 2 == 0)
-    return launch_gather<unsigned short>(data, ids, out, S, R, E, row_bytes, st);
-  return (int)cudaErrorInvalidValue;
+  if (row_bytes % 2 != 0 || align % 2 != 0 || R * row_bytes >= (1LL << 31) ||
+      E * row_bytes >= (1LL << 31) || row_bytes >= (1LL << 16) || S >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const GatherPlan p = gather_plan(S, E, row_bytes, reinterpret_cast<uintptr_t>(data),
+                                   reinterpret_cast<uintptr_t>(out));
+  const int s = (int)S, r = (int)R, e = (int)E;
+  switch (p.variant * 32 + p.unit) {
+    case 0 * 32 + 4: return launch_narrow_gather<uint32_t>(p, data, ids, out, s, r, e, st);
+    case 0 * 32 + 2: return launch_narrow_gather<uint16_t>(p, data, ids, out, s, r, e, st);
+    case 1 * 32 + 16: return launch_wide_gather<uint4>(p, data, ids, out, s, r, e, st);
+    case 1 * 32 + 8: return launch_wide_gather<uint2>(p, data, ids, out, s, r, e, st);
+    case 1 * 32 + 4: return launch_wide_gather<uint32_t>(p, data, ids, out, s, r, e, st);
+    case 1 * 32 + 2: return launch_wide_gather<uint16_t>(p, data, ids, out, s, r, e, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -35,15 +35,14 @@ CPU tests reach it:
                       16 x 8 bf16 B-operand tiles in mma lane order (the
                       layout megakernel.cu's Dims describes), and the
                       biases padded the same way; packed once per model;
-  phi_schedule        the work items of its edge and node stages (runs of
-                      at most 16 buses whose lines fill at most 16 dst-CSR
-                      rows, or one bus with more) and each row's bus with a
-                      last-row flag.
+  schedule_items      (ops/segment.py, at ROWS = 16) the work items of its
+                      edge and node stages (runs of at most 16 buses whose
+                      lines fill at most 16 dst-CSR rows, or one bus with
+                      more) and each row's bus with a last-row flag.
 """
 
 from __future__ import annotations
 
-import ctypes
 import weakref
 from typing import Dict, List, NamedTuple, Tuple
 
@@ -52,7 +51,7 @@ import torch
 
 from gns_torch.models.gns import GNS, GNSOutput, batch_tensors, step_params
 from gns_torch.ops import segment_kernels as kern
-from gns_torch.ops.segment import SegmentIndex
+from gns_torch.ops.segment import SegmentIndex, schedule_items
 from gns_torch.physics.common import build_graph
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch
@@ -93,7 +92,7 @@ def _check_config(cfg: GNSConfig, topo) -> None:
         raise ValueError("megakernel requires a shared GridTopology")
 
 
-_ROWS = 16  # rows of an mma tile
+ROWS = 16  # rows of an mma tile: dst-CSR rows and buses per work item
 _PHI_L_BLOCK = (1, 0, 2)  # phi aggregate block read by L_theta, L_v, L_m
 
 
@@ -122,8 +121,8 @@ def _tile_plan(latent: int, hidden: int) -> Tuple[np.ndarray, np.ndarray]:
     phi w2 and w4 per head, L w1 per head (its own 4 + 2L inputs: v, theta,
     dp, dq, m and its phi aggregate block, padded to 16k), L w2 per head, L
     w4 (L_theta, L_v one n-tile each, then L_m)."""
-    if hidden > _ROWS:
-        raise ValueError(f"K4 needs hidden <= {_ROWS}, got {hidden}")
+    if hidden > ROWS:
+        raise ValueError(f"K4 needs hidden <= {ROWS}, got {hidden}")
     lat, hid = latent, hidden
     lp = -(-lat // 8) * 8
     pf, li = lat + 5, 4 + 2 * lat
@@ -195,28 +194,6 @@ def pack_step_weights(steps, latent: int, hidden: int) -> Tuple[torch.Tensor, to
     return torch.stack(wrows).contiguous(), torch.stack(brows).contiguous()
 
 
-def phi_schedule(indptr) -> Tuple[np.ndarray, np.ndarray]:
-    """The schedule of the kernel's edge and node stages over the dst CSR
-    (indptr (N + 1,)): the bus boundaries (T + 1,) of its work items, each
-    a run of at most 16 buses whose edges fill at most 16 rows, unless a
-    single bus has more (it then spans several tiles of its own item); and
-    per dst-CSR row (E,) its bus << 1 | 1 on the bus's last row."""
-    indptr = np.asarray(indptr, np.int64)
-    n = len(indptr) - 1
-    bounds = [0]
-    for b in range(n):
-        first = bounds[-1]
-        if b > first and (indptr[b + 1] - indptr[first] > _ROWS or b + 1 - first > _ROWS):
-            bounds.append(b)
-    if n > bounds[-1]:
-        bounds.append(n)
-    counts = np.diff(indptr)
-    bus = np.repeat(np.arange(len(counts)), counts)
-    last = np.zeros(int(indptr[-1]), np.int64)
-    last[indptr[1:][counts > 0] - 1] = 1
-    return np.asarray(bounds, np.int32), (bus * 2 + last).astype(np.int32)
-
-
 # model -> (signature, (wpack, bpack, steps)): the packs are built once per
 # model and kept on its device while its weights stay the same
 _PACKS: "weakref.WeakKeyDictionary[GNS, tuple]" = weakref.WeakKeyDictionary()
@@ -257,9 +234,7 @@ def megakernel_inputs(model: GNS, cfg: GNSConfig, batch: GridBatch, topo) -> Meg
     # pallas_megakernel.py:296 does (a no-op while E >= N)
     q2 = [torch.as_tensor(np.clip(np.asarray(ids), 0, e - 1).astype(np.int32), device=device)
           for ids in (topo.src, topo.dst)]
-    indptr = graph.dst.indptr.cpu().numpy()
-    bounds, row_bus = phi_schedule(indptr)
-    items = np.stack([bounds[:-1], bounds[1:], indptr[bounds[:-1]], indptr[bounds[1:]]], axis=1)
+    items, row_bus = schedule_items(graph.dst.indptr.cpu().numpy(), ROWS)
     pos = []
     for index in (graph.dst, graph.src, graph.gen):  # the inverse of each CSR's order
         order = index.order.cpu().numpy()
@@ -273,20 +248,10 @@ def megakernel_inputs(model: GNS, cfg: GNSConfig, batch: GridBatch, topo) -> Meg
     return MegakernelInputs(
         bt.buses, bt.lines, bt.generators, bt.bus_mask, bt.line_mask, bt.gen_mask,
         graph.src, graph.dst, graph.gen, q2[0], q2[1],
-        torch.as_tensor(items.astype(np.int32), device=device).contiguous(),
+        torch.as_tensor(items, device=device).contiguous(),
         torch.as_tensor(row_bus, device=device), *pos, wpack, bpack, steps, discounts,
         cfg.latent_dim, cfg.hidden_dim, float(cfg.leaky_relu_slope),
     )
-
-
-def _library():
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    return kern.library("megakernel", {
-        "gns_megakernel": ([p] * 20 + [i] + [p] * 9 + [ll, i, i, i, i, i, i, f, p], i),
-        "gns_megakernel_shared_bytes": ([i, i, i, i, i], ll),
-        "gns_megakernel_blocks_per_sm": ([i, i, i, i, i], i),
-        "gns_megakernel_step_sizes": ([i, i, i], ll),
-    })
 
 
 STAGES = ("inputs and state init", "step weights",
@@ -323,7 +288,6 @@ def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None) -> Tuple
         raise ValueError("the CSRs and their row maps do not cover the lines and generators")
     if inp.items.dim() != 2 or inp.items.shape[1] != 4 or inp.items.data_ptr() % 16:
         raise ValueError("work items must be a 16-byte aligned (T, 4) int32 tensor")
-    lib = _library()
     kern._check_cuda("wpack", inp.wpack, (torch.bfloat16,), 2, dev)
     kern._check_cuda("bpack", inp.bpack, (torch.float32,), 2, dev)
     if inp.wpack.data_ptr() % 16 or inp.bpack.data_ptr() % 16:
@@ -331,15 +295,15 @@ def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None) -> Tuple
     kern._check_cuda("discounts", inp.discounts, (torch.float32,), 1, dev)
     if not 0.0 <= inp.slope <= 1.0:
         raise ValueError(f"K4 takes a LeakyReLU slope in [0, 1], got {inp.slope}")
-    want = (lib.gns_megakernel_step_sizes(inp.latent, inp.hidden, 0),
-            lib.gns_megakernel_step_sizes(inp.latent, inp.hidden, 1))
+    step_sizes = kern.function("gns_megakernel_step_sizes")
+    want = (step_sizes(inp.latent, inp.hidden, 0), step_sizes(inp.latent, inp.hidden, 1))
     if want[0] < 0:
         raise ValueError(f"K4 is not built for latent {inp.latent}, hidden {inp.hidden}")
     if (inp.wpack.shape[1], inp.bpack.shape[1]) != want or inp.bpack.shape[0] != k \
             or inp.discounts.numel() != k:
         raise ValueError(f"weight packs {tuple(inp.wpack.shape)} / {tuple(inp.bpack.shape)} "
                          f"do not match K={k} steps of {want}")
-    shared = lib.gns_megakernel_shared_bytes(n, e, g, inp.latent, inp.hidden)
+    shared = kern.function("gns_megakernel_shared_bytes")(n, e, g, inp.latent, inp.hidden)
     if shared > kern.MAX_SHARED_BYTES:
         raise ValueError(f"a grid of N={n}, E={e}, G={g} needs {shared} bytes of shared "
                          f"memory, more than the {kern.MAX_SHARED_BYTES} a block can hold")
@@ -349,13 +313,13 @@ def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None) -> Tuple
             raise ValueError(f"clocks must be ({s}, {len(STAGES)}), got {tuple(clocks.shape)}")
     outs = [torch.empty((s, n), dtype=torch.float32, device=dev) for _ in range(4)]
     loss = torch.empty((s, 2), dtype=torch.float32, device=dev)
-    rc = lib.gns_megakernel(
+    rc = kern.function("gns_megakernel")(
         inp.buses.data_ptr(), inp.lines.data_ptr(), inp.gens.data_ptr(),
         inp.bus_mask.data_ptr(), inp.line_mask.data_ptr(), inp.gen_mask.data_ptr(),
         *(t.data_ptr() for t in ints), inp.items.shape[0],
         inp.wpack.data_ptr(), inp.bpack.data_ptr(),
         inp.discounts.data_ptr(), *(o.data_ptr() for o in outs), loss.data_ptr(),
-        None if clocks is None else clocks.data_ptr(), s, n, e, g, k, inp.latent, inp.hidden, inp.slope, kern._stream(dev),
+        None if clocks is None else clocks.data_ptr(), s, n, e, g, k, inp.latent, inp.hidden, inp.slope, kern._stream_of(dev.index),
     )
     if rc != 0:
         raise RuntimeError(f"K4 megakernel launch failed: cudaError {rc}")
@@ -369,10 +333,9 @@ megakernel_cuda.launches = 0
 def megakernel_occupancy(inp: MegakernelInputs) -> Tuple[int, int]:
     """(shared bytes one grid needs, grids the card keeps resident per SM)
     for this batch's grid size, from the kernel library."""
-    lib = _library()
     n, e, g = inp.buses.shape[1], inp.lines.shape[1], inp.gens.shape[1]
-    return (lib.gns_megakernel_shared_bytes(n, e, g, inp.latent, inp.hidden),
-            lib.gns_megakernel_blocks_per_sm(n, e, g, inp.latent, inp.hidden))
+    return (kern.function("gns_megakernel_shared_bytes")(n, e, g, inp.latent, inp.hidden),
+            kern.function("gns_megakernel_blocks_per_sm")(n, e, g, inp.latent, inp.hidden))
 
 
 def megakernel_plain(inp: MegakernelInputs) -> Tuple[torch.Tensor, ...]:

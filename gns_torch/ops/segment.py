@@ -25,7 +25,7 @@ they still run as one kernel launch over a (1, S*E, D) view.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -175,3 +175,30 @@ def broadcast_col0_segment_sum(data_col, index: SegmentIndex, latent_dim: int,
     )
     out[..., 0] = col0.to(data_col.dtype)
     return out
+
+
+def schedule_items(indptr, rows: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Work items over a CSR by segment (indptr (N + 1,)) for a kernel whose
+    warp holds whole segments: a (T, 4) int32 table of (first segment, end
+    segment, first CSR row, end row), each item a run of at most `rows`
+    segments whose rows fill at most `rows` CSR rows, unless one segment
+    has more (it is then an item of its own, over several tiles); and per
+    CSR row (E,) its segment << 1 | 1 on the segment's last row. K3 reads it
+    at ops/fused.py ROWS = 64 over the dst CSR, K4 at ops/megakernel.py
+    ROWS = 16."""
+    indptr = np.asarray(indptr, np.int64)
+    n = len(indptr) - 1
+    bounds = [0]
+    for b in range(n):
+        first = bounds[-1]
+        if b > first and (indptr[b + 1] - indptr[first] > rows or b + 1 - first > rows):
+            bounds.append(b)
+    if n > bounds[-1]:
+        bounds.append(n)
+    bounds = np.asarray(bounds, np.int64)
+    counts = np.diff(indptr)
+    seg = np.repeat(np.arange(n), counts)
+    last = np.zeros(int(indptr[-1]), np.int64)
+    last[indptr[1:][counts > 0] - 1] = 1
+    items = np.stack([bounds[:-1], bounds[1:], indptr[bounds[:-1]], indptr[bounds[1:]]], axis=1)
+    return items.astype(np.int32), (seg * 2 + last).astype(np.int32)

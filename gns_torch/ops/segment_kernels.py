@@ -12,9 +12,14 @@ source's and flags' hash, loads the library with ctypes, and wraps K1/K2:
   gather_cuda(data, ids)                    K2: (S, R, D) -> (S, E, D), same dtype
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else, allocates the output with torch.empty, launches on
-torch.cuda.current_stream(), raises if the launch reports an error, and
-adds one to its `launches` count per launch.
+anything else, allocates the output with new_empty, launches on the
+device's current stream, raises if the launch reports an error, and adds
+one to its `launches` count per launch. At D <= 4 a launch moves a few MB
+and its time is the host's, so the launch path is kept lean: every C
+function is resolved and typed once, when its library loads (SIGNATURES,
+`function`); the checks are one combined test, with `_check_cuda` run
+only to name what failed; and the stream handle comes from PyTorch's raw
+accessor of the current stream, read anew on every call.
 
 The plain twins (`segment_sum_plain`: index_add_, `gather_plain`:
 index_select) take the same arguments and compute the same function. The
@@ -88,8 +93,9 @@ def build_kernels(names=None) -> dict:
     library, keyed by the hash of the source and the flags, exists. One
     nvcc per source, all started together.
 
-    Returns {name: {"path", "seconds", "log"}}: seconds is 0.0 and log
-    empty for a library that was already built.
+    Returns {name: {"path", "seconds", "log"}}: nvcc's output (ptxas's
+    register and spill report) is kept beside the library, so a library
+    that was already built comes with its build's log and 0.0 seconds.
     """
     names = list(SOURCES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -97,7 +103,11 @@ def build_kernels(names=None) -> dict:
     for name in names:
         path = _library_path(name)
         if os.path.exists(path):
-            info[name] = {"path": path, "seconds": 0.0, "log": ""}
+            log = ""
+            if os.path.exists(f"{path}.log"):
+                with open(f"{path}.log") as f:
+                    log = f.read()
+            info[name] = {"path": path, "seconds": 0.0, "log": log}
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
@@ -112,6 +122,9 @@ def build_kernels(names=None) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}) on {SOURCES[name]}:\n{log}")
             continue
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", f"{path}.log")
         os.replace(tmp, path)
         info[name] = {"path": path, "seconds": seconds, "log": log}
     if failed:
@@ -119,27 +132,57 @@ def build_kernels(names=None) -> dict:
     return info
 
 
-def library(name: str, signatures: dict):
-    """The loaded library of SOURCES[name], built at first use, with each
-    C function's (argtypes, restype) set from `signatures`."""
+_p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# Every C function of every library: (argtypes, restype), set once when the
+# library loads. Pointers and the stream are c_void_p (a Python int), so
+# ctypes does not cut them to 32 bits.
+SIGNATURES = {
+    "segment": {
+        "gns_segment_sum": ([_p, _i, _p, _p, _p, _ll, _ll, _ll, _ll, _p], _i),
+        "gns_gather": ([_p, _p, _p, _ll, _ll, _ll, _ll, _p], _i),
+        "gns_gather_plan": ([_ll, _ll, _ll, _p, _p, _p], _i),
+    },
+    "fused_edge": {
+        "gns_fused_edge": ([_p] * 11 + [_ll, _i, _i, _i, _i, _i, _f, _p, _p], _i),
+        "gns_fused_edge_weight_floats": ([_i, _i], _i),
+        "gns_fused_edge_occupancy": ([_i, _i, _p], _i),
+    },
+    "megakernel": {
+        "gns_megakernel": ([_p] * 20 + [_i] + [_p] * 9 + [_ll, _i, _i, _i, _i, _i, _i, _f, _p], _i),
+        "gns_megakernel_shared_bytes": ([_i, _i, _i, _i, _i], _ll),
+        "gns_megakernel_blocks_per_sm": ([_i, _i, _i, _i, _i], _i),
+        "gns_megakernel_step_sizes": ([_i, _i, _i], _ll),
+    },
+}
+_LIBRARY_OF = {fn: name for name, fns in SIGNATURES.items() for fn in fns}
+_fns = {}  # C function name -> its bound ctypes function, resolved once
+
+
+def library(name: str):
+    """The loaded library of SOURCES[name], built at first use, with every
+    C function of SIGNATURES[name] resolved and typed once."""
     if name not in _libs:
         lib = ctypes.CDLL(build_kernels([name])[name]["path"])
-        for fn, (argtypes, restype) in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            bound = getattr(lib, fn)
+            bound.argtypes, bound.restype = argtypes, restype
+            _fns[fn] = bound
         _libs[name] = lib
     return _libs[name]
 
 
-def _library():
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return library("segment", {
-        "gns_segment_sum": ([p, i, p, p, p, ll, ll, ll, ll, p], i),
-        "gns_gather": ([p, p, p, ll, ll, ll, ll, p], i),
-    })
+def function(fn: str):
+    """The bound C function `fn` of its library (loaded at first use)."""
+    bound = _fns.get(fn)
+    if bound is None:
+        library(_LIBRARY_OF[fn])
+        bound = _fns[fn]
+    return bound
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device=None):
+    """Raises unless t is a contiguous CUDA tensor of one of `dtypes`, with
+    `ndim` dimensions, on `device` (a torch.device) if given."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
     if device is not None and t.device != device:
@@ -152,27 +195,47 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+# The raw handle of the current stream of a device index, as a Python int:
+# PyTorch's own accessor where the build has it (it reads the current stream
+# on every call, as torch.cuda.current_stream does, without building a
+# Stream object), else the public API.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_of(index: int) -> int:
+    """The current stream's handle on CUDA device `index`."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+_DATA_DTYPES = (torch.float32, torch.bfloat16)
+_INT32 = (torch.int32,)
 
 
 def segment_sum_cuda(data: torch.Tensor, order: torch.Tensor,
                      indptr: torch.Tensor, num_segments: int) -> torch.Tensor:
     """K1: out[s, n, :] = sum of data[s, order[indptr[n]:indptr[n+1]], :],
     accumulated in f32 in edge order. Returns float32 (S, num_segments, D)."""
-    _check_cuda("data", data, (torch.float32, torch.bfloat16), 3)
-    _check_cuda("order", order, (torch.int32,), 1, data.device)
-    _check_cuda("indptr", indptr, (torch.int32,), 1, data.device)
+    dev = data.get_device()
+    if not (data.is_cuda and data.dtype in _DATA_DTYPES and data.dim() == 3
+            and data.is_contiguous() and order.is_cuda and order.dtype == torch.int32
+            and order.dim() == 1 and order.is_contiguous() and order.get_device() == dev
+            and indptr.is_cuda and indptr.dtype == torch.int32 and indptr.dim() == 1
+            and indptr.is_contiguous() and indptr.get_device() == dev):
+        _check_cuda("data", data, _DATA_DTYPES, 3)
+        _check_cuda("order", order, _INT32, 1, data.device)
+        _check_cuda("indptr", indptr, _INT32, 1, data.device)
     if indptr.numel() != num_segments + 1:
         raise ValueError(f"indptr has {indptr.numel()} entries, want {num_segments + 1}")
     s, e, d = data.shape
-    out = torch.empty((s, num_segments, d), dtype=torch.float32, device=data.device)
-    if out.numel() == 0:
+    out = data.new_empty((s, num_segments, d), dtype=torch.float32)
+    if s * num_segments * d == 0:
         return out
-    rc = _library().gns_segment_sum(
+    rc = function("gns_segment_sum")(
         data.data_ptr(), 0 if data.dtype == torch.float32 else 1,
         order.data_ptr(), indptr.data_ptr(), out.data_ptr(),
-        s, e, num_segments, d, _stream(data.device),
+        s, e, num_segments, d, _stream_of(dev),
     )
     if rc != 0:
         raise RuntimeError(f"K1 segment-sum launch failed: cudaError {rc}")
@@ -183,16 +246,20 @@ def segment_sum_cuda(data: torch.Tensor, order: torch.Tensor,
 def gather_cuda(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """K2: out[s, e, :] = data[s, ids[e], :]. ids must lie in
     [0, data.shape[1]) (checked on the host by SegmentIndex)."""
-    _check_cuda("data", data, (torch.float32, torch.bfloat16), 3)
-    _check_cuda("ids", ids, (torch.int32,), 1, data.device)
+    dev = data.get_device()
+    if not (data.is_cuda and data.dtype in _DATA_DTYPES and data.dim() == 3
+            and data.is_contiguous() and ids.is_cuda and ids.dtype == torch.int32
+            and ids.dim() == 1 and ids.is_contiguous() and ids.get_device() == dev):
+        _check_cuda("data", data, _DATA_DTYPES, 3)
+        _check_cuda("ids", ids, _INT32, 1, data.device)
     s, r, d = data.shape
-    e = ids.numel()
-    out = torch.empty((s, e, d), dtype=data.dtype, device=data.device)
-    if out.numel() == 0:
+    e = ids.shape[0]
+    out = data.new_empty((s, e, d))
+    if s * e * d == 0:
         return out
-    rc = _library().gns_gather(
+    rc = function("gns_gather")(
         data.data_ptr(), ids.data_ptr(), out.data_ptr(),
-        s, r, e, d * data.element_size(), _stream(data.device),
+        s, r, e, d * data.element_size(), _stream_of(dev),
     )
     if rc != 0:
         raise RuntimeError(f"K2 gather launch failed: cudaError {rc}")
@@ -223,3 +290,53 @@ def segment_sum_plain(data: torch.Tensor, order: torch.Tensor,
 def gather_plain(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """K2's plain twin: index_select along the row axis."""
     return data.index_select(1, ids.long())
+
+
+# K2's launch plan, mirrored from csrc/segment.cu gather_plan (the same
+# constants); chip_smoke.py checks the two agree at every shape it runs.
+_NARROW_THREADS, _CHUNKS_PER_THREAD = 256, 2
+_WIDE_THREADS, _WIDE_WORDS_PER_THREAD, _MAX_TILE_EDGES, _MAX_GRID_Y = 256, 4, 1024, 65535
+PLAN_FIELDS = ("variant", "unit", "units_per_row", "grid_x", "grid_y", "per", "magic")
+
+
+def gather_plan(s: int, e: int, row_bytes: int, data_ptr: int, out_ptr: int) -> dict:
+    """How K2 covers a gather of rows of row_bytes into (s, e, row_bytes):
+    variant 0 (rows of 2-16 bytes that are not one aligned 8- or 16-byte
+    word, written as 16-byte chunks of several rows) or 1 (one aligned 8-
+    or 16-byte word, or wider rows); the unit it moves in bytes and the
+    units per row; the grid; per (16-byte chunks per block for 0, edges per
+    tile for 1); and, for 1 with several units per row, the multiplier
+    whose high word divides by the units per row."""
+    align = data_ptr | out_ptr
+    plan = dict(variant=1, unit=2, units_per_row=0, grid_x=0, grid_y=min(s, _MAX_GRID_Y),
+                per=0, magic=0)
+    if row_bytes <= 16 and not (row_bytes in (8, 16) and align % row_bytes == 0):
+        plan["variant"] = 0
+        plan["unit"] = 4 if row_bytes % 4 == 0 and align % 4 == 0 else 2
+        plan["units_per_row"] = w = row_bytes // plan["unit"]
+        c = 16 // plan["unit"]
+        chunks = -(-(e * w) // c) + 1
+        plan["per"] = _NARROW_THREADS * _CHUNKS_PER_THREAD
+        plan["grid_x"] = -(-chunks // plan["per"])
+        return plan
+    for unit in (16, 8, 4, 2):
+        if row_bytes % unit == 0 and align % unit == 0:
+            plan["unit"] = unit
+            break
+    plan["units_per_row"] = w = row_bytes // plan["unit"]
+    most = min(max(_WIDE_THREADS * _WIDE_WORDS_PER_THREAD // w, 1), _MAX_TILE_EDGES)
+    tiles = -(-e // most)
+    plan["per"] = -(-e // tiles)
+    plan["grid_x"] = -(-e // plan["per"])
+    plan["magic"] = 0 if w == 1 else (1 << 32) // w + 1
+    return plan
+
+
+def gather_plan_cuda(s: int, e: int, row_bytes: int, data_ptr: int, out_ptr: int) -> dict:
+    """The plan K2's library computes for the same arguments (needs the built
+    library, not a card)."""
+    buf = (ctypes.c_int * len(PLAN_FIELDS))()
+    function("gns_gather_plan")(s, e, row_bytes, data_ptr, out_ptr, ctypes.addressof(buf))
+    plan = dict(zip(PLAN_FIELDS, buf))
+    plan["magic"] &= 0xFFFFFFFF
+    return plan

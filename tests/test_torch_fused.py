@@ -146,8 +146,18 @@ def test_k3_autograd_function_recomputes_through_the_primitives(problem, monkeyp
 
 def test_k3_cuda_wrapper_and_index_checks(problem):
     tm, tf, tmask, idx, heads = _torch(problem)
+    libs = dict(fused.kern._libs)
     with pytest.raises(ValueError, match="CUDA"):
         fused_edge_cuda(tm, tf, tmask, idx, fused._weights(heads), SLOPE)
+    assert fused.kern._libs == libs  # refused before any build or library load
+    # what the kernel would read beside the inputs: the padded weights and
+    # the work items over this index's dst CSR
+    packed = fused.pack_weights(fused._weights(heads), L, H)
+    assert packed.shape == (fused.pack_index(L, H).size,) and packed.dtype == torch.float32
+    items, row_bus = fused._schedule(idx)
+    assert items.dtype == torch.int32 and items.shape[1] == 4 and items.is_contiguous()
+    assert items[0, 0] == 0 and items[-1, 1] == N and row_bus.shape == (E,)
+    assert fused._schedule(idx)[0] is items  # made once per index
     per_sample = SegmentIndex(np.tile(problem[3], (S, 1)), N)
     with pytest.raises(ValueError, match="shared"):
         fused_edge_stage(tm, tf, tmask, per_sample, heads, SLOPE)

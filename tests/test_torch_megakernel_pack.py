@@ -24,7 +24,7 @@ from gns_tpu.utils.config import GNSConfig as JConfig
 from gns_torch.models.convert import module_from_jax_params
 from gns_torch.models.gns import step_params
 from gns_torch.ops import megakernel as mk
-from gns_torch.ops.segment import SegmentIndex
+from gns_torch.ops.segment import SegmentIndex, schedule_items
 from gns_torch.ops.segment_kernels import segment_sum_plain
 from gns_torch.utils.augment import generate_cases
 from gns_torch.utils.config import GNSConfig
@@ -197,11 +197,10 @@ def _kernel_aggregate(x, index: SegmentIndex):
     row order, stored at a row flagged as its bus's last and reset there, so
     a bus spanning tiles carries its sum across them; a bus with no line
     keeps its zeros."""
-    items, row_bus = mk.phi_schedule(index.indptr.numpy())
-    order, indptr = index.order.numpy(), index.indptr.numpy()
+    items, row_bus = schedule_items(index.indptr.numpy(), mk.ROWS)
+    order = index.order.numpy()
     out = torch.zeros((x.shape[0], index.n, x.shape[2]), dtype=torch.float32)
-    for b0, b1 in zip(items[:-1], items[1:]):
-        r0, r1 = indptr[b0], indptr[b1]
+    for _, _, r0, r1 in items.tolist():
         acc = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32)
         for row0 in range(r0, r1, 16):
             for j in range(row0, min(row0 + 16, r1)):
@@ -228,13 +227,15 @@ def test_dst_order_aggregate_equals_segment_sum(case):
         batch = batch_from_cases(list(generate_cases(case, 1, seed=0)))
         dst, n = extract_shared_topology(batch).dst, batch.buses.shape[1]
     index = SegmentIndex(dst, n, "cpu")
-    items, row_bus = mk.phi_schedule(index.indptr.numpy())
+    items, row_bus = schedule_items(index.indptr.numpy(), mk.ROWS)
     assert np.array_equal(row_bus >> 1, index.ids.numpy()[index.order.numpy()])
-    assert items[0] == 0 and items[-1] == n and np.all(np.diff(items) > 0)
+    bounds = np.append(items[:, 0], items[-1, 1])
+    assert bounds[0] == 0 and bounds[-1] == n and np.all(np.diff(bounds) > 0)
     indptr = index.indptr.numpy()
-    rows = indptr[items[1:]] - indptr[items[:-1]]
-    assert np.all(np.diff(items) <= 16)  # at most 16 buses: one L tile
-    assert np.all((rows <= 16) | (np.diff(items) == 1))  # 16 rows, or one hub bus
+    assert np.array_equal(items[:, 2:], np.stack([indptr[bounds[:-1]], indptr[bounds[1:]]], 1))
+    rows = items[:, 3] - items[:, 2]
+    assert np.all(np.diff(bounds) <= 16)  # at most 16 buses: one L tile
+    assert np.all((rows <= 16) | (np.diff(bounds) == 1))  # 16 rows, or one hub bus
     x = torch.as_tensor(np.random.default_rng(7).standard_normal((3, len(dst), 3 * LAT)),
                         dtype=torch.float32)
     assert torch.equal(_kernel_aggregate(x, index),
