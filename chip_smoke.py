@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gns_torch's serving path on one NVIDIA GPU (an H100) and check it.
+"""Drive gns_torch's serving and training paths on one NVIDIA GPU (an H100)
+and check them.
 
     python3 chip_smoke.py
 
@@ -53,12 +54,32 @@ Phases, each printing its own lines; any failure exits non-zero:
      now). K3 and K4 also one launch at a time with a warm and a cold L2
      (after a 128 MB write), and K3's registers, shared bytes per block and
      blocks per SM.
+  9. train: the trainer (gns_torch/train/trainer.py) at bench.py's model,
+     case300 K=4 latent 20 hidden 10 multiple phi, batch 256 (the grids of
+     generate_cases(300, 255, seed=0), one shared topology, dense), from
+     GNS(cfg, seed=0), in two configurations: A, float32 with reference
+     parity (TF32 off); B, bench.py's default, bfloat16 MLPs with the paper
+     physics (fold on). For each: one update step's gradients against the
+     port's CPU path (TRAIN_GRAD); its K1 / K2 launches, forward and
+     backward apart, against the counts the code gives (train_launches) and
+     K3 = K4 = 0; every distinct K1 / K2 launch of the step replayed on its
+     recorded input, bit-equal to its plain twin; 20 eager Adam steps through
+     make_train_step (finite losses, the last below the first, the launch
+     counts 20 steps' worth), then the same 20 steps through
+     make_epoch_step's CUDA graph from the same start, whose parameters must
+     equal the eager run's in A. A padded case9 + case14 batch takes one
+     step through the kernels' backward. Timing: ms per step eager (host
+     wall and CUDA events) and by graph replay, train edges/s (bench.py:137's
+     definition), the device's busy and idle share of one eager and one
+     replayed step, and each new K1 / K2 shape of the backward against its
+     bound and index_add_ / index_select.
 Then one JSON line with every kernel's numbers, and last the
 {"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -96,6 +117,18 @@ K4_CARD_VS_CPU = (
 )
 K3_FWD = dict(rtol=1e-5, atol=1e-5)  # exact float32; dot products add in another order
 K3_GRAD = dict(rtol=2e-4, atol=1e-5)  # tests/test_fused.py:61
+S_TRAIN = 256  # bench.py's batch
+TRAIN_STEPS = 20
+# One update step's gradients, card vs the port's CPU path on the same batch
+# and weights, per parameter: max |card - cpu| <= rel * max |cpu| + abs.
+# A (float32) keeps the bound tests/test_torch_train.py holds the CPU path
+# to against jax.grad: on an NVIDIA H100 80GB HBM3 its worst leaf used
+# 0.064 of it. B (bfloat16 MLPs): a GEMM that adds in another order flips
+# a bf16 rounding, which the K steps and the backward carry; on the same
+# card the worst leaf read 7.629e-06 against a largest |grad| of 9.995e-04
+# (7.6e-03 of it) and the next 4.883e-04 against 8.350e-02, so rel is 2e-2,
+# about 2.6 times the worst reading.
+TRAIN_GRAD = {"A": (2e-4, 1e-6), "B": (2e-2, 1e-6)}
 
 
 def log(*parts):
@@ -137,23 +170,37 @@ def device_us(fn, reps: int = 20, pattern: str = ""):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # A trace now and then comes back without device activity, or without
-    # some of it (seen in about one of a hundred traces of a run): a trace
-    # counts only with the same number of activities for every call; else
-    # trace again, up to six times in all.
+    # The profiler now and then leaves out a call's device activity, and in
+    # some processes, once it starts, it leaves out one activity of nearly
+    # every trace (19 of 20 calls' launches): a trace counts when each kind
+    # of activity numbers a whole multiple of `reps`; else trace again, up
+    # to six times. If none does, the fullest trace gives each kind's mean
+    # duration times its count per call (its count over `reps`, rounded),
+    # and the line says so.
+    fullest = {}
     for attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        spans = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-                 if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
-                 and pattern in ev.name]
-        if spans and len(spans) % reps == 0:
-            return sum(spans) / reps, len(spans) / reps
-        log(f"[timing] trace {attempt + 1} of 6 recorded {len(spans)} device activities matching "
+        kinds = collections.defaultdict(list)
+        for ev in prof.events():
+            if (ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
+                    and pattern in ev.name):
+                kinds[ev.name].append(ev.time_range.end - ev.time_range.start)
+        n = sum(map(len, kinds.values()))
+        if n and all(len(spans) % reps == 0 for spans in kinds.values()):
+            return sum(map(sum, kinds.values())) / reps, n / reps
+        log(f"[timing] trace {attempt + 1} of 6 recorded {n} device activities matching "
             f"{pattern!r} over {reps} calls: not the same number per call")
-    fail("the profiler did not record every call's device activity")
+        if n > sum(map(len, fullest.values())):
+            fullest = kinds
+    per_call = {name: round(len(spans) / reps) for name, spans in fullest.items()}
+    check(any(per_call.values()), "the profiler recorded no device activity in six traces")
+    log(f"[timing] every trace missed some activity: per call, each kind's mean over the fullest "
+        f"trace ({sum(map(len, fullest.values()))} activities) times {per_call}")
+    return (sum(statistics.mean(fullest[name]) * k for name, k in per_call.items()),
+            float(sum(per_call.values())))
 
 
 def abba(a, b, rounds: int = 3):
@@ -907,17 +954,77 @@ def phase_timing_k34(model, cfg, cases, forward_ms, card, built):
     return results
 
 
-def phase_profile(model, cfg, bt, graph, reps: int = 3):
-    """Device busy and idle share of the float32 forward, from one trace.
+def trace_busy(run, reps: int = 3, what: str = "forward", expect=None):
+    """Device windows and busy time of `run`, from one trace.
 
-    Each of `reps` forwards runs alone on an idle stream, between two CUDA
-    events; the events' span is that forward's window on the device,
-    launch gaps included. The kernels the profiler saw in the same trace
-    give the busy time (the union of their intervals). Only device
-    activity is traced; the same forwards untraced, just before, show what
-    the tracing costs the host's launch pace."""
+    Each of `reps` runs goes alone on an idle stream, between two CUDA
+    events; the events' span is that run's window on the device, launch
+    gaps included. The kernels the profiler saw in the same trace give the
+    busy time (the union of their intervals). Only device activity is
+    traced; the same runs untraced, just before, show what the tracing
+    costs the host's launch pace. A trace counts when every run left the
+    same number of device activities, or, with `expect` ({name pattern:
+    activities per run}), when the activities of each pattern number
+    `reps` times that (a training step's other activities, copies and
+    fills, need not repeat exactly). Returns (untraced windows, traced
+    windows in ms, busy ms over all runs, the sorted device spans, the
+    profile)."""
+
+    def complete(spans):
+        if expect is None:
+            return bool(spans) and len(spans) % reps == 0
+        return all(sum(1 for *_, name in spans if pat in name) == reps * n
+                   for pat, n in expect.items())
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def windows():
+        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(reps)]
+        for start, end in marks:
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in marks]
+
+    untraced = windows()
+    fullest = None
+    for attempt in range(6):  # as device_us: a trace that missed activity is traced again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = windows()
+        spans = sorted(
+            (ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
+        )
+        if complete(spans):
+            break
+        log(f"[profile] trace {attempt + 1} of 6 recorded {len(spans)} device activities over "
+            f"{reps} runs of the {what}: not the same number per run")
+        if fullest is None or len(spans) > len(fullest[1]):
+            fullest = (traced, spans, prof)
+    else:
+        # as device_us: the fullest trace is read, and the busy time then
+        # lacks the few activities the profiler left out
+        traced, spans, prof = fullest
+        check(bool(spans), f"the profiler recorded no device activity of the {what} in six traces")
+        log(f"[profile] every trace of the {what} missed some activity: the fullest ({len(spans)} "
+            f"activities) is read, its busy time short by what it missed")
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi, _ in spans:  # union of the intervals
+        if hi > reach:
+            busy_us += hi - max(lo, reach)
+            reach = hi
+    busy_ms = busy_us / 1e3
+    check(0 < busy_ms <= sum(traced) * 1.05,
+          f"busy {busy_ms:.3f} ms outside windows {sum(traced):.3f} ms")
+    return untraced, traced, busy_ms, spans, prof
+
+
+def phase_profile(model, cfg, bt, graph, reps: int = 3):
+    """Device busy and idle share of the float32 forward, from one trace
+    (trace_busy)."""
+    from torch.autograd import DeviceType
 
     from gns_torch.models.gns import gns_forward, step_params
 
@@ -926,39 +1033,12 @@ def phase_profile(model, cfg, bt, graph, reps: int = 3):
         gns_forward(steps, cfg, bt, graph, dense=True)
     torch.cuda.synchronize()
 
-    def windows():
-        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                 for _ in range(reps)]
+    def forward():
         with torch.no_grad():
-            for start, end in marks:
-                start.record()
-                gns_forward(steps, cfg, bt, graph, dense=True)
-                end.record()
-                torch.cuda.synchronize()
-        return [start.elapsed_time(end) for start, end in marks]
+            gns_forward(steps, cfg, bt, graph, dense=True)
 
-    untraced = windows()
-    for attempt in range(6):  # as device_us: a trace that missed activity is traced again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            traced = windows()
-        spans = sorted(
-            (ev.time_range.start, ev.time_range.end) for ev in prof.events()
-            if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
-        )
-        if spans and len(spans) % reps == 0:
-            break
-        log(f"[profile] trace {attempt + 1} of 6 recorded {len(spans)} device activities over "
-            f"{reps} forwards: not the same number per forward")
-    check(bool(spans) and len(spans) % reps == 0,
-          "the profiler did not record every forward's device activity")
+    untraced, traced, busy_ms, spans, prof = trace_busy(forward, reps)
     window_ms = sum(traced)
-    busy_us, reach = 0.0, float("-inf")
-    for lo, hi in spans:  # union of the intervals
-        if hi > reach:
-            busy_us += hi - max(lo, reach)
-            reach = hi
-    busy_ms = busy_us / 1e3
-    check(0 < busy_ms <= window_ms * 1.05, f"busy {busy_ms:.3f} ms outside windows {window_ms:.3f} ms")
     log(f"[profile] float32 forward x{reps} (one trace): device windows "
         f"{', '.join(f'{w:.3f}' for w in traced)} ms (CUDA events), "
         f"busy {busy_ms / reps:.3f} ms per forward in {len(spans) // reps} device activities, "
@@ -1209,6 +1289,330 @@ def phase_timing(kern, seg, cases, model, cfg, card):
     return results, forward_ms
 
 
+def train_configs() -> dict:
+    """Config A: case300 K=4 latent 20 hidden 10 multiple phi (bench.py:35-84's
+    model), float32, reference parity; B: bench.py's default
+    (bench.py:50-52, 78-82), bfloat16 MLPs and the paper physics, the fold
+    on by "auto"."""
+    from gns_torch.utils.config import GNSConfig
+
+    a = GNSConfig(case_nr=CASE, K=4, latent_dim=20, hidden_dim=10, multiple_phi=True,
+                  reference_parity=True, batch_size=S_TRAIN)
+    b = a.replace(compute_dtype="bfloat16", reference_parity=False)
+    check(b.resolved_fold_output and not a.resolved_fold_output, "config B must fold, A must not")
+    return {"A": a, "B": b}
+
+
+def train_launches(cfg):
+    """K1 / K2 launches of one update step on a dense batch with a shared
+    topology, (forward, backward), as models/gns.py and physics/fused.py
+    give them. Forward, per step: m[dst] (K2), the phi aggregate (K1), the
+    two paired line-flow sums and the generator sum (3 K1), the gathers of
+    (v, theta) at src and dst (2 K2), and in parity mode the Q2 gathers of
+    delta at src and dst (2 K2); once: the generator init (K1), the Q2
+    geometry (2 K2, parity) or the in-degree (K1, fold). Backward: each
+    launch whose input needs a gradient launches its adjoint once: every
+    per-step launch but m[dst] at step 0 (m starts at 0); none of the once
+    launches (their inputs are data)."""
+    k = cfg.K
+    if cfg.reference_parity:
+        return {"K1": 1 + 4 * k, "K2": 2 + 5 * k}, {"K1": (k - 1) + 4 * k, "K2": 4 * k}
+    return {"K1": 2 + 4 * k, "K2": 3 * k}, {"K1": (k - 1) + 2 * k, "K2": 4 * k}
+
+
+def hold_recorded(kern, recorded: dict, tag: str) -> int:
+    """Every recorded K1 / K2 launch replayed on its input: bit-equal to its
+    plain twin on CPU copies (the same order of adds), and K2 also to its
+    twin on the card (a copy). Returns the number of launches held."""
+    for key, (args, count) in recorded.items():
+        name, shape, dtype = key[:3]
+        what = f"S={shape[0]} rows={shape[1]} D={shape[2]} {str(dtype)[6:]} x{count}"
+        if name == "K1":
+            data, order, indptr, n = args
+            got = kern.segment_sum_cuda(data, order, indptr, n)
+            torch.cuda.synchronize()
+            want = kern.segment_sum_plain(data.cpu(), order.cpu(), indptr.cpu(), n)
+            same = torch.equal(got.cpu(), want)
+            what = f"n={n} {what}"
+        else:
+            data, ids = args
+            got = kern.gather_cuda(data, ids)
+            torch.cuda.synchronize()
+            want = kern.gather_plain(data.cpu(), ids.cpu())
+            same = torch.equal(got.cpu(), want) and torch.equal(got, kern.gather_plain(data, ids))
+            what = f"E={ids.numel()} {what}"
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        log(f"[train] {tag} {name} {what} max_abs_err {err:.3e} {'bit-equal' if same else 'MISMATCH'}")
+        check(same, f"{tag} {name} {what} is not bit-equal to its plain twin")
+    return len(recorded)
+
+
+def train_problem():
+    """bench.py's batch: the 256 grids of generate_cases(300, 255, seed=0),
+    one shared topology, dense; host arrays and the card's tensors."""
+    from gns_torch.models.gns import batch_tensors
+    from gns_torch.physics.common import build_graph
+    from gns_torch.utils.augment import generate_cases
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    batch = batch_from_cases(list(generate_cases(CASE, S_TRAIN - 1, seed=0)))
+    topo = extract_shared_topology(batch)
+    check(topo is not None and batch.is_dense() and batch.batch_size == S_TRAIN,
+          "the training batch must be 256 dense grids of one topology")
+    graph = build_graph(batch.buses, batch.lines, batch.generators, topo, "cuda")
+    return batch, topo, batch_tensors(batch, "cuda"), graph
+
+
+def train_one_step(kern, seg, tag, cfg, batch, topo, bt, graph):
+    """One update step's forward and backward on the card with every K1 /
+    K2 launch recorded, forward and backward apart, held against the
+    counts of train_launches, then its gradients against the port's CPU
+    path. Returns (forward counts, backward counts, forward and backward
+    recordings, the largest share of its TRAIN_GRAD bound a leaf used)."""
+    from gns_torch.models.gns import batch_tensors, gns_forward, step_params
+    from gns_torch.physics.common import build_graph
+    from gns_torch.train.trainer import init_train_state, loss_and_grads
+
+    state = init_train_state(0, cfg, device="cuda")
+    params = list(state.model.parameters())
+    rec_f, rec_b = PathRecorder(kern, seg), PathRecorder(kern, seg)
+    reset_counts()
+    with NoPlainTwins(kern):
+        with rec_f:
+            out = gns_forward(step_params(state.model, cfg), cfg, bt, graph, dense=True)
+            loss = out.total_loss.mean()
+            torch.cuda.synchronize()
+        fwd = counts()
+        with rec_b:
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+    bwd = {k: v - fwd[k] for k, v in counts().items()}
+    want_f, want_b = train_launches(cfg)
+    want_f.update(K3=0, K4=0)
+    want_b.update(K3=0, K4=0)
+    log(f"[train] {tag} one step: forward launches {fwd} (expected {want_f}), backward {bwd} "
+        f"(expected {want_b}); no plain twin ran on the card")
+    check(fwd == want_f and bwd == want_b, f"{tag} step launches {fwd} / {bwd}")
+
+    cpu = init_train_state(0, cfg, device="cpu")
+    graph_cpu = build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu")
+    loss_cpu, _, want = loss_and_grads(cpu.model, cfg, batch_tensors(batch, "cpu"), graph_cpu,
+                                       dense=True)
+    rel, atol = TRAIN_GRAD[tag]
+    names = [n for n, _ in state.model.named_parameters()]
+    readings = []  # (share of the bound used, leaf, max |card - cpu|, max |cpu|)
+    for name, g, w in zip(names, grads, want):
+        err = (g.cpu() - w).abs().max().item()
+        scale = w.abs().max().item()
+        readings.append((err / (rel * scale + atol), name, err, scale))
+    readings.sort(reverse=True)
+    log(f"[train] {tag} gradients, card vs the port's CPU path, {len(names)} leaves, bound {rel:g} x "
+        f"max |cpu| + {atol:g} per leaf; the three leaves nearest it: " + "; ".join(
+            f"{name} max_abs_err {err:.3e}, max |cpu| {scale:.3e}, {share:.3f} of the bound"
+            for share, name, err, scale in readings[:3])
+        + f"; loss card {float(loss.detach()):.6e} cpu {float(loss_cpu):.6e}")
+    check(readings[0][0] <= 1.0, f"{tag} gradients disagree with the CPU path")
+    return fwd, bwd, rec_f.inputs, rec_b.inputs, readings[0][0]
+
+
+def steps_ms(run, reps: int):
+    """(host wall ms, CUDA-event ms) per call of run over `reps` calls."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, start.elapsed_time(end) / reps
+
+
+def host_ops(label: str, run, reps: int = 3):
+    """What the host spends an eager step on: the profiler's CPU activity
+    over `reps` runs, the six ops of most self time and the optimizer's
+    foreach ops, per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)
+    total = sum(r.self_cpu_time_total for r in rows) / reps / 1e3
+    foreach = sum(r.self_cpu_time_total for r in rows if "_foreach" in r.key) / reps / 1e3
+    log(f"[train] {label} host side of an eager step (profiler, CPU, {reps} steps): "
+        f"{total:.2f} ms of ops per step; most self time: " + "; ".join(
+            f"{r.key} {r.self_cpu_time_total / reps / 1e3:.2f} ms x{r.count // reps}" for r in rows[:6])
+        + f"; the optimizer's foreach ops {foreach:.2f} ms (self)")
+
+
+def phase_train(kern, seg, card):
+    """The training path on the card (module docstring, phase 9). Returns
+    {"A"/"B": {forward, backward, main-path counts}} and the backward's
+    distinct launches for the timing."""
+    from gns_torch.models.gns import batch_tensors
+    from gns_torch.train.trainer import (CAPTURE_WARMUP, init_train_state, make_epoch_step,
+                                         make_train_step)
+    from gns_torch.utils.augment import generate_cases
+    from gns_torch.utils.prepare import GridBatch, batch_from_cases
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # "f32 means f32" (ROADMAP)
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    batch, topo, bt, graph = train_problem()
+    n_edges = batch.lines.shape[1]
+    results, backward_launches = {}, {}
+    for tag, cfg in train_configs().items():
+        label = f"{tag} ({cfg.compute_dtype}, {'parity' if cfg.reference_parity else 'paper, fold'})"
+        fwd, bwd, rec_f, rec_b, grad_share = train_one_step(kern, seg, tag, cfg, batch, topo, bt, graph)
+        held = hold_recorded(kern, {**rec_f, **rec_b}, tag)
+        log(f"[train] {tag}: all {held} distinct K1 / K2 launches of one step ({len(rec_f)} forward, "
+            f"{len(rec_b)} backward) bit-equal to their plain twins")
+        backward_launches.update(rec_b)
+        del rec_f
+
+        # the main path: 20 eager update steps through make_train_step
+        state = init_train_state(0, cfg, device="cuda")
+        step = make_train_step(cfg, topo=topo, dense=True)
+        losses = []
+        reset_counts()
+        with NoPlainTwins(kern):
+            for _ in range(TRAIN_STEPS):
+                losses.append(step(state, bt)[1]["loss"])
+            torch.cuda.synchronize()
+        main = counts()
+        want = {"K1": TRAIN_STEPS * (fwd["K1"] + bwd["K1"]), "K2": TRAIN_STEPS * (fwd["K2"] + bwd["K2"]),
+                "K3": 0, "K4": 0}
+        losses = torch.stack(losses).cpu()
+        log(f"[train] {label} {TRAIN_STEPS} eager Adam steps (make_train_step): launches {main} "
+            f"(expected {want}); loss {float(losses[0]):.6e} -> {float(losses[-1]):.6e}")
+        check(main == want, f"{tag} eager steps' launches {main} != {want}")
+        check(bool(torch.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"{tag} losses not finite or not falling: {losses.tolist()}")
+
+        # the same steps through the CUDA graph of make_epoch_step
+        graph_state = init_train_state(0, cfg, device="cuda")
+        epoch = make_epoch_step(cfg, topo=topo, dense=True)
+        xs = GridBatch(*(a.unsqueeze(0).expand((TRAIN_STEPS,) + tuple(a.shape)) for a in bt))
+        reset_counts()
+        with NoPlainTwins(kern):
+            _, metrics = epoch(graph_state, xs)
+            torch.cuda.synchronize()
+        captured = counts()
+        want_cap = {k: (CAPTURE_WARMUP + 1) * v // TRAIN_STEPS for k, v in want.items()}
+        diff = max((x - y).abs().max().item()
+                   for x, y in zip(state.model.parameters(), graph_state.model.parameters()))
+        loss_diff = (metrics["loss"].cpu() - losses).abs().max().item()
+        log(f"[train] {label} the same {TRAIN_STEPS} steps by graph replay (make_epoch_step): "
+            f"launches while capturing {captured} ({CAPTURE_WARMUP} warm-up steps and the capture, "
+            f"expected {want_cap}; a replay calls no wrapper); parameters max |graph - eager| "
+            f"{diff:.3e}, losses {loss_diff:.3e}; step {int(graph_state.step)}")
+        check(captured == want_cap, f"{tag} launches while capturing {captured} != {want_cap}")
+        check(int(graph_state.step) == TRAIN_STEPS, "the graph epoch did not take every step")
+        check(bool(torch.isfinite(metrics["loss"]).all()), f"{tag} graph losses not finite")
+        if tag == "A":
+            check(diff == 0.0 and loss_diff == 0.0,
+                  "A: the graph-replayed epoch's parameters differ from the eager steps'")
+
+        # timing (the checks above passed)
+        wall, event = steps_ms(lambda: step(state, bt), reps=10)
+        replay_wall, replay_event = steps_ms(lambda: epoch(graph_state, xs), reps=1)
+        replay_wall, replay_event = replay_wall / TRAIN_STEPS, replay_event / TRAIN_STEPS
+        work = S_TRAIN * n_edges * cfg.K
+        log(f"[train] {label} case{CASE} K{cfg.K} b{S_TRAIN}: eager {wall:.3f} ms per step host wall, "
+            f"{event:.3f} ms CUDA events = {work / wall * 1e3:.4e} train edges/s; graph replay "
+            f"{replay_wall:.3f} ms per step host wall, {replay_event:.3f} ms CUDA events = "
+            f"{work / replay_wall * 1e3:.4e} train edges/s ({S_TRAIN} x {n_edges} lines x K {cfg.K} per "
+            f"step, bench.py:137; card: {card})")
+        one = GridBatch(*(a[:1] for a in xs))
+        idle = {}
+        for what, run in (("eager step", lambda: step(state, bt)),
+                          ("replayed step", lambda: epoch(graph_state, one))):
+            expect = {"segment_sum_": fwd["K1"] + bwd["K1"], "gns_gather_": fwd["K2"] + bwd["K2"]}
+            untraced, traced, busy, spans, _ = trace_busy(run, reps=3, what=what, expect=expect)
+            kernel_ms = sum(hi - lo for lo, hi, name in spans
+                            if "segment_sum_" in name or "gns_gather_" in name) / 3e3
+            idle[what] = 100 * (1 - busy / sum(untraced))
+            log(f"[train] {label} {what} x3 (one trace): device windows "
+                f"{', '.join(f'{w:.3f}' for w in traced)} ms traced, "
+                f"{', '.join(f'{w:.3f}' for w in untraced)} ms untraced just before; busy "
+                f"{busy / 3:.3f} ms per step in {len(spans) / 3:.1f} device activities, of which "
+                f"{expect['segment_sum_']} K1 and {expect['gns_gather_']} K2 take {kernel_ms:.3f} ms; "
+                f"idle {100 * (1 - busy / sum(traced)):.1f}% of the traced windows, "
+                f"{idle[what]:.1f}% of the untraced")
+        host_ops(label, lambda: step(state, bt))
+        results[tag] = dict(forward=fwd, backward=bwd, steps=main, eager_ms=wall, replay_ms=replay_wall,
+                            grad_share=grad_share, idle=idle)
+        del state, graph_state, epoch, step
+
+    # a padded case9 + case14 batch (per-sample topology) through the
+    # kernels' backward: every id in range, so K1's backward (K2) runs
+    mixed = batch_from_cases([*generate_cases(9, 3, seed=11), *generate_cases(14, 3, seed=12)])
+    cfg = train_configs()["A"]
+    state = init_train_state(0, cfg, device="cuda")
+    reset_counts()
+    with NoPlainTwins(kern):
+        _, m = make_train_step(cfg)(state, mixed)
+        loss = float(m["loss"])
+    got = counts()
+    log(f"[train] padded case9 + case14 batch (8 grids, masked, per-sample index): one step, "
+        f"loss {loss:.6e}, launches {got}")
+    check(np.isfinite(loss) and got["K1"] > 0 and got["K2"] > 0 and got["K3"] == got["K4"] == 0,
+          "the masked batch's step did not run through K1 / K2")
+    log(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
+    return results, backward_launches
+
+
+def phase_train_timing(kern, backward_launches: dict, card):
+    """Each distinct K1 / K2 shape of the training backward: device us per
+    launch (profiler, the kernel alone), its bound (bytes at 3.35 TB/s) and
+    index_add_ / index_select at the same shape."""
+    seen = set()
+    for key, (args, _) in backward_launches.items():
+        name, shape, dtype = key[:3]
+        if (name, shape, dtype) in seen:  # the same shape at another index: timed once
+            continue
+        seen.add((name, shape, dtype))
+        s, rows, d = shape
+        esz = args[0].element_size()
+        if name == "K1":
+            data, order, indptr, n = args
+            kept = order.numel()
+            check(kept == rows, "a training backward sum dropped edges")
+            ids = torch.empty(kept, dtype=torch.long, device="cuda")
+            ids[order.long()] = torch.repeat_interleave(
+                torch.arange(n, device="cuda"), (indptr[1:] - indptr[:-1]).long())
+            xf = data.float()
+            nbytes = s * kept * d * esz + s * n * d * 4 + (kept + n + 1) * 4
+
+            def kernel():
+                return kern.segment_sum_cuda(data, order, indptr, n)
+
+            def library():
+                return torch.zeros((s, n, d), device="cuda").index_add_(1, ids, xf)
+            pattern, lib_name, what = "segment_sum_", "index_add_", f"n={n}"
+        else:
+            data, ids32 = args
+            e = ids32.numel()
+            ids = ids32.long()
+            uniq = int(torch.unique(ids).numel())
+            nbytes = s * uniq * d * esz + s * e * d * esz + e * 4
+
+            def kernel():
+                return kern.gather_cuda(data, ids32)
+
+            def library():
+                return data.index_select(1, ids)
+            pattern, lib_name, what = "gns_gather_", "index_select", f"E={e}"
+        dev, _ = device_us(kernel, pattern=pattern)
+        lib, lib_acts = device_us(library)
+        bound = nbytes / HBM_BYTES_PER_S * 1e6
+        log(f"[train timing] backward {name} S={s} rows={rows} D={d} {what} {str(dtype)[6:]}: "
+            f"{dev:.2f} us device (profiler), bound {bound:.2f} us ({nbytes / 1e6:.2f} MB), "
+            f"{lib_name} {lib:.2f} us device (x{lib_acts:g} activities; card: {card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -1233,6 +1637,10 @@ def main() -> int:
     launches["K4"] = phase_megakernel(kern, cases, model, cfg, errs, built, bf16_readings)
     timing, forward_ms = phase_timing(kern, seg, cases, model, cfg, card)
     timing.update(phase_timing_k34(model, cfg, cases, forward_ms, card, built))
+    del model, cases
+    train, backward_launches = phase_train(kern, seg, card)
+    phase_train_timing(kern, backward_launches, card)
+    del backward_launches
     kernels = []
     meta = {
         "K1": ("segment_sum_warp / segment_sum_narrow", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:29"),
@@ -1240,10 +1648,19 @@ def main() -> int:
         "K3": ("fused_edge_kernel", "gns_torch/csrc/fused_edge.cu", "gns_tpu/ops/pallas_fused.py:50"),
         "K4": ("megakernel", "gns_torch/csrc/megakernel.cu", "gns_tpu/ops/pallas_megakernel.py:88"),
     }
+    # `launches` is each kernel's count on the path that first drives it:
+    # K1 / K2 the float32 predict of 1024 requests, K3 one fused_edge_stage
+    # forward, K4 one megakernel_forward_batch; `train_step_launches` the
+    # counts of one update step of each training configuration
+    launches_from = {"K1": "serving: float32 predict, b1024", "K2": "serving: float32 predict, b1024",
+                     "K3": "fused_edge_stage forward", "K4": "megakernel_forward_batch"}
     for k, (name, source, replaces) in meta.items():
         kernels.append(dict(
             name=f"{k} {name}", route="cuda", source=source,
             replaces=replaces, launches=launches[k], max_abs_err=errs[k], **timing[k],
+            launches_from=launches_from[k],
+            train_step_launches={tag: {"forward": r["forward"][k], "backward": r["backward"][k]}
+                                 for tag, r in train.items()},
         ))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

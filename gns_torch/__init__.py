@@ -13,8 +13,11 @@ ops       segment-sum / gather: the dispatch point, the CUDA kernels K1 / K2
           stage K3 (fused.py, csrc/fused_edge.cu) and the whole-forward
           megakernel K4 (megakernel.py, csrc/megakernel.cu), each with its
           plain twin
-physics   the fused physics refresh (parity and paper modes)
+physics   the fused physics refresh (parity and paper modes) and the
+          unfused compensation, imbalance and line flow it is held against
 models    LearningBlock, the GNS module, weight conversion, checkpoints
+train     the optimizer, the update step and its CUDA-graph epoch, the
+          training loop, checkpoints, metrics, `python -m gns_torch.train`
 eval      the slack-angle decode
 serve     batched inference (GNSPredictor)
 

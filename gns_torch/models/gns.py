@@ -31,6 +31,7 @@ from typing import Dict, List, NamedTuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gns_torch.models.blocks import LearningBlock
 from gns_torch.ops.segment import broadcast_col0_segment_sum, gather, segment_sum
@@ -258,7 +259,10 @@ def gns_forward(
     f32 = buses.dtype
     if dense:
         bm = lm = gm = None
-        n_real = torch.tensor(float(n), dtype=f32, device=buses.device)
+        # a fill on the device, not a copy from the host: the training step
+        # runs this forward inside a CUDA graph capture, where such a copy
+        # is illegal
+        n_real = buses.new_full((), float(n))
     else:
         bm, lm, gm = batch.bus_mask, batch.line_mask, batch.gen_mask
         n_real = batch.n_bus.to(f32)
@@ -344,8 +348,7 @@ def gns_forward(
         agg = segment_sum(line_masked(phi_out)[..., 0], graph.dst, method=method)
         return agg[..., None].expand(s, n, latent)
 
-    total_loss = buses.new_zeros((s,))
-    for k in range(cfg.K):
+    def step(k, v, theta, m, delta_p, delta_q, total_loss):
         p = steps[k]
         edge_in = torch.cat([gather(m, graph.dst, method=method), line_feats], dim=-1)
         node_base = torch.cat(
@@ -402,7 +405,19 @@ def gns_forward(
         if v_anchor_mask is not None:
             dv = v - 1.0
             step_loss = step_loss + cfg.v_anchor * (v_anchor_mask * dv * dv).sum(-1) / n_real
-        total_loss = total_loss + discounts[k] * step_loss
+        return v, theta, m, delta_p, delta_q, total_loss + discounts[k] * step_loss
+
+    # cfg.resolved_remat: each step keeps only its inputs for the backward
+    # and recomputes its activations there, as gns_tpu wraps its scan body
+    # in jax.checkpoint (no randomness, so no generator state to keep)
+    remat = cfg.resolved_remat and torch.is_grad_enabled()
+    carry = (v, theta, m, delta_p, delta_q, buses.new_zeros((s,)))
+    for k in range(cfg.K):
+        if remat:
+            carry = checkpoint(step, k, *carry, use_reentrant=False, preserve_rng_state=False)
+        else:
+            carry = step(k, *carry)
+    v, theta, m, delta_p, delta_q, total_loss = carry
 
     last_loss = residual_sums(delta_p, delta_q)
     v = torch.clamp_min(v, 0.0)  # clamp (main.py:201)

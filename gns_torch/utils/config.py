@@ -4,8 +4,9 @@ Field names, defaults and derived properties are identical, so a config
 written for the JAX package means the same here. The field comments are
 short; gns_tpu/utils/config.py carries the measurements behind each knob.
 Fields that steer only the JAX package's compilation (`scan_unroll`,
-`remat`, `gather_method`) are kept for compatibility and have no effect on
-this package's serving path.
+`gather_method`) are kept for compatibility and have no effect here.
+`remat=True` recomputes each K step in the backward
+(torch.utils.checkpoint, models/gns.py); "auto" leaves it off.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ Unit/column contract (reference GNS/utils.py:17-41, SURVEY.md §2.3):
 from __future__ import annotations
 
 import os
+import pickle
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -52,6 +53,24 @@ def prepare_case(
     gens = np.concatenate([gens, gens[:, 3:4]], axis=1)
     gens[:, [1, 2, 3, 5, 6]] /= base_mva
     return buses, lines, gens
+
+
+def pickle_path(case_nr: int, augmentation_nr: int, data_dir: Optional[str] = None) -> str:
+    data_dir = data_dir or DEFAULT_DATA_DIR
+    return os.path.join(
+        data_dir, f"case{case_nr}", f"augmented_case{case_nr}_{augmentation_nr}.pkl"
+    )
+
+
+def prepare_grid(
+    case_nr: int, augmentation_nr: int, data_dir: Optional[str] = None
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Load one augmented pickle of the reference's data set and prepare
+    it (reference: GNS/utils.py:17). Read only files the data set's own
+    generator wrote: unpickling runs code."""
+    with open(pickle_path(case_nr, augmentation_nr, data_dir), "rb") as f:
+        case = pickle.load(f)
+    return prepare_case(case)
 
 
 class GridBatch(NamedTuple):
@@ -167,6 +186,25 @@ def _stack_to_batch(triples, pad_sizes=None) -> GridBatch:
         gen_mask[i, :ng] = 1.0
         n_bus[i] = nb
     return GridBatch(buses, lines, gens, bus_mask, line_mask, gen_mask, n_bus)
+
+
+def load_all_grids(
+    case_nr: int,
+    nr_samples: int = 100,
+    test_set: bool = False,
+    data_dir: Optional[str] = None,
+    total_grids: int = 10001,
+) -> GridBatch:
+    """Load `nr_samples` augmented grids as one static-shape batch
+    (reference GNS/utils.py:44-68): training grids are indices
+    1..nr_samples (index 0 is the unaugmented base case); test_set=True
+    takes the last nr_samples, the NR-oracle range of GNS/evaluate.py:31
+    (the reference's own test_set branch crashes, SURVEY.md Q7).
+    """
+    start = (total_grids - nr_samples) if test_set else 1
+    return _stack_to_batch(
+        [prepare_grid(case_nr, i, data_dir) for i in range(start, start + nr_samples)]
+    )
 
 
 def load_prepared(
