@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gns_torch's serving and training paths on one NVIDIA GPU (an H100)
-and check them.
+"""Drive gns_torch's serving, training and evaluation paths on one NVIDIA GPU
+(an H100) and check them.
 
     python3 chip_smoke.py
 
@@ -34,7 +34,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      card and on CPU copies; its autograd backward (a recompute through K1
      and K2, never a plain twin) against the twin's gradients on the CPU;
      then a made-up index with a 70-edge hub bus (a work item over two
-     tiles); ptxas must report no spill for K3.
+     tiles); ptxas must report no spill for K3. Then K3 at (L, H) = (40,
+     10), the deep checkpoints' width, with `300-deep`'s step-0 heads: one
+     launch against its plain twin, its shared bytes and blocks per SM.
   7. megakernel: gns_torch.ops.megakernel.megakernel_forward_batch (K4) on
      the same 1024 case300 requests and checkpoint as phase 5: one K4
      launch and no K1/K2 launch, against its plain twin on the CPU (worst
@@ -42,7 +44,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      reading of phase 5) and against the float32 forward on the card (a
      sanity bound); its shared bytes per grid, grids resident per SM,
      ptxas registers and spills, and the count of HMMA (tensor-core)
-     instructions in its SASS, which must not be 0.
+     instructions in its SASS, which must not be 0. Then `300-deep` (K=8,
+     L=40, H=10) on the same requests: one K4 launch and no K1/K2, against
+     its plain twin on the CPU (K4_DEEP_CARD_VS_CPU) and its float32
+     forward (DEEP_VS_F32), its shared bytes per grid and grids per SM.
   8. timing: predict grids/s, forward grids/s, the device's busy and idle
      share of the forward from one profiler trace, each kernel against its
      bound, its plain twin and one PyTorch library call where one computes
@@ -53,7 +58,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      K2 launch part by part (the launch path before this design beside
      now). K3 and K4 also one launch at a time with a warm and a cold L2
      (after a 128 MB write), and K3's registers, shared bytes per block and
-     blocks per SM.
+     blocks per SM; K3 and K4 at (40, 10) with `300-deep` against their
+     bounds and plain twins.
   9. train: the trainer (gns_torch/train/trainer.py) at bench.py's model,
      case300 K=4 latent 20 hidden 10 multiple phi, batch 256 (the grids of
      generate_cases(300, 255, seed=0), one shared topology, dense), from
@@ -70,9 +76,30 @@ Phases, each printing its own lines; any failure exits non-zero:
      equal the eager run's in A. A padded case9 + case14 batch takes one
      step through the kernels' backward. Timing: ms per step eager (host
      wall and CUDA events) and by graph replay, train edges/s (bench.py:137's
-     definition), the device's busy and idle share of one eager and one
-     replayed step, and each new K1 / K2 shape of the backward against its
-     bound and index_add_ / index_select.
+     definition) and the device's busy and idle share of one eager step.
+     Then, in a process of its own (`chip_smoke.py --train-timing`; after
+     the train phase the profiler has left one activity out of nearly
+     every later trace of the same process), each new K1 / K2 shape of the
+     backward against its bound and index_add_ / index_select, and the busy
+     and idle share of one replayed step. A trace that misses a call's
+     activity is taken again; six short traces fail the run.
+ 10. eval: (a) evaluate() (gns_torch/eval/harness.py) of the shipped
+     case300 checkpoint on the 64 grids of generate_cases(300, 63, seed=0,
+     scale=0.5, feasible_only=True) against the Newton-Raphson oracle: its
+     K1 / K2 launches (serving's counts per forward), every metric finite,
+     the oracle converged on every grid, run_gns on the card against the
+     CPU at serving's float32 bounds, NR and GNS ms per grid; (b) the case30
+     multi-seed protocol of tools/accuracy_multiseed.py: train() over
+     pool[1:257] of generate_cases(30, 1000, seed=20301) by CUDA-graph
+     replay, seeds 101-105, each evaluated with run_gns against one oracle
+     run over pool[769:1001]; each seed's v MSE (failing above WORST_DRAW)
+     and the median beside gns_tpu's band; (c) supervised training on NR
+     labels of 128 feasible case30 grids: one eager step's launches against
+     train_launches, each distinct launch bit-equal to its twin, then 5
+     epochs of train_supervised by graph replay (finite, falling); (d)
+     train() for 2 epochs on a padded case9 + case14 dataset (no shared
+     topology: eager steps on K1/K2); (e) K1's backward over an index with
+     dropped ids (a masked K2) bit-equal to the CPU twin's gradient.
 Then one JSON line with every kernel's numbers, and last the
 {"ok": true, "device": ...} line.
 """
@@ -115,6 +142,29 @@ K4_CARD_VS_CPU = (
     ("v", 7.5e-2, 2e-3), ("theta", 5e-3, 4e-3), ("delta_p", 0.2, None),
     ("delta_q", 1.5e-5, None), ("total_loss", 2e-3, 1.5e-3), ("last_loss", 2e-3, 1.5e-3),
 )
+# K4 at (L, H) = (40, 10), 300-deep (K=8) on the same 1024 grids, card vs
+# its plain twin on the CPU, as K4_CARD_VS_CPU: the same reason, a flipped
+# bf16 rounding carried by twice the steps. Set from the NVIDIA H100 80GB
+# HBM3 readings (v 1.713e-02 worst, 2.630e-03 at p99.9; theta 1.845e-03 and
+# 9.190e-04; delta_p 1.443e-01 worst; delta_q 7.629e-06; total_loss
+# 4.603e-04 and 4.476e-04; last_loss 2.981e-04 and 1.856e-04), each about
+# three times the reading.
+K4_DEEP_CARD_VS_CPU = (
+    ("v", 5e-2, 8e-3), ("theta", 6e-3, 3e-3), ("delta_p", 0.45, None),
+    ("delta_q", 2.5e-5, None), ("total_loss", 1.5e-3, 1.5e-3), ("last_loss", 1e-3, 6e-4),
+)
+# 300-deep's bf16 MLPs against its float32 forward, a sanity bound (rtol,
+# atol): on these 1024 grids K4 on the NVIDIA H100 80GB HBM3 differs from
+# the float32 forward by v 0.1017, theta 0.0223 and last_loss 1.35e-3 at
+# worst, as K4's plain twin does from the float32 forward on the CPU, so
+# theta takes 5e-2 where the L=20 checkpoint's 2e-2 holds.
+DEEP_VS_F32 = (("v", 0.0, 0.15), ("theta", 0.0, 5e-2), ("last_loss", 0.1, 5e-2))
+EVAL_GRIDS = 64  # eval phase (a): feasible case300 grids, the base case first
+# eval phase (b), the case30 multi-seed protocol of tools/accuracy_multiseed.py
+SEEDS = (101, 102, 103, 104, 105)
+GNS_TPU_BAND = (0.0161, 0.0187)  # gns_tpu's case30 v MSE over those seeds (ACCURACY_SEEDS.json)
+WORST_DRAW = 0.0401  # the worst case30 v MSE of either side in ACCURACY_SEEDS.json (0.04006)
+SUP_EPOCHS = 5
 K3_FWD = dict(rtol=1e-5, atol=1e-5)  # exact float32; dot products add in another order
 K3_GRAD = dict(rtol=2e-4, atol=1e-5)  # tests/test_fused.py:61
 S_TRAIN = 256  # bench.py's batch
@@ -170,14 +220,12 @@ def device_us(fn, reps: int = 20, pattern: str = ""):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # The profiler now and then leaves out a call's device activity, and in
-    # some processes, once it starts, it leaves out one activity of nearly
-    # every trace (19 of 20 calls' launches): a trace counts when each kind
-    # of activity numbers a whole multiple of `reps`; else trace again, up
-    # to six times. If none does, the fullest trace gives each kind's mean
-    # duration times its count per call (its count over `reps`, rounded),
-    # and the line says so.
-    fullest = {}
+    # The profiler now and then leaves out a call's device activity: a trace
+    # counts when each kind of activity numbers a whole multiple of `reps`;
+    # else trace again, up to six times, and fail after six short traces.
+    # (After the train phase it has left one activity out of nearly every
+    # trace of the same process, so the train phase's readings are taken in
+    # a process of their own: phase_train_child.)
     for attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -193,14 +241,7 @@ def device_us(fn, reps: int = 20, pattern: str = ""):
             return sum(map(sum, kinds.values())) / reps, n / reps
         log(f"[timing] trace {attempt + 1} of 6 recorded {n} device activities matching "
             f"{pattern!r} over {reps} calls: not the same number per call")
-        if n > sum(map(len, fullest.values())):
-            fullest = kinds
-    per_call = {name: round(len(spans) / reps) for name, spans in fullest.items()}
-    check(any(per_call.values()), "the profiler recorded no device activity in six traces")
-    log(f"[timing] every trace missed some activity: per call, each kind's mean over the fullest "
-        f"trace ({sum(map(len, fullest.values()))} activities) times {per_call}")
-    return (sum(statistics.mean(fullest[name]) * k for name, k in per_call.items()),
-            float(sum(per_call.values())))
+    fail(f"the profiler did not record every call's device activity ({pattern!r}) in six traces")
 
 
 def abba(a, b, rounds: int = 3):
@@ -449,9 +490,9 @@ class PathRecorder:
                    (data, order, indptr, n))
         return self.kern.segment_sum_cuda(data, order, indptr, n)
 
-    def gather_cuda(self, data, ids):
-        self._keep(("K2", tuple(data.shape), data.dtype, ids.data_ptr()), (data, ids))
-        return self.kern.gather_cuda(data, ids)
+    def gather_cuda(self, data, ids, masked=False):
+        self._keep(("K2", tuple(data.shape), data.dtype, ids.data_ptr()), (data, ids, masked))
+        return self.kern.gather_cuda(data, ids, masked)
 
     def __enter__(self):
         self.seg.kern = self
@@ -476,10 +517,10 @@ def phase_path_inputs(kern, recorded: dict, errs):
             want = kern.segment_sum_plain(data.cpu(), order.cpu(), indptr.cpu(), n)
             compare("K1", got, want, dtype, f"n={n} {what}", kern.segment_sum_plain(*args))
         else:
-            data, ids = args
-            got = kern.gather_cuda(data, ids)
+            data, ids, masked = args
+            got = kern.gather_cuda(data, ids, masked)
             torch.cuda.synchronize()
-            want = kern.gather_plain(data.cpu(), ids.cpu())
+            want = kern.gather_plain(data.cpu(), ids.cpu(), masked)
             compare("K2", got, want, dtype, f"E={ids.numel()} {what}", kern.gather_plain(*args))
     check({k[0] for k in recorded} == {"K1", "K2"}, "the serving runs did not record both kernels")
 
@@ -746,6 +787,41 @@ def phase_fused(kern, model, errs, built):
     return fwd["K3"]
 
 
+def phase_fused_deep(kern, deep, errs):
+    """K3 at (L, H) = (40, 10): 300-deep's step-0 phi heads at the case300
+    dst index, S=1024, through fused_edge_stage: one K3 launch, against its
+    plain twin on the CPU and on the card (K3_FWD); its shared bytes and
+    blocks per SM."""
+    from gns_torch.ops import fused
+    from gns_torch.ops.segment import SegmentIndex
+
+    m, feats, line_mask, idx, heads, topo = k3_problem(deep, seed=2)
+    reset_counts()
+    with NoPlainTwins(kern), torch.no_grad():
+        out = fused.fused_edge_stage(m, feats, line_mask, idx, heads)
+        torch.cuda.synchronize()
+    got = counts()
+    want = {"K1": 0, "K2": 0, "K3": 1, "K4": 0}
+    log(f"[fused] 300-deep (L=40, H=10) forward launches {got} (expected {want})")
+    check(got == want, f"K3 L=40 forward launches {got} != {want}")
+    with torch.no_grad():
+        on_card = fused.fused_edge_stage_plain(m, feats, line_mask, idx, heads)
+    want_out = fused.fused_edge_stage_plain(
+        m.cpu(), feats.cpu(), line_mask.cpu(), SegmentIndex(topo.dst, idx.n, "cpu"),
+        {h: {k: t.cpu() for k, t in p.items()} for h, p in heads.items()})
+    for h, g, w, c in zip(fused.PHI_HEADS, out, want_out, on_card):
+        err = max((g.cpu() - w).abs().max().item(), (g - c).abs().max().item())
+        errs["K3"] = max(errs["K3"], err)
+        ok = torch.allclose(g.cpu(), w, **K3_FWD) and torch.allclose(g, c, **K3_FWD)
+        log(f"[fused] 300-deep sum_{h} max_abs_err {err:.3e} vs the plain twin on the CPU and "
+            f"the card (rtol {K3_FWD['rtol']:g} atol {K3_FWD['atol']:g}) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"K3 L=40 sum_{h} disagrees with its plain twin")
+    shared, per_sm, threads, sms = fused.fused_edge_occupancy(40, 10)
+    log(f"[fused] L=40: {threads} threads and {shared} bytes of shared memory per block, "
+        f"{per_sm} blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    check(per_sm >= 2, f"K3 at L=40 keeps {per_sm} blocks per SM, its launch bounds ask for 2")
+
+
 def sass_hmma(library: str):
     """Count of HMMA (tensor-core) instructions in a built library's SASS,
     from cuobjdump, or None where the toolkit has no cuobjdump."""
@@ -821,23 +897,16 @@ def phase_megakernel(kern, cases, model, cfg, errs, built, bf16_readings):
     return got["K4"]
 
 
-def phase_timing_k34(model, cfg, cases, forward_ms, card, built):
-    """K3 and K4 at the main path's shapes, each against its bound and its
-    plain twin on the card, and K4 beside the eager forwards."""
-    from gns_torch.models.gns import _block, head_dims
+def time_k3(m, feats, line_mask, idx, heads) -> dict:
+    """K3 at these inputs: CUDA-event and device time per launch, its bound
+    (bytes at 3.35 TB/s or float32 FMAs at 67 TFLOP/s) and its plain twin
+    on the card."""
     from gns_torch.ops import fused
-    from gns_torch.ops.megakernel import STAGES, megakernel_cuda, megakernel_inputs, megakernel_plain
-    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
 
-    results = {}
-    no_library = ("no single PyTorch call computes {}: it chains gathers, three MLPs "
-                  "and segment-sums{}, so library_ms is null")
-    m, feats, line_mask, idx, heads, _ = k3_problem(model, seed=1)
     weights = fused._weights(heads)
     s, n, latent = m.shape
     e, hidden = idx.edges, weights[0].shape[0]
-    f_in = latent + 5
-    macs = s * e * 3 * (hidden * f_in + hidden * hidden + latent * hidden)
+    macs = s * e * 3 * (hidden * (latent + 5) + hidden * hidden + latent * hidden)
     nbytes = 4 * (m.numel() + feats.numel() + line_mask.numel() + sum(w.numel() for w in weights)
                   + idx.ids.numel() + idx.order.numel() + idx.indptr.numel() + 3 * s * n * latent)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * macs / FP32_FLOPS
@@ -846,15 +915,127 @@ def phase_timing_k34(model, cfg, cases, forward_ms, card, built):
         plain = cuda_ms(lambda: fused.fused_edge_stage_plain(m, feats, line_mask, idx, heads), reps=20)
         dev, acts = device_us(lambda: fused.fused_edge_cuda(m, feats, line_mask, idx, weights, 0.01),
                               pattern="fused_edge_kernel")
-    results["K3"] = dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops) * 1e3,
-                         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
-                         device_ms=dev / 1e3)
+    out = dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+               device_ms=dev / 1e3)
     log(f"[timing] K3 fused edge stage case300 S={s} L={latent} H={hidden} float32: "
         f"{ms * 1e3:.2f} us (CUDA events), {dev:.2f} us device (profiler, the kernel alone, "
-        f"x{acts:g} per call), bound {results['K3']['bound_ms'] * 1e3:.2f} us by "
-        f"{results['K3']['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s = {t_bytes * 1e6:.2f} us; "
+        f"x{acts:g} per call), bound {out['bound_ms'] * 1e3:.2f} us by "
+        f"{out['bound_by']} ({nbytes / 1e6:.1f} MB at 3.35 TB/s = {t_bytes * 1e6:.2f} us; "
         f"{2 * macs / 1e9:.3f} GFLOP at 67 TFLOP/s float32 = {t_ops * 1e6:.2f} us), "
         f"plain twin on the card {plain * 1e3:.2f} us")
+    return out
+
+
+def time_k4(model, cfg, inp) -> dict:
+    """K4 on these inputs: CUDA-event and device time per launch, its bound
+    (the model's own heads' MACs on the bf16 tensor cores, or bytes) and its
+    plain twin on the card."""
+    from gns_torch.models.gns import _block, head_dims
+    from gns_torch.ops.megakernel import megakernel_cuda, megakernel_plain
+
+    with torch.no_grad():
+        ms = cuda_ms(lambda: megakernel_cuda(inp), reps=20, warmup=3)
+        plain = cuda_ms(lambda: megakernel_plain(inp), reps=5, warmup=2)
+        dev, acts = device_us(lambda: megakernel_cuda(inp), reps=10, pattern="megakernel")
+    s, n = inp.bus_mask.shape
+    e, k = inp.line_mask.shape[1], len(inp.steps)
+    # MACs per grid and step of the model's own heads (phi per edge, L per
+    # bus), not of the fused layout's block-diagonal zeros: 1650 per edge
+    # and 1840 per bus at L=20, H=10
+    macs = {"edge": 0, "bus": 0}
+    for head, _, _ in head_dims(cfg):
+        block = _block(getattr(model, head)[0])
+        macs["edge" if head.startswith("phi") else "bus"] += sum(
+            block[w].numel() for w in ("w1", "w2", "w4"))
+    flops = 2 * s * k * (e * macs["edge"] + n * macs["bus"])
+    # what K4's tiles multiply, padding included (not the bound): per 16-row
+    # phi tile 3 NH KP + 3 NH + 3 NL mma of 16 x 8 x 16 (27 at L=20), per
+    # work item's 16-bus L tile 3 NH KL + 3 NH + 2 + NL (29 at L=20)
+    latent = cfg.latent_dim
+    kp, kl, nl = -(-(latent + 5) // 16), -(-(4 + 2 * latent) // 16), -(-latent // 8)
+    per_phi, per_l = 6 * kp + 6 + 3 * nl, 6 * kl + 6 + 2 + nl
+    items = inp.items.cpu().numpy()
+    phi_tiles = int(sum(-(-int(r1 - r0) // 16) for r0, r1 in items[:, 2:]))
+    tile_flops = 2 * s * k * 16 * 8 * 16 * (per_phi * phi_tiles + per_l * len(items))
+    ints = [inp.src.ids, inp.dst.ids, inp.srcq, inp.dstq, inp.dst.order, inp.dst.indptr,
+            inp.src.indptr, inp.gen.order, inp.gen.indptr, inp.dst_pos, inp.src_pos, inp.gen_pos,
+            inp.items, inp.row_bus]
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        inp.buses, inp.lines, inp.gens, inp.bus_mask, inp.line_mask, inp.gen_mask,
+        inp.wpack, inp.bpack, inp.discounts, *ints)) + 4 * (4 * s * n + 2 * s)
+    t_bytes, t_tc, t_f32 = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS, flops / FP32_FLOPS
+    out = dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_tc) * 1e3,
+               bound_by="bytes" if t_bytes >= t_tc else "operations", library_ms=None,
+               device_ms=dev / 1e3)
+    log(f"[timing] K4 megakernel case300 b{s} K={k} L={latent} H={cfg.hidden_dim}: {ms:.3f} ms "
+        f"per forward (CUDA events) = {s / ms * 1e3:.1f} grids/s, {dev / 1e3:.3f} ms device "
+        f"(profiler, x{acts:g} per call); bound {out['bound_ms'] * 1e3:.2f} us by "
+        f"{out['bound_by']}: {macs['edge']} MACs per edge and {macs['bus']} per bus "
+        f"per step, {flops / 1e9:.2f} GFLOP of bf16-operand products at "
+        f"989 TFLOP/s (tensor cores) = {t_tc * 1e6:.2f} us, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+        f"{t_bytes * 1e6:.2f} us; on the float32 CUDA cores (67 TFLOP/s) the same products "
+        f"take {t_f32 * 1e6:.2f} us; K4's tiles, padding included ({phi_tiles} phi tiles of 16 "
+        f"rows, {len(items)} L tiles per grid and step), multiply {tile_flops / 1e9:.2f} GFLOP, "
+        f"{tile_flops / BF16_TC_FLOPS * 1e6:.2f} us at 989 TFLOP/s; plain twin on the card "
+        f"{plain:.3f} ms")
+    return out
+
+
+def phase_megakernel_deep(kern, cases, deep, deep_cfg, errs):
+    """K4 at (L, H) = (40, 10): 300-deep (K=8) on the 1024 case300
+    requests: one K4 launch and no K1/K2, against its plain twin on the CPU
+    (K4_DEEP_CARD_VS_CPU) and against the float32 forward on the card (a
+    sanity bound, DEEP_VS_F32); shared bytes per grid and grids per SM."""
+    from gns_torch.models.gns import gns_forward_batch
+    from gns_torch.models.pretrained import load_pretrained
+    from gns_torch.ops.megakernel import (megakernel_forward_batch, megakernel_forward_plain,
+                                          megakernel_inputs, megakernel_occupancy)
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    batch = batch_from_cases(cases)
+    topo = extract_shared_topology(batch)
+    shared, per_sm = megakernel_occupancy(megakernel_inputs(deep, deep_cfg, batch, topo))
+    log(f"[megakernel] 300-deep (K=8, L=40, H=10) case300 grid: {shared} bytes of shared memory "
+        f"per grid, {per_sm} grids resident per SM")
+    check(per_sm >= 1, f"K4 cannot keep a case300 grid resident at L=40 ({per_sm})")
+    reset_counts()
+    with NoPlainTwins(kern), torch.no_grad():
+        out = megakernel_forward_batch(deep, deep_cfg, batch, topo)
+        torch.cuda.synchronize()
+    got = counts()
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 1}
+    log(f"[megakernel] 300-deep b{S_SERVE} launches {got} (expected {want})")
+    check(got == want, f"K4 L=40 launches {got} != {want}")
+    deep_cpu, _ = load_pretrained("300-deep", device="cpu")
+    with torch.no_grad():
+        ref = megakernel_forward_plain(deep_cpu, deep_cfg, batch, topo)
+        f32 = gns_forward_batch(deep, deep_cfg, batch, topo=topo, dense=batch.is_dense())
+    for key, atol, p999 in K4_DEEP_CARD_VS_CPU:
+        a, b = getattr(out, key).cpu().numpy(), getattr(ref, key).numpy()
+        errs["K4"] = max(errs["K4"], float(np.abs(a.astype(np.float64) - b).max()))
+        agree("megakernel", "300-deep card vs plain twin on the cpu", a, b, 0.0, atol, key, p999)
+    for key, rtol, atol in DEEP_VS_F32:
+        agree("megakernel", "300-deep vs float32 forward", getattr(out, key).cpu().numpy(),
+              getattr(f32, key).cpu().numpy(), rtol, atol, key)
+
+
+def phase_timing_k34(model, cfg, deep, deep_cfg, cases, forward_ms, card, built):
+    """K3 and K4 at the main path's shapes, each against its bound and its
+    plain twin on the card, and K4 beside the eager forwards; then both at
+    (L, H) = (40, 10) with `300-deep` (deep, deep_cfg)."""
+    from gns_torch.ops import fused
+    from gns_torch.ops.megakernel import STAGES, megakernel_cuda, megakernel_inputs
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    results = {}
+    no_library = ("no single PyTorch call computes {}: it chains gathers, three MLPs "
+                  "and segment-sums{}, so library_ms is null")
+    m, feats, line_mask, idx, heads, _ = k3_problem(model, seed=1)
+    weights = fused._weights(heads)
+    s, n, latent = m.shape
+    hidden = weights[0].shape[0]
+    results["K3"] = time_k3(m, feats, line_mask, idx, heads)
     with torch.no_grad():
         wc = warm_and_cold(lambda: fused.fused_edge_cuda(m, feats, line_mask, idx, weights, 0.01),
                            "fused_edge_kernel")
@@ -885,51 +1066,13 @@ def phase_timing_k34(model, cfg, cases, forward_ms, card, built):
     topo = extract_shared_topology(batch)
     with torch.no_grad():
         inp = megakernel_inputs(model, cfg, batch, topo)
-        ms = cuda_ms(lambda: megakernel_cuda(inp), reps=20, warmup=3)
-        plain = cuda_ms(lambda: megakernel_plain(inp), reps=5, warmup=2)
-    s, n = inp.bus_mask.shape
-    e, g, k = inp.line_mask.shape[1], inp.gen_mask.shape[1], len(inp.steps)
-    # MACs per grid and step of the model's own heads (phi per edge, L per
-    # bus), not of the fused layout's block-diagonal zeros: 1650 per edge
-    # and 1840 per bus at L=20, H=10
-    macs = {"edge": 0, "bus": 0}
-    for head, _, _ in head_dims(cfg):
-        block = _block(getattr(model, head)[0])
-        macs["edge" if head.startswith("phi") else "bus"] += sum(
-            block[w].numel() for w in ("w1", "w2", "w4"))
-    flops = 2 * s * k * (e * macs["edge"] + n * macs["bus"])
-    # what K4's tiles multiply, padding included (not the bound): 27 mma of
-    # 16 x 8 x 16 per 16-row phi tile, 29 per work item's 16-bus L tile
-    items = inp.items.cpu().numpy()
-    phi_tiles = int(sum(-(-int(r1 - r0) // 16) for r0, r1 in items[:, 2:]))
-    tile_flops = 2 * s * k * 16 * 8 * 16 * (27 * phi_tiles + 29 * len(items))
-    ints = [inp.src.ids, inp.dst.ids, inp.srcq, inp.dstq, inp.dst.order, inp.dst.indptr,
-            inp.src.indptr, inp.gen.order, inp.gen.indptr, inp.dst_pos, inp.src_pos, inp.gen_pos,
-            inp.items, inp.row_bus]
-    nbytes = sum(t.numel() * t.element_size() for t in (
-        inp.buses, inp.lines, inp.gens, inp.bus_mask, inp.line_mask, inp.gen_mask,
-        inp.wpack, inp.bpack, inp.discounts, *ints)) + 4 * (4 * s * n + 2 * s)
-    t_bytes, t_tc, t_f32 = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS, flops / FP32_FLOPS
+    s, k = inp.bus_mask.shape[0], len(inp.steps)
+    results["K4"] = time_k4(model, cfg, inp)
+    ms = results["K4"]["ms"]
     with torch.no_grad():
-        dev, acts = device_us(lambda: megakernel_cuda(inp), reps=10, pattern="megakernel")
         one = inp._replace(wpack=inp.wpack[:1], bpack=inp.bpack[:1], discounts=inp.discounts[:1],
                            steps=inp.steps[:1])
         ms1 = cuda_ms(lambda: megakernel_cuda(one), reps=20, warmup=3)
-    results["K4"] = dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_tc) * 1e3,
-                         bound_by="bytes" if t_bytes >= t_tc else "operations", library_ms=None,
-                         device_ms=dev / 1e3)
-    log(f"[timing] K4 megakernel case300 b{s} K={k}: {ms:.3f} ms per forward (CUDA events) = "
-        f"{s / ms * 1e3:.1f} grids/s, {dev / 1e3:.3f} ms device (profiler, x{acts:g} per call); "
-        f"bound {results['K4']['bound_ms'] * 1e3:.2f} us by "
-        f"{results['K4']['bound_by']}: {macs['edge']} MACs per edge and {macs['bus']} per bus "
-        f"per step, {flops / 1e9:.2f} GFLOP of bf16-operand products at "
-        f"989 TFLOP/s (tensor cores) = {t_tc * 1e6:.2f} us, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
-        f"{t_bytes * 1e6:.2f} us; on the float32 CUDA cores (67 TFLOP/s) the same products "
-        f"take {t_f32 * 1e6:.2f} us; K4's tiles, padding included ({phi_tiles} phi tiles of 16 "
-        f"rows, {len(items)} L tiles per grid and step), multiply {tile_flops / 1e9:.2f} GFLOP, "
-        f"{tile_flops / BF16_TC_FLOPS * 1e6:.2f} us at 989 TFLOP/s; plain twin on the card "
-        f"{plain:.3f} ms")
-    with torch.no_grad():
         wc = warm_and_cold(lambda: megakernel_cuda(inp), "megakernel", reps=5)
     results["K4"].update(cold_ms=wc["cold"] / 1e3, cold_device_ms=wc["cold_device"] / 1e3)
     log(f"[timing] K4 one launch alone (CUDA events): warm L2 {wc['warm']:.2f} us, cold L2 "
@@ -951,6 +1094,15 @@ def phase_timing_k34(model, cfg, cases, forward_ms, card, built):
         f"(card: {card})")
     log(f"[timing] K4 library_ms: " + no_library.format(
         "the whole forward", ", physics and reductions over K steps"))
+
+    # the deep checkpoints' width: 300-deep's step-0 heads for K3, the whole
+    # K=8 forward for K4, on the same grids
+    log(f"[timing] (L, H) = (40, 10), 300-deep (card: {card}):")
+    m, feats, line_mask, idx, heads, _ = k3_problem(deep, seed=1)
+    results["K3"]["at_L40_H10"] = time_k3(m, feats, line_mask, idx, heads)
+    with torch.no_grad():
+        inp = megakernel_inputs(deep, deep_cfg, batch, topo)
+    results["K4"]["at_L40_H10"] = time_k4(deep, deep_cfg, inp)
     return results
 
 
@@ -989,7 +1141,6 @@ def trace_busy(run, reps: int = 3, what: str = "forward", expect=None):
         return [start.elapsed_time(end) for start, end in marks]
 
     untraced = windows()
-    fullest = None
     for attempt in range(6):  # as device_us: a trace that missed activity is traced again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             traced = windows()
@@ -1001,15 +1152,9 @@ def trace_busy(run, reps: int = 3, what: str = "forward", expect=None):
             break
         log(f"[profile] trace {attempt + 1} of 6 recorded {len(spans)} device activities over "
             f"{reps} runs of the {what}: not the same number per run")
-        if fullest is None or len(spans) > len(fullest[1]):
-            fullest = (traced, spans, prof)
     else:
-        # as device_us: the fullest trace is read, and the busy time then
-        # lacks the few activities the profiler left out
-        traced, spans, prof = fullest
-        check(bool(spans), f"the profiler recorded no device activity of the {what} in six traces")
-        log(f"[profile] every trace of the {what} missed some activity: the fullest ({len(spans)} "
-            f"activities) is read, its busy time short by what it missed")
+        fail(f"the profiler did not record every run's device activity of the {what} "
+             f"in six traces")
     busy_us, reach = 0.0, float("-inf")
     for lo, hi, _ in spans:  # union of the intervals
         if hi > reach:
@@ -1113,7 +1258,7 @@ def phase_launch_path(kern, ix, rows: int):
                 and ids.is_contiguous() and ids.get_device() == dev)
 
     def launch():
-        return fn(x.data_ptr(), ids.data_ptr(), out.data_ptr(), S_SERVE, rows, ids.numel(), 4,
+        return fn(x.data_ptr(), ids.data_ptr(), out.data_ptr(), S_SERVE, rows, ids.numel(), 4, 0,
                   kern._stream_of(dev))
 
     def old_gather():
@@ -1121,7 +1266,7 @@ def phase_launch_path(kern, ix, rows: int):
         old_checks()
         o = torch.empty((S_SERVE, ids.numel(), 1), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), ids.data_ptr(), o.data_ptr(), S_SERVE, rows, ids.numel(), 4, stream)
+        rc = fn(x.data_ptr(), ids.data_ptr(), o.data_ptr(), S_SERVE, rows, ids.numel(), 4, 0, stream)
         check(rc == 0, f"K2 launch failed: cudaError {rc}")
         return o
 
@@ -1138,7 +1283,7 @@ def phase_launch_path(kern, ix, rows: int):
         (f"raw current stream (now; {'torch._C._cuda_getCurrentRawStream' if kern._raw_stream else 'public API'})",
          lambda: kern._stream_of(dev)),
         ("ctypes call with nothing to launch (S=0): the FFI alone",
-         lambda: fn(x.data_ptr(), ids.data_ptr(), out.data_ptr(), 0, rows, ids.numel(), 4,
+         lambda: fn(x.data_ptr(), ids.data_ptr(), out.data_ptr(), 0, rows, ids.numel(), 4, 0,
                     kern._stream_of(dev))),
         ("ctypes call, the launch itself", launch),
         ("whole call, the launch path before this design", old_gather),
@@ -1335,11 +1480,11 @@ def hold_recorded(kern, recorded: dict, tag: str) -> int:
             same = torch.equal(got.cpu(), want)
             what = f"n={n} {what}"
         else:
-            data, ids = args
-            got = kern.gather_cuda(data, ids)
+            data, ids, masked = args
+            got = kern.gather_cuda(data, ids, masked)
             torch.cuda.synchronize()
-            want = kern.gather_plain(data.cpu(), ids.cpu())
-            same = torch.equal(got.cpu(), want) and torch.equal(got, kern.gather_plain(data, ids))
+            want = kern.gather_plain(data.cpu(), ids.cpu(), masked)
+            same = torch.equal(got.cpu(), want) and torch.equal(got, kern.gather_plain(*args))
             what = f"E={ids.numel()} {what}"
         err = (got.cpu().float() - want.float()).abs().max().item()
         log(f"[train] {tag} {name} {what} max_abs_err {err:.3e} {'bit-equal' if same else 'MISMATCH'}")
@@ -1462,15 +1607,14 @@ def phase_train(kern, seg, card):
     t_phase = time.perf_counter()
     batch, topo, bt, graph = train_problem()
     n_edges = batch.lines.shape[1]
-    results, backward_launches = {}, {}
+    results = {}
     for tag, cfg in train_configs().items():
         label = f"{tag} ({cfg.compute_dtype}, {'parity' if cfg.reference_parity else 'paper, fold'})"
         fwd, bwd, rec_f, rec_b, grad_share = train_one_step(kern, seg, tag, cfg, batch, topo, bt, graph)
         held = hold_recorded(kern, {**rec_f, **rec_b}, tag)
         log(f"[train] {tag}: all {held} distinct K1 / K2 launches of one step ({len(rec_f)} forward, "
             f"{len(rec_b)} backward) bit-equal to their plain twins")
-        backward_launches.update(rec_b)
-        del rec_f
+        del rec_f, rec_b
 
         # the main path: 20 eager update steps through make_train_step
         state = init_train_state(0, cfg, device="cuda")
@@ -1525,26 +1669,12 @@ def phase_train(kern, seg, card):
             f"{replay_wall:.3f} ms per step host wall, {replay_event:.3f} ms CUDA events = "
             f"{work / replay_wall * 1e3:.4e} train edges/s ({S_TRAIN} x {n_edges} lines x K {cfg.K} per "
             f"step, bench.py:137; card: {card})")
-        one = GridBatch(*(a[:1] for a in xs))
-        idle = {}
-        for what, run in (("eager step", lambda: step(state, bt)),
-                          ("replayed step", lambda: epoch(graph_state, one))):
-            expect = {"segment_sum_": fwd["K1"] + bwd["K1"], "gns_gather_": fwd["K2"] + bwd["K2"]}
-            untraced, traced, busy, spans, _ = trace_busy(run, reps=3, what=what, expect=expect)
-            kernel_ms = sum(hi - lo for lo, hi, name in spans
-                            if "segment_sum_" in name or "gns_gather_" in name) / 3e3
-            idle[what] = 100 * (1 - busy / sum(untraced))
-            log(f"[train] {label} {what} x3 (one trace): device windows "
-                f"{', '.join(f'{w:.3f}' for w in traced)} ms traced, "
-                f"{', '.join(f'{w:.3f}' for w in untraced)} ms untraced just before; busy "
-                f"{busy / 3:.3f} ms per step in {len(spans) / 3:.1f} device activities, of which "
-                f"{expect['segment_sum_']} K1 and {expect['gns_gather_']} K2 take {kernel_ms:.3f} ms; "
-                f"idle {100 * (1 - busy / sum(traced)):.1f}% of the traced windows, "
-                f"{idle[what]:.1f}% of the untraced")
+        expect = {"segment_sum_": fwd["K1"] + bwd["K1"], "gns_gather_": fwd["K2"] + bwd["K2"]}
+        idle = {"eager step": step_idle(label, "eager step", lambda: step(state, bt), expect)}
         host_ops(label, lambda: step(state, bt))
         results[tag] = dict(forward=fwd, backward=bwd, steps=main, eager_ms=wall, replay_ms=replay_wall,
                             grad_share=grad_share, idle=idle)
-        del state, graph_state, epoch, step
+        del state, step, graph_state, epoch
 
     # a padded case9 + case14 batch (per-sample topology) through the
     # kernels' backward: every id in range, so K1's backward (K2) runs
@@ -1561,7 +1691,270 @@ def phase_train(kern, seg, card):
     check(np.isfinite(loss) and got["K1"] > 0 and got["K2"] > 0 and got["K3"] == got["K4"] == 0,
           "the masked batch's step did not run through K1 / K2")
     log(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
-    return results, backward_launches
+    return results
+
+
+def step_idle(label: str, what: str, run, expect: dict) -> float:
+    """One trace of three runs of a training step (trace_busy): busy time,
+    activities, K1 / K2's share and the idle share, logged; returns the
+    idle share of the untraced windows in %."""
+    untraced, traced, busy, spans, _ = trace_busy(run, reps=3, what=what, expect=expect)
+    kernel_ms = sum(hi - lo for lo, hi, name in spans
+                    if "segment_sum_" in name or "gns_gather_" in name) / 3e3
+    idle = 100 * (1 - busy / sum(untraced))
+    log(f"[train] {label} {what} x3 (one trace): device windows "
+        f"{', '.join(f'{w:.3f}' for w in traced)} ms traced, "
+        f"{', '.join(f'{w:.3f}' for w in untraced)} ms untraced just before; busy "
+        f"{busy / 3:.3f} ms per step in {len(spans) / 3:.1f} device activities, of which "
+        f"{expect['segment_sum_']} K1 and {expect['gns_gather_']} K2 take {kernel_ms:.3f} ms; "
+        f"idle {100 * (1 - busy / sum(traced)):.1f}% of the traced windows, "
+        f"{idle:.1f}% of the untraced")
+    return idle
+
+
+def train_timing_child() -> int:
+    """`chip_smoke.py --train-timing`, run by phase_train_child in a process
+    of its own: the training backward's K1 / K2 shapes against their bounds
+    and library calls (phase_train_timing), then the busy and idle share of
+    one replayed step per configuration; last, one JSON line with the idle
+    shares. Its first device-time reading comes before any CUDA graph is
+    captured or any training step traced."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gns_torch.models.gns import gns_forward, step_params
+    from gns_torch.ops import segment as seg
+    from gns_torch.ops import segment_kernels as kern
+    from gns_torch.train.trainer import init_train_state, make_epoch_step
+    from gns_torch.utils.prepare import GridBatch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = phase_device()
+    _, topo, bt, graph = train_problem()
+    backward = {}
+    for cfg in train_configs().values():
+        state = init_train_state(0, cfg, device="cuda")
+        params = list(state.model.parameters())
+        loss = gns_forward(step_params(state.model, cfg), cfg, bt, graph, dense=True).total_loss.mean()
+        with PathRecorder(kern, seg) as recorder:
+            torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+        backward.update(recorder.inputs)
+        del state, params, loss
+    phase_train_timing(kern, backward, card)
+    del backward
+    idle = {}
+    one = GridBatch(*(a.unsqueeze(0) for a in bt))
+    for tag, cfg in train_configs().items():
+        label = f"{tag} ({cfg.compute_dtype}, {'parity' if cfg.reference_parity else 'paper, fold'})"
+        state = init_train_state(0, cfg, device="cuda")
+        epoch = make_epoch_step(cfg, topo=topo, dense=True)
+        epoch(state, one)  # the capture
+        fwd, bwd = train_launches(cfg)
+        expect = {"segment_sum_": fwd["K1"] + bwd["K1"], "gns_gather_": fwd["K2"] + bwd["K2"]}
+        idle[tag] = step_idle(label, "replayed step", lambda: epoch(state, one), expect)
+        del state, epoch
+    log(json.dumps({"replayed_step_idle": idle}))
+    return 0
+
+
+def phase_train_child(results: dict) -> None:
+    """The train phase's device-time readings (train_timing_child) in a
+    process of its own. In this script's process, once the train phase has
+    run (its CUDA-graph captures and replays, its traces), the profiler
+    has left one activity out of nearly every trace that follows, in some
+    runs; a new process starts clean. Its lines are printed when it ends
+    (it is killed after 300 s); its replayed-step idle shares join
+    `results`."""
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-timing"],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             timeout=300)
+    except subprocess.TimeoutExpired as exc:
+        out = exc.output or b""
+        log(out.decode(errors="replace") if isinstance(out, bytes) else out)
+        fail("the train timing process did not end within 300 s")
+    last = ""
+    for line in run.stdout.splitlines():
+        if line.startswith('{"replayed_step_idle"'):
+            last = line
+        else:
+            log(line)
+    check(run.returncode == 0 and bool(last),
+          f"the train timing process failed (exit {run.returncode})")
+    for tag, idle in json.loads(last)["replayed_step_idle"].items():
+        results[tag]["idle"]["replayed step"] = idle
+    log(f"[train timing] the train phase's device-time readings took {time.perf_counter() - t0:.1f} s "
+        f"in a process of their own")
+
+
+def phase_eval(kern, seg, card) -> dict:
+    """The evaluation path on the card (module docstring, phase 10).
+    Returns the K1 / K2 counts of its runs for the kernels line."""
+    from gns_torch.eval.harness import compute_metrics, evaluate, run_gns, run_nr_oracle
+    from gns_torch.models.pretrained import load_pretrained
+    from gns_torch.train.supervised import (make_supervised_train_step, nr_labels,
+                                            train_supervised)
+    from gns_torch.train.trainer import CAPTURE_WARMUP, init_train_state, state_to, train
+    from gns_torch.utils.augment import generate_cases
+    from gns_torch.utils.config import GNSConfig
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # "f32 means f32" (ROADMAP)
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the shipped case300 checkpoint against the oracle
+    t0 = time.perf_counter()
+    cases = list(generate_cases(CASE, EVAL_GRIDS - 1, seed=0, scale=0.5, feasible_only=True))
+    log(f"[eval] (a) {len(cases)} feasible case{CASE} grids (generate_cases(300, 63, seed=0, "
+        f"scale=0.5, feasible_only=True)) in {time.perf_counter() - t0:.2f} s (host)")
+    model, cfg = load_pretrained(CASE, device="cuda")
+    reset_counts()
+    with NoPlainTwins(kern):
+        metrics = evaluate(model, cfg, cases)
+        torch.cuda.synchronize()
+    got = counts()
+    forwards = len(cases) + 1  # run_gns: one untimed warm-up forward of the shape, then each grid
+    per = {"K1": 1 + 4 * cfg.K, "K2": 2 + 5 * cfg.K}  # serving's float32 counts per forward
+    want = {"K1": forwards * per["K1"], "K2": forwards * per["K2"], "K3": 0, "K4": 0}
+    log(f"[eval] (a) evaluate() launches {got} (expected {want}: {forwards} forwards, "
+        f"{len(cases)} grids and one warm-up, {per['K1']} K1 + {per['K2']} K2 each, as serving)")
+    check(got == want, f"eval launches {got} != {want}")
+    for key, value in metrics.items():
+        log(f"[eval] (a) {key} {value:.6g}")
+    check(metrics["nr_converged_frac"] == 1.0, "the NR oracle did not converge on every eval grid")
+    check(all(np.isfinite(v) for v in metrics.values()), "a non-finite eval metric")
+    nr = run_nr_oracle(cases)
+    on_card = run_gns(model, cfg, cases)
+    model_cpu, _ = load_pretrained(CASE, device="cpu")
+    on_cpu = run_gns(model_cpu, cfg, cases)
+    for key, rtol, atol in (("v", 2e-4, 2e-4), ("theta", 2e-4, 2e-4), ("last_loss", 5e-4, 0.0)):
+        agree("eval", "run_gns card vs cpu", on_card[key], on_cpu[key], rtol, atol, key)
+    log(f"[eval] (a) per grid: NR {1e3 * nr['time'].mean():.3f} ms (host, scipy float64), "
+        f"GNS {1e3 * on_card['time'].mean():.3f} ms on the card (copy in, K={cfg.K} forward, "
+        f"synchronize), {1e3 * on_cpu['time'].mean():.3f} ms on the CPU (card: {card})")
+    out["eval"] = dict(grids=len(cases), forwards=forwards, launches=got, per_forward=per,
+                       v_mse=metrics["v_mse"], theta_mse=metrics["theta_mse"],
+                       nr_ms=1e3 * float(nr["time"].mean()),
+                       gns_ms=1e3 * float(on_card["time"].mean()))
+    del model, model_cpu
+
+    # (b) the case30 multi-seed protocol (tools/accuracy_multiseed.py:94-102,
+    # :150-169): the seeds' v MSE beside gns_tpu's band
+    pool = list(generate_cases(30, 1000, seed=20301))
+    train_cases, eval_cases = pool[1:257], pool[1001 - 232:1001]
+    log(f"[eval] (b) case30 pool of {len(pool)} cases; training on pool[1:257] ({len(train_cases)} "
+        f"grids), evaluating on pool[769:1001] ({len(eval_cases)} grids, gns_tpu's slice)")
+    nr30 = run_nr_oracle(eval_cases)
+    data30 = batch_from_cases(train_cases)
+    rows = []
+    for seed in SEEDS:
+        cfg30 = GNSConfig(K=4, latent_dim=20, hidden_dim=10, multiple_phi=True, epochs=101,
+                          nr_samples=256, seed=seed, case_nr=30, batch_size=128,
+                          early_stop_patience=2, reference_parity=True)
+        t0 = time.perf_counter()
+        with NoPlainTwins(kern):
+            best, history = train(cfg30, data30, device="cuda")
+            sec = time.perf_counter() - t0
+            g = run_gns(state_to(best, "cuda").model, cfg30, eval_cases)
+        m = compute_metrics(nr30, g)
+        rows.append(m["v_mse"])
+        log(f"[eval] (b) seed {seed}: v MSE {m['v_mse']:.5f}, theta MSE {m['theta_mse']:.5f}, "
+            f"theta centred MSE {m['theta_centered_mse']:.5f}, {len(history)} epochs in {sec:.2f} s "
+            f"(CUDA-graph replay), NR converged on {100 * m['nr_converged_frac']:.0f}%")
+        check(np.isfinite(m["v_mse"]) and np.isfinite(m["theta_mse"]), f"seed {seed}: non-finite MSE")
+        check(m["v_mse"] <= WORST_DRAW, f"seed {seed}: v MSE {m['v_mse']:.5f} above {WORST_DRAW}")
+    median = statistics.median(rows)
+    inside = GNS_TPU_BAND[0] <= median <= GNS_TPU_BAND[1]
+    log(f"[eval] (b) case30 v MSE over seeds {SEEDS}: median {median:.5f} (range {min(rows):.5f} "
+        f"to {max(rows):.5f}); gns_tpu's recorded band {GNS_TPU_BAND[0]}-{GNS_TPU_BAND[1]}: "
+        f"{'inside' if inside else 'OUTSIDE'} (card: {card})")
+    out["multiseed"] = dict(v_mse=rows, median=median, eval_grids=len(eval_cases))
+
+    # (c) supervised training on NR labels: one eager step's launches held
+    # against the code and their twins, then 5 epochs by graph replay
+    sup_cases = list(generate_cases(30, 128, seed=7, feasible_only=True))[1:]
+    data = batch_from_cases(sup_cases)
+    topo = extract_shared_topology(data)
+    labels = nr_labels(sup_cases, n_pad=data.buses.shape[1])
+    cfg_s = train_configs()["A"].replace(case_nr=30, batch_size=128, epochs=SUP_EPOCHS,
+                                         early_stop_patience=SUP_EPOCHS)
+    fwd, bwd = train_launches(cfg_s)
+    per_step = {k: fwd[k] + bwd[k] for k in fwd}
+    state = init_train_state(0, cfg_s, device="cuda")
+    step = make_supervised_train_step(cfg_s, 0.1, topo=topo, dense=True)
+    recorder = PathRecorder(kern, seg)
+    reset_counts()
+    with NoPlainTwins(kern), recorder:
+        step(state, data, labels)
+        torch.cuda.synchronize()
+    got = counts()
+    want = dict(per_step, K3=0, K4=0)
+    log(f"[eval] (c) one supervised step on {len(sup_cases)} feasible case30 grids: launches {got} "
+        f"(expected {want}: the training step's, train_launches)")
+    check(got == want, f"supervised step launches {got} != {want}")
+    held = hold_recorded(kern, recorder.inputs, "supervised")
+    log(f"[eval] (c) all {held} distinct K1 / K2 launches of the step bit-equal to their twins")
+    reset_counts()
+    with NoPlainTwins(kern):
+        _, history = train_supervised(cfg_s, data, labels, w_physics=0.1, seed=0, device="cuda")
+    got = counts()
+    want = {k: (CAPTURE_WARMUP + 1) * v for k, v in per_step.items()}
+    want.update(K3=0, K4=0)
+    sups = [r["sup"] for r in history]
+    log(f"[eval] (c) train_supervised {len(history)} epochs by graph replay: sup "
+        + ", ".join(f"{x:.6e}" for x in sups) + f"; physics {history[-1]['physics']:.6e}; "
+        f"launches while capturing {got} (expected {want}; a replay calls no wrapper)")
+    check(got == want, f"supervised capture launches {got} != {want}")
+    check(len(sups) == SUP_EPOCHS and all(np.isfinite(sups)) and sups[-1] < sups[0],
+          f"supervised losses not finite or not falling: {sups}")
+    out["supervised_step"] = per_step
+
+    # (d) train() on a padded case9 + case14 dataset (no shared topology):
+    # eager steps on K1/K2
+    c9, c14 = list(generate_cases(9, 4, seed=11))[1:], list(generate_cases(14, 4, seed=12))[1:]
+    mixed = batch_from_cases([c for pair in zip(c9, c14) for c in pair])
+    check(extract_shared_topology(mixed) is None and not mixed.is_dense(), "the mixed batch is shared")
+    cfg_d = train_configs()["A"].replace(case_nr=14, batch_size=4, epochs=2, early_stop_patience=2)
+    reset_counts()
+    with NoPlainTwins(kern):
+        _, history = train(cfg_d, mixed, device="cuda")
+    got = counts()
+    want = {k: 2 * 2 * v for k, v in per_step.items()}  # 2 epochs of 2 batches
+    want.update(K3=0, K4=0)
+    losses = [r["final_loss"] for r in history]
+    log(f"[eval] (d) train() on the padded case9 + case14 batch (8 grids, per-sample index), 2 "
+        f"epochs of 2 eager steps: final_loss {losses}, launches {got} (expected {want})")
+    check(len(losses) == 2 and all(np.isfinite(losses)), "the mixed batch's losses are not finite")
+    check(got == want, f"mixed-batch train launches {got} != {want}")
+
+    # (e) K1's backward over an index with dropped ids: a masked K2
+    batch, topo300 = case300_indices()
+    n, e = batch.buses.shape[1], batch.lines.shape[1]
+    dst = np.where(np.arange(e) % 5 == 1, n + 7, topo300.dst)  # every fifth id dropped
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((S_SERVE, e, 60), generator=gen, device="cuda", requires_grad=True)
+    w = torch.randn((S_SERVE, n, 60), generator=gen, device="cuda")
+    reset_counts()
+    with NoPlainTwins(kern):
+        (seg.segment_sum(x, seg.SegmentIndex(dst, n, "cuda")) * w).sum().backward()
+        torch.cuda.synchronize()
+    got = counts()
+    xc = x.detach().cpu().requires_grad_(True)
+    (seg.segment_sum(xc, seg.SegmentIndex(dst, n, "cpu")) * w.cpu()).sum().backward()
+    same = torch.equal(x.grad.cpu(), xc.grad)
+    log(f"[eval] (e) K1 forward + backward over an index with {int((np.arange(e) % 5 == 1).sum())} "
+        f"dropped ids (S={S_SERVE}, D=60): launches {got} (expected one K1 and one masked K2); "
+        f"gradient {'bit-equal' if same else 'NOT equal'} to the CPU twin's autograd, dropped rows "
+        f"zero: {bool((x.grad[:, np.arange(e) % 5 == 1] == 0).all())}")
+    check(got == {"K1": 1, "K2": 1, "K3": 0, "K4": 0}, f"dropped-id backward launches {got}")
+    check(same, "K1's backward over dropped ids differs from the CPU twin's gradient")
+    log(f"[eval] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def phase_train_timing(kern, backward_launches: dict, card):
@@ -1593,7 +1986,7 @@ def phase_train_timing(kern, backward_launches: dict, card):
                 return torch.zeros((s, n, d), device="cuda").index_add_(1, ids, xf)
             pattern, lib_name, what = "segment_sum_", "index_add_", f"n={n}"
         else:
-            data, ids32 = args
+            data, ids32, _ = args
             e = ids32.numel()
             ids = ids32.long()
             uniq = int(torch.unique(ids).numel())
@@ -1618,6 +2011,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from gns_torch.models.pretrained import load_pretrained
         from gns_torch.ops import segment as seg
         from gns_torch.ops import segment_kernels as kern
 
@@ -1634,13 +2028,19 @@ def main() -> int:
     phase_path_inputs(kern, recorded, errs)
     del recorded
     launches["K3"] = phase_fused(kern, model, errs, built)
+    deep, deep_cfg = load_pretrained("300-deep", device="cuda")
+    deep_errs = {"K3": 0.0, "K4": 0.0}
+    phase_fused_deep(kern, deep, deep_errs)
     launches["K4"] = phase_megakernel(kern, cases, model, cfg, errs, built, bf16_readings)
+    phase_megakernel_deep(kern, cases, deep, deep_cfg, deep_errs)
     timing, forward_ms = phase_timing(kern, seg, cases, model, cfg, card)
-    timing.update(phase_timing_k34(model, cfg, cases, forward_ms, card, built))
-    del model, cases
-    train, backward_launches = phase_train(kern, seg, card)
-    phase_train_timing(kern, backward_launches, card)
-    del backward_launches
+    timing.update(phase_timing_k34(model, cfg, deep, deep_cfg, cases, forward_ms, card, built))
+    for k in ("K3", "K4"):
+        timing[k]["at_L40_H10"].update(max_abs_err=deep_errs[k], launches=1)
+    del model, cases, deep
+    train = phase_train(kern, seg, card)
+    phase_train_child(train)
+    evals = phase_eval(kern, seg, card)
     kernels = []
     meta = {
         "K1": ("segment_sum_warp / segment_sum_narrow", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:29"),
@@ -1662,6 +2062,11 @@ def main() -> int:
             train_step_launches={tag: {"forward": r["forward"][k], "backward": r["backward"][k]}
                                  for tag, r in train.items()},
         ))
+        if k in ("K1", "K2"):  # the eval path: run_gns per grid, a supervised update step
+            kernels[-1]["eval_launches"] = dict(
+                grids=evals["eval"]["grids"], forwards=evals["eval"]["forwards"],
+                launches=evals["eval"]["launches"][k], per_forward=evals["eval"]["per_forward"][k],
+                supervised_step=evals["supervised_step"][k])
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1672,4 +2077,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(train_timing_child() if sys.argv[1:] == ["--train-timing"] else main())

@@ -41,7 +41,13 @@
 //     shared memory. For input i every lane reads the same word of four
 //     (or, for the last two of 10 outputs, two) outputs' weights, and each
 //     word feeds the FMAs of both edges: 8 FMAs per 16-byte load, no FMA on
-//     padding. 147 registers, 4 warps a block, 3 blocks per SM, no spill.
+//     padding. At (L, H) = (20, 10): 147 registers, 4 warps a block, 3
+//     blocks per SM, no spill. At (40, 10) (the deep checkpoints) a lane
+//     holds 90 inputs and its block 57,408 bytes of shared memory, so the
+//     instance asks for 2 blocks per SM (MinBlocks), which leaves it up to
+//     255 registers.
+//   * Shared memory is dynamic (SharedLayout): at L = 40 it is over the 48
+//     KB a block may hold statically.
 //   * Per head, each lane writes its two rows of 20 masked outputs into
 //     the warp's own 64 x 20 staging rows (16-byte stores), then lane i
 //     sums bus b0 + i (and b0 + i + 32): its rows in CSR order from 0.0f in
@@ -78,8 +84,13 @@ constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kEdges = 2;       // dst-CSR rows per lane
 constexpr int kRows = 32 * kEdges;  // rows per warp tile
-constexpr int kMinBlocks = 3;   // blocks resident per SM (__launch_bounds__): <= 170 registers
 constexpr int kMaxDevices = 64;
+
+// Blocks resident per SM that an instance's __launch_bounds__ asks for:
+// 3 (at most 170 registers a thread) at L = 20; 2 at L = 40, whose lane
+// holds 90 inputs across the three heads.
+template <int L>
+constexpr int MinBlocks() { return L <= 20 ? 3 : 2; }
 // `clocks` per warp: cycles reading inputs, in the MLPs, summing and
 // storing, and the units run.
 constexpr int kPhases = 4;
@@ -95,6 +106,16 @@ struct Pack {
   static constexpr int F = L + 5, HP = round4(H), LP = round4(L);
   static constexpr int kW1 = 0, kB1 = F * HP, kW2 = kB1 + HP, kB2 = kW2 + H * HP;
   static constexpr int kW4 = kB2 + HP, kB4 = kW4 + H * LP, kSize = kB4 + LP;
+};
+
+// A block's dynamic shared memory, in floats: the three heads' weights, each
+// warp's staging rows and hub sums, then each warp's tile row pointers.
+template <int L, int H>
+struct SharedLayout {
+  static constexpr int kW = 0, kStage = kW + 3 * Pack<L, H>::kSize;
+  static constexpr int kHub = kStage + kWarps * kRows * L, kPtr = kHub + kWarps * 3 * L;
+  static constexpr int kBytes = (kPtr + kWarps * (kRows + 1)) * 4;
+  static_assert(kStage % 4 == 0 && kHub % 4 == 0, "16-byte aligned rows");
 };
 
 __device__ __forceinline__ float lrelu(float x, float slope) { return x >= 0.0f ? x : slope * x; }
@@ -216,7 +237,7 @@ __device__ __forceinline__ float load_edge(const float* __restrict__ m,
 }
 
 template <int L, int H, bool CLOCKS>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel(
+__global__ void __launch_bounds__(kThreads, MinBlocks<L>()) fused_edge_kernel(
     const float* __restrict__ m, const float* __restrict__ feats,
     const float* __restrict__ mask, const int* __restrict__ order,
     const int* __restrict__ indptr, const int4* __restrict__ items,
@@ -225,18 +246,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel(
     long long S, int N, int E, int T, float slope, long long* __restrict__ clocks) {
   static_assert(L % 4 == 0, "outputs are stored as 16-byte words");
   using P = Pack<L, H>;
+  using SL = SharedLayout<L, H>;
   constexpr int G = L / 4;  // 16-byte words of an output row
-  __shared__ __align__(16) float w[3 * P::kSize];
-  __shared__ __align__(16) float stage[kWarps][kRows * L];
-  __shared__ int ptr[kWarps][kRows + 1];
-  __shared__ __align__(16) float hub[kWarps][3 * L];  // a hub bus's sums between tiles
+  extern __shared__ float4 smem[];
+  float* const w = reinterpret_cast<float*>(smem) + SL::kW;
   for (int i = threadIdx.x; i < 3 * P::kSize / 4; i += blockDim.x)
     reinterpret_cast<float4*>(w)[i] = __ldg(reinterpret_cast<const float4*>(weights) + i);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  float* buf = stage[wid];
-  int* bp = ptr[wid];
+  float* buf = reinterpret_cast<float*>(smem) + SL::kStage + wid * kRows * L;  // (kRows, L)
+  float* hub = reinterpret_cast<float*>(smem) + SL::kHub + wid * 3 * L;  // a hub bus's sums
+  int* bp = reinterpret_cast<int*>(smem) + SL::kPtr + wid * (kRows + 1);
   const bool m_vec = (reinterpret_cast<uintptr_t>(m) & 15) == 0;
   const long long units = S * T, warps = (long long)gridDim.x * kWarps;
   long long spent[kPhases] = {0, 0, 0, 0};  // CLOCKS: SM cycles per phase, and units
@@ -279,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel(
         for (int i = lane; i < b1 - b0; i += 32) {
           float acc[L];
 #pragma unroll
-          for (int l = 0; l < L; ++l) acc[l] = r == r0 ? 0.0f : hub[wid][h * L + l];
+          for (int l = 0; l < L; ++l) acc[l] = r == r0 ? 0.0f : hub[h * L + l];
           for (int k = bp[i]; k < bp[i + 1]; ++k) {
 #pragma unroll
             for (int g = 0; g < G; ++g) {
@@ -295,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel(
               o[g] = make_float4(acc[4 * g], acc[4 * g + 1], acc[4 * g + 2], acc[4 * g + 3]);
           } else {  // a hub item (one bus, lane 0): the next tile goes on
 #pragma unroll
-            for (int l = 0; l < L; ++l) hub[wid][h * L + l] = acc[l];
+            for (int l = 0; l < L; ++l) hub[h * L + l] = acc[l];
           }
         }
         __syncwarp();
@@ -312,9 +333,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel(
 }
 
 // Blocks of fused_edge_kernel<L, H, false> the card keeps resident per SM,
-// and the SM count, cached per device. The grid of either instance is sized
-// by these (the CLOCKS instance only measures; were it to keep fewer blocks
-// resident, the rest would wait their turn).
+// and the SM count, cached per device; the first call on a device also lets
+// both instances take their dynamic shared memory. The grid of either
+// instance is sized by these (the CLOCKS instance only measures; were it to
+// keep fewer blocks resident, the rest would wait their turn).
 template <int L, int H>
 cudaError_t residency(int* per_sm, int* sms) {
   static int cached[kMaxDevices][2];
@@ -323,8 +345,16 @@ cudaError_t residency(int* per_sm, int* sms) {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (cached[dev][0] == 0) {
+    constexpr int bytes = SharedLayout<L, H>::kBytes;
+    err = cudaFuncSetAttribute(fused_edge_kernel<L, H, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fused_edge_kernel<L, H, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached[dev][0],
-                                                        fused_edge_kernel<L, H, false>, kThreads, 0);
+                                                        fused_edge_kernel<L, H, false>, kThreads,
+                                                        bytes);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&cached[dev][1], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -346,15 +376,28 @@ int launch(const float* m, const float* feats, const float* mask, const int* ord
   const long long want = (S * T + kWarps - 1) / kWarps;
   const long long most = (long long)per_sm * sms;
   const unsigned int grid = (unsigned int)(want < most ? want : most);
+  constexpr size_t bytes = SharedLayout<L, H>::kBytes;
   if (clocks == nullptr)
-    fused_edge_kernel<L, H, false><<<grid, kThreads, 0, stream>>>(
+    fused_edge_kernel<L, H, false><<<grid, kThreads, bytes, stream>>>(
         m, feats, mask, order, indptr, items, row_bus, weights, out0, out1, out2, S, N, E, T,
         slope, nullptr);
   else
-    fused_edge_kernel<L, H, true><<<grid, kThreads, 0, stream>>>(
+    fused_edge_kernel<L, H, true><<<grid, kThreads, bytes, stream>>>(
         m, feats, mask, order, indptr, items, row_bus, weights, out0, out1, out2, S, N, E, T,
         slope, clocks);
   return (int)cudaGetLastError();
+}
+
+template <int L, int H>
+int occupancy(int* out) {
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = residency<L, H>(&per_sm, &sms);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = SharedLayout<L, H>::kBytes;
+  out[1] = per_sm;
+  out[2] = kThreads;
+  out[3] = sms;
+  return 0;
 }
 
 }  // namespace
@@ -362,30 +405,23 @@ int launch(const float* m, const float* feats, const float* mask, const int* ord
 extern "C" {
 
 // Floats of the three heads' packed weights, or -1 for an unsupported
-// (L, H). Built for the shipped checkpoints' (L, H) = (20, 10) only: another
-// width gets its instantiation together with a check of it on the card.
+// (L, H). Built for the shipped checkpoints' widths, (L, H) = (20, 10) and
+// (40, 10): another width gets its instantiation together with a check of
+// it on the card.
 int gns_fused_edge_weight_floats(int L, int H) {
-  if (L != 20 || H != 10) return -1;
-  return 3 * Pack<20, 10>::kSize;
+  if (L == 20 && H == 10) return 3 * Pack<20, 10>::kSize;
+  if (L == 40 && H == 10) return 3 * Pack<40, 10>::kSize;
+  return -1;
 }
 
-// out: static shared bytes per block, blocks resident per SM, threads per
-// block, SMs. At most out[1] * out[3] blocks run (a persistent grid), so a
+// out: shared bytes per block, blocks resident per SM, threads per block,
+// SMs. At most out[1] * out[3] blocks run (a persistent grid), so a
 // `clocks` buffer of out[1] * out[3] * out[2] / 32 warps always suffices.
 // Returns a cudaError_t.
 int gns_fused_edge_occupancy(int L, int H, int* out) {
-  if (L != 20 || H != 10) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fused_edge_kernel<20, 10, false>);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0;
-  err = residency<20, 10>(&per_sm, &sms);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = (int)attr.sharedSizeBytes;
-  out[1] = per_sm;
-  out[2] = kThreads;
-  out[3] = sms;
-  return 0;
+  if (L == 20 && H == 10) return occupancy<20, 10>(out);
+  if (L == 40 && H == 10) return occupancy<40, 10>(out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // m (S, N, L), feats (S, E, 5), mask (S, E); order / indptr (N + 1,) the
@@ -394,17 +430,23 @@ int gns_fused_edge_occupancy(int L, int H, int* out) {
 // (ops/segment.py schedule_items); weights the
 // three heads packed as Pack, on the card; out0..2 (S, N, L), 16-byte
 // aligned; clocks null, or (warps of the grid, kPhases) int64 to receive
-// each warp's cycles per phase. Supported (L, H): (20, 10).
+// each warp's cycles per phase. Supported (L, H): (20, 10), (40, 10).
 int gns_fused_edge(const float* m, const float* feats, const float* mask, const int* order,
                    const int* indptr, const int* items, const int* row_bus,
                    const float* weights, float* out0, float* out1, float* out2, long long S,
                    int N, int E, int T, int L, int H, float slope, long long* clocks,
                    void* stream) {
   if (S == 0 || N == 0) return 0;
-  if (L != 20 || H != 10 || T < 1) return (int)cudaErrorInvalidValue;
-  return launch<20, 10>(m, feats, mask, order, indptr, reinterpret_cast<const int4*>(items),
-                        row_bus, weights, out0, out1, out2,
-                        S, N, E, T, slope, clocks, static_cast<cudaStream_t>(stream));
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  const int4* it = reinterpret_cast<const int4*>(items);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (L == 20 && H == 10)
+    return launch<20, 10>(m, feats, mask, order, indptr, it, row_bus, weights, out0, out1, out2,
+                          S, N, E, T, slope, clocks, st);
+  if (L == 40 && H == 10)
+    return launch<40, 10>(m, feats, mask, order, indptr, it, row_bus, weights, out0, out1, out2,
+                          S, N, E, T, slope, clocks, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

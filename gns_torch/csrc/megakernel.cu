@@ -60,11 +60,16 @@
 //     row), runs the L heads on the same buses from those bf16 aggregates
 //     (the twin rounds node_in to bf16 too) and updates their state. No
 //     aggregate leaves the warp and no block barrier separates the stages;
-//   * about 112 KB of shared memory per case300 grid (one step's tiles, the
-//     per-bus state rows, the bus / line / generator arrays, scratch that
-//     the physics and the warps' tiles share), so two 256-thread blocks
-//     share an SM; a grid that does not fit is refused (the wrapper
-//     raises), never run elsewhere;
+//   * about 112 KB of shared memory per case300 grid at (L, H) = (20, 10)
+//     (one step's tiles, the per-bus state rows, the bus / line / generator
+//     arrays, scratch that the physics and the warps' tiles share), so two
+//     256-thread blocks share an SM; at (40, 10), the deep checkpoints'
+//     width, 193,664 bytes, so that instance asks for one block per SM
+//     (MinGrids); a grid that does not fit is refused (the wrapper raises),
+//     never run elsewhere;
+//   * the aggregate's 3L columns are spread over a warp's lanes, lane c
+//     summing columns c, c + 32, ... (Dims::NA of them: 2 at L = 20, 4 at
+//     L = 40);
 //   * physics, CSR sums and scalar block reductions in float32, in the
 //     twin's order, deterministic; each line's results are written at its
 //     rows of the dst and src CSRs, so a bus sums a contiguous run.
@@ -117,12 +122,12 @@ struct Dims {
   static constexpr int bPB1 = 0, bPB2 = bPB1 + 3 * HP, bPB4 = bPB2 + 3 * HP;
   static constexpr int bLB1 = bPB4 + 3 * LP, bLB2 = bLB1 + 3 * HP, bLB4 = bLB2 + 3 * HP;
   static constexpr int kBias = bLB4 + 16 + LP;  // L_theta, L_v: 8 each, then L_m
+  // aggregate columns per lane: lane c sums columns c, c + 32, ... of 3L
+  static constexpr int NA = (3 * L + 31) / 32;
   // one warp's scratch (floats): a tile's phi outputs (16 x 3L f32), the
   // rows' aggregate slots (16 ints), the item's buses' aggregates and a
-  // spare row (17 x 3L bf16); lanes >= 3L - 32 read past the outputs into
-  // the slots, unused
+  // spare row (17 x 3L bf16)
   static constexpr int kWarp = kRows * 3 * L + kRows + (kRows + 1) * 3 * L / 2;
-  static_assert(3 * L <= 64 && 3 * L > 32, "two aggregate columns per lane");
   static_assert(kBias % 4 == 0, "biases are copied as float4");
   static_assert(bPB2 % 2 == 0 && bPB4 % 2 == 0 && bLB1 % 2 == 0 && bLB2 % 2 == 0 && HP % 2 == 0,
                 "bias pairs are read as float2");
@@ -210,8 +215,13 @@ struct Topo {
   int n_items;
 };
 
+// Grids resident per SM that an instance's __launch_bounds__ asks for: two
+// at L = 20 (114,176 bytes per case300 grid), one at L = 40 (193,664).
+template <int L>
+constexpr int MinGrids() { return L <= 20 ? 2 : 1; }
+
 template <int L, int H>
-__global__ void __launch_bounds__(kThreads, 2) megakernel(
+__global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
     const float* __restrict__ buses, const float* __restrict__ lines,
     const float* __restrict__ gens, const float* __restrict__ bus_mask,
     const float* __restrict__ line_mask, const float* __restrict__ gen_mask, Topo tp,
@@ -358,7 +368,9 @@ __global__ void __launch_bounds__(kThreads, 2) megakernel(
         const int4 item = tp.items[it];
         const int b0 = item.x, b1 = item.y, r0 = item.z, r1 = item.w;
         for (int i = lane; i < kRows * 3 * L / 2; i += 32) reinterpret_cast<uint32_t*>(aggw)[i] = 0u;
-        float acc0 = 0.0f, acc1 = 0.0f;  // columns lane and lane + 32: the bus in progress
+        float acc[D::NA];  // columns lane + 32 j: the bus in progress
+#pragma unroll
+        for (int j = 0; j < D::NA; ++j) acc[j] = 0.0f;
         for (int row0 = r0; row0 < r1; row0 += kRows) {
           const int rows = min(kRows, r1 - row0);
           // lane r < rows holds row r's edge and (bus << 1 | last row of its bus)
@@ -421,19 +433,22 @@ __global__ void __launch_bounds__(kThreads, 2) megakernel(
             }
           }
           __syncwarp();
-          // the aggregate: lane c sums columns c and c + 32 down the rows in
-          // dst-CSR order, from 0, and stores bf16(sum) at its bus's last
+          // the aggregate: lane c sums columns c, c + 32, ... down the rows
+          // in dst-CSR order, from 0, and stores bf16(sum) at its bus's last
           // row; a bus spanning tiles carries its sums to the next tile
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
-            acc0 += stage[r * 3 * L + lane];
-            acc1 += stage[r * 3 * L + 32 + lane];  // lanes >= 3L - 32: never stored
             const int slot = sofs[r];
             const int at = (slot >= 0 ? slot : kRows) * 3 * L;  // else the spare row
-            aggw[at + lane] = __float2bfloat16_rn(acc0);
-            if (32 + lane < 3 * L) aggw[at + 32 + lane] = __float2bfloat16_rn(acc1);
-            acc0 = slot >= 0 ? 0.0f : acc0;
-            acc1 = slot >= 0 ? 0.0f : acc1;
+#pragma unroll
+            for (int j = 0; j < D::NA; ++j) {
+              const int col = 32 * j + lane;
+              if (32 * (j + 1) <= 3 * L || col < 3 * L) {
+                acc[j] += stage[r * 3 * L + col];
+                aggw[at + col] = __float2bfloat16_rn(acc[j]);
+                acc[j] = slot >= 0 ? 0.0f : acc[j];
+              }
+            }
           }
           __syncwarp();
         }
@@ -666,38 +681,47 @@ int launch(const float* buses, const float* lines, const float* gens, const floa
   return (int)cudaGetLastError();
 }
 
+template <int L, int H>
+int blocks_per_sm(int N, int E, int G) {
+  const long long shared = Layout<L, H>(N, E, G).total;
+  if (shared > kMaxShared) return 0;
+  cudaError_t err = prepare<L, H>(shared);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel<L, H>, kThreads,
+                                                        (size_t)shared);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// The widths K4 is built for: the shipped checkpoints' (L, H) = (20, 10)
+// and (40, 10). Another width gets its instantiation together with a check
+// of it on the card.
+bool built_for(int L, int H) { return H == 10 && (L == 20 || L == 40); }
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of shared memory one grid needs, or -1 for an unsupported (L, H).
-// Built for the shipped checkpoints' (L, H) = (20, 10) only: another width
-// gets its instantiation together with a check of it on the card.
 long long gns_megakernel_shared_bytes(int N, int E, int G, int L, int H) {
-  if (L != 20 || H != 10) return -1;
-  return Layout<20, 10>(N, E, G).total;
+  if (!built_for(L, H)) return -1;
+  return L == 20 ? Layout<20, 10>(N, E, G).total : Layout<40, 10>(N, E, G).total;
 }
 
 // Blocks (grids) the card keeps resident per SM at this grid size, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 if a grid does not fit,
 // -1 for an unsupported (L, H), -(cudaError) if the query fails.
 int gns_megakernel_blocks_per_sm(int N, int E, int G, int L, int H) {
-  if (L != 20 || H != 10) return -1;
-  const long long shared = Layout<20, 10>(N, E, G).total;
-  if (shared > kMaxShared) return 0;
-  cudaError_t err = prepare<20, 10>(shared);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel<20, 10>, kThreads,
-                                                        (size_t)shared);
-  return err == cudaSuccess ? blocks : -(int)err;
+  if (!built_for(L, H)) return -1;
+  return L == 20 ? blocks_per_sm<20, 10>(N, E, G) : blocks_per_sm<40, 10>(N, E, G);
 }
 
 // Sizes of one packed step: bf16 tile elements (biases 0) or f32 biases
 // (biases 1); -1 if unsupported.
 long long gns_megakernel_step_sizes(int L, int H, int biases) {
-  if (L != 20 || H != 10) return -1;
-  return biases ? Dims<20, 10>::kBias : Dims<20, 10>::kTiles * 128LL;
+  if (!built_for(L, H)) return -1;
+  if (L == 20) return biases ? Dims<20, 10>::kBias : Dims<20, 10>::kTiles * 128LL;
+  return biases ? Dims<40, 10>::kBias : Dims<40, 10>::kTiles * 128LL;
 }
 
 // buses (S, N, 6), lines (S, E, 7), gens (S, G, 7), masks (S, N) (S, E)
@@ -724,9 +748,13 @@ int gns_megakernel(const float* buses, const float* lines, const float* gens, co
   const Topo tp{src,     dst,        srcq,    dstq,    dst_order,
                 dst_indptr, src_indptr, gen_order, gen_indptr, dst_pos,
                 src_pos, gen_pos,    reinterpret_cast<const int4*>(items), row_bus, n_items};
-  if (L != 20 || H != 10) return (int)cudaErrorInvalidValue;
-  return launch<20, 10>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th, dp, dq,
-                        loss, clocks, S, N, E, G, K, slope, static_cast<cudaStream_t>(stream));
+  if (!built_for(L, H)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (L == 20)
+    return launch<20, 10>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th, dp, dq,
+                          loss, clocks, S, N, E, G, K, slope, st);
+  return launch<40, 10>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th, dp, dq,
+                        loss, clocks, S, N, E, G, K, slope, st);
 }
 
 }  // extern "C"

@@ -69,6 +69,12 @@
 //       32-bit multiply-high by a host-made reciprocal, exact for the
 //       tile's word count. For a row of one word the copy is a thread per
 //       row, which on the card beat 16-byte chunks of two 8-byte rows.
+//       Masked (the `masked` flag): an id of -1 writes a zero row. K1's
+//       backward is K2 over the forward's segment ids, and an id that K1
+//       dropped (outside [0, N)) has a gradient of 0, as jax.ops.segment_sum's
+//       VJP and the plain twin's autograd give; the host stores such ids as
+//       -1. The flag is a template constant, so an unmasked launch runs the
+//       same code as before.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -228,7 +234,7 @@ __device__ __forceinline__ void store_chunk(U* p, const U* v) {
 // data[s, ids[e], :]. A sample's output is cut into the 16-byte chunks of
 // its address range; chunk k covers its units [k C - head, k C - head + C).
 // Block (x, y) writes chunks [x per, (x + 1) per) of samples y, y + gridDim.y, ...
-template <typename U, int W>
+template <typename U, int W, bool MASKED>
 __global__ void __launch_bounds__(kNarrowGatherThreads) gns_gather_narrow(
     const U* __restrict__ data, const int* __restrict__ ids, U* __restrict__ out,
     int S, int R, int E, int per) {
@@ -249,15 +255,15 @@ __global__ void __launch_bounds__(kNarrowGatherThreads) gns_gather_narrow(
         for (int q = 0; q < C; ++q) {
           const int e = (h0 + q) / W;  // W is a constant: a multiply and a shift
           if (e != last) { id = __ldg(ids + e); last = e; }
-          v[q] = tab[id * W + (h0 + q - e * W)];
+          v[q] = MASKED && id < 0 ? U(0) : tab[id * W + (h0 + q - e * W)];
         }
         store_chunk<U>(dst + h0, v);
       } else {  // the sample's first or last chunk: only its own units
         for (int q = 0; q < C; ++q) {
           const int h = h0 + q;
           if (h < 0 || h >= units) continue;
-          const int e = h / W;
-          dst[h] = tab[__ldg(ids + e) * W + (h - e * W)];
+          const int e = h / W, id = __ldg(ids + e);
+          dst[h] = MASKED && id < 0 ? U(0) : tab[id * W + (h - e * W)];
         }
       }
     }
@@ -269,7 +275,7 @@ __global__ void __launch_bounds__(kNarrowGatherThreads) gns_gather_narrow(
 // samples y, y + gridDim.y, ...; the tile's ids are staged once. Word f of
 // the tile is word f - r W of its row r = f / W: f itself for W = 1, else
 // umulhi(f, magic), exact while tile * W * W < 2^32 (host).
-template <typename V>
+template <typename V, bool MASKED>
 __global__ void __launch_bounds__(kWideThreads) gns_gather_wide(
     const V* __restrict__ data, const int* __restrict__ ids, V* __restrict__ out,
     int S, int R, int E, int W, int tile, unsigned int magic) {
@@ -284,8 +290,8 @@ __global__ void __launch_bounds__(kWideThreads) gns_gather_wide(
     V* dst = out + ((long long)s * E + e0) * W;
 #pragma unroll 4
     for (int f = threadIdx.x; f < words; f += blockDim.x) {
-      const int r = W == 1 ? f : (int)__umulhi((unsigned int)f, magic);
-      dst[f] = src[sid[r] * W + (f - r * W)];
+      const int r = W == 1 ? f : (int)__umulhi((unsigned int)f, magic), id = sid[r];
+      dst[f] = MASKED && id < 0 ? V{} : src[id * W + (f - r * W)];
     }
   }
 }
@@ -328,27 +334,41 @@ GatherPlan gather_plan(long long S, long long E, long long row_bytes, uintptr_t 
 }
 
 // The narrow kernel for the plan's units per row W (1 .. 16 / sizeof(U)).
-template <typename U, int W = 1>
+template <typename U, bool MASKED, int W = 1>
 int launch_narrow_gather(const GatherPlan& p, const void* data, const int* ids, void* out,
                          int S, int R, int E, cudaStream_t st) {
   if constexpr (W * sizeof(U) > 16) {
     return (int)cudaErrorInvalidValue;
   } else {
     if (p.units_per_row != W)
-      return launch_narrow_gather<U, W + 1>(p, data, ids, out, S, R, E, st);
-    gns_gather_narrow<U, W><<<dim3(p.grid_x, p.grid_y), kNarrowGatherThreads, 0, st>>>(
+      return launch_narrow_gather<U, MASKED, W + 1>(p, data, ids, out, S, R, E, st);
+    gns_gather_narrow<U, W, MASKED><<<dim3(p.grid_x, p.grid_y), kNarrowGatherThreads, 0, st>>>(
         static_cast<const U*>(data), ids, static_cast<U*>(out), S, R, E, p.per);
     return (int)cudaGetLastError();
   }
 }
 
-template <typename V>
+template <typename V, bool MASKED>
 int launch_wide_gather(const GatherPlan& p, const void* data, const int* ids, void* out,
                        int S, int R, int E, cudaStream_t st) {
-  gns_gather_wide<V><<<dim3(p.grid_x, p.grid_y), kWideThreads, 0, st>>>(
+  gns_gather_wide<V, MASKED><<<dim3(p.grid_x, p.grid_y), kWideThreads, 0, st>>>(
       static_cast<const V*>(data), ids, static_cast<V*>(out), S, R, E, p.units_per_row, p.per,
       p.magic);
   return (int)cudaGetLastError();
+}
+
+template <bool MASKED>
+int launch_gather(const GatherPlan& p, const void* data, const int* ids, void* out, int S, int R,
+                  int E, cudaStream_t st) {
+  switch (p.variant * 32 + p.unit) {
+    case 0 * 32 + 4: return launch_narrow_gather<uint32_t, MASKED>(p, data, ids, out, S, R, E, st);
+    case 0 * 32 + 2: return launch_narrow_gather<uint16_t, MASKED>(p, data, ids, out, S, R, E, st);
+    case 1 * 32 + 16: return launch_wide_gather<uint4, MASKED>(p, data, ids, out, S, R, E, st);
+    case 1 * 32 + 8: return launch_wide_gather<uint2, MASKED>(p, data, ids, out, S, R, E, st);
+    case 1 * 32 + 4: return launch_wide_gather<uint32_t, MASKED>(p, data, ids, out, S, R, E, st);
+    case 1 * 32 + 2: return launch_wide_gather<uint16_t, MASKED>(p, data, ids, out, S, R, E, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Words of VEC elements fit a row of D when D is a multiple of VEC and
@@ -441,11 +461,11 @@ int gns_gather_plan(long long S, long long E, long long row_bytes, const void* d
 }
 
 // K2. data (S, R, row_bytes) -> out (S, E, row_bytes), rows picked by
-// ids (E,) in [0, R). row_bytes must be a multiple of 2 and both pointers
-// 2-byte aligned; R * row_bytes and E * row_bytes under 2^31 (the wrapper
-// checks).
+// ids (E,) in [0, R); with masked != 0 an id may also be -1, which writes
+// a zero row. row_bytes must be a multiple of 2 and both pointers 2-byte
+// aligned; R * row_bytes and E * row_bytes under 2^31 (the wrapper checks).
 int gns_gather(const void* data, const int* ids, void* out,
-               long long S, long long R, long long E, long long row_bytes,
+               long long S, long long R, long long E, long long row_bytes, int masked,
                void* stream) {
   if (S * E * row_bytes == 0) return 0;
   const uintptr_t align = reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(out);
@@ -456,15 +476,8 @@ int gns_gather(const void* data, const int* ids, void* out,
   const GatherPlan p = gather_plan(S, E, row_bytes, reinterpret_cast<uintptr_t>(data),
                                    reinterpret_cast<uintptr_t>(out));
   const int s = (int)S, r = (int)R, e = (int)E;
-  switch (p.variant * 32 + p.unit) {
-    case 0 * 32 + 4: return launch_narrow_gather<uint32_t>(p, data, ids, out, s, r, e, st);
-    case 0 * 32 + 2: return launch_narrow_gather<uint16_t>(p, data, ids, out, s, r, e, st);
-    case 1 * 32 + 16: return launch_wide_gather<uint4>(p, data, ids, out, s, r, e, st);
-    case 1 * 32 + 8: return launch_wide_gather<uint2>(p, data, ids, out, s, r, e, st);
-    case 1 * 32 + 4: return launch_wide_gather<uint32_t>(p, data, ids, out, s, r, e, st);
-    case 1 * 32 + 2: return launch_wide_gather<uint16_t>(p, data, ids, out, s, r, e, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (masked) return launch_gather<true>(p, data, ids, out, s, r, e, st);
+  return launch_gather<false>(p, data, ids, out, s, r, e, st);
 }
 
 }  // extern "C"

@@ -18,7 +18,8 @@ SegmentIndex over the dst ids (E,), shared by the batch; heads
 
 On a CUDA tensor the forward is one launch of the kernel in
 gns_torch/csrc/fused_edge.cu (`fused_edge_cuda`), in exact float32: no TF32
-and no bf16 operands. What the kernel reads beside the inputs is laid out
+and no bf16 operands. The kernel is built for (L, H) = (20, 10) and (40,
+10), the shipped checkpoints' widths; another width raises. What the kernel reads beside the inputs is laid out
 here, in Python, so the CPU tests reach it:
   pack_weights    the 18 weights as one vector, each matrix transposed
                   with its rows padded to 16-byte words (pack_index);
@@ -199,8 +200,8 @@ fused_edge_cuda.launches = 0
 
 
 def fused_edge_occupancy(latent: int = 20, hidden: int = 10) -> Tuple[int, int, int, int]:
-    """(static shared bytes per block, blocks resident per SM, threads per
-    block, SMs) of K3 on the current device, from the kernel library."""
+    """(shared bytes per block, blocks resident per SM, threads per block,
+    SMs) of K3 on the current device, from the kernel library."""
     out = (ctypes.c_int * 4)()
     rc = kern.function("gns_fused_edge_occupancy")(latent, hidden, ctypes.addressof(out))
     if rc != 0:

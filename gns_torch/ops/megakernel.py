@@ -6,8 +6,10 @@ init, K x (edge MLP, aggregation, node MLP, PV freeze, reference-parity
 physics refresh with the quirk-Q2 gathers and the lambda dispatch), the
 discounted loss and the v clamp, one grid per block
 (gns_torch/csrc/megakernel.cu). Serving only, for multiple_phi +
-reference_parity (every shipped K4/L20/H10 checkpoint) and a shared
-topology.
+reference_parity (every shipped K4/L20/H10 checkpoint, and the K8/L40/H10
+`300-deep`) and a shared topology. The kernel is built for (latent, hidden)
+= (20, 10) and (40, 10); at (40, 10) a case300 grid takes 193,664 bytes of
+shared memory, one grid per SM.
 
   megakernel_forward_batch(model, cfg, batch, topo) -> GNSOutput
       on the model's device, from a host (numpy) GridBatch and its shared

@@ -17,10 +17,12 @@ returns float32 (the kernel accumulates in float32, as the JAX 'onehot' /
 
 Indices come as a SegmentIndex, built once per topology on the host: the
 ids, the CSR-by-segment the kernel walks, and a range check. Ids outside
-[0, n) are dropped by segment-sum (as jax.ops.segment_sum drops them); a
-gather through an index with such ids raises. Per-sample topologies (a
-mixed-size request) are flattened to one (S*E,) index offset by s*n, so
-they still run as one kernel launch over a (1, S*E, D) view.
+[0, n) are dropped by segment-sum (as jax.ops.segment_sum drops them), and
+their gradient is 0: on the card K1's backward is then a masked K2 launch
+that writes zero rows for them. A gather through an index with such ids
+raises. Per-sample topologies (a mixed-size request) are flattened to one
+(S*E,) index offset by s*n, so they still run as one kernel launch over a
+(1, S*E, D) view.
 """
 
 from __future__ import annotations
@@ -69,6 +71,10 @@ class SegmentIndex:
             raise ValueError("index too large for int32 kernel offsets")
         dev = torch.device(device)
         self.ids = torch.as_tensor(np.where(valid, ids, 0).astype(np.int32), device=dev)
+        # the ids with every dropped one as -1, for K1's backward (a masked
+        # K2 launch); None where no id was dropped
+        self.masked_ids = None if self.in_range else torch.as_tensor(
+            np.where(valid, ids, -1).astype(np.int32), device=dev)
         self.order = torch.as_tensor(order.astype(np.int32), device=dev)
         self.indptr = torch.as_tensor(indptr.astype(np.int32), device=dev)
 
@@ -96,7 +102,8 @@ def _check_method(method: str, allowed, x: torch.Tensor) -> None:
 
 class _SegmentSumK1(torch.autograd.Function):
     """K1 forward; backward launches K2 (the adjoint), as
-    gns_tpu/ops/pallas_segment.py:109-125 does on the TPU."""
+    gns_tpu/ops/pallas_segment.py:109-125 does on the TPU. A dropped id's
+    gradient is a zero row (a masked K2 launch)."""
 
     @staticmethod
     def forward(ctx, x, index: SegmentIndex):
@@ -105,9 +112,9 @@ class _SegmentSumK1(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if not ctx.index.in_range:
-            raise ValueError("the kernel backward needs every segment id in range")
-        return kern.gather_cuda(g.contiguous(), ctx.index.ids).to(ctx.dtype), None
+        idx = ctx.index
+        ids = idx.ids if idx.in_range else idx.masked_ids
+        return kern.gather_cuda(g.contiguous(), ids, masked=not idx.in_range).to(ctx.dtype), None
 
 
 class _GatherK2(torch.autograd.Function):

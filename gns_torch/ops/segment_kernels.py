@@ -9,7 +9,7 @@ first use, into build/torch_kernels/ under the checkout keyed by the
 source's and flags' hash, loads the library with ctypes, and wraps K1/K2:
 
   segment_sum_cuda(data, order, indptr, n)  K1: (S, E, D) f32/bf16 -> (S, n, D) f32
-  gather_cuda(data, ids)                    K2: (S, R, D) -> (S, E, D), same dtype
+  gather_cuda(data, ids, masked=False)      K2: (S, R, D) -> (S, E, D), same dtype
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates the output with new_empty, launches on the
@@ -139,7 +139,7 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "segment": {
         "gns_segment_sum": ([_p, _i, _p, _p, _p, _ll, _ll, _ll, _ll, _p], _i),
-        "gns_gather": ([_p, _p, _p, _ll, _ll, _ll, _ll, _p], _i),
+        "gns_gather": ([_p, _p, _p, _ll, _ll, _ll, _ll, _i, _p], _i),
         "gns_gather_plan": ([_ll, _ll, _ll, _p, _p, _p], _i),
     },
     "fused_edge": {
@@ -243,9 +243,11 @@ def segment_sum_cuda(data: torch.Tensor, order: torch.Tensor,
     return out
 
 
-def gather_cuda(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_cuda(data: torch.Tensor, ids: torch.Tensor, masked: bool = False) -> torch.Tensor:
     """K2: out[s, e, :] = data[s, ids[e], :]. ids must lie in
-    [0, data.shape[1]) (checked on the host by SegmentIndex)."""
+    [0, data.shape[1]) (checked on the host by SegmentIndex); with
+    `masked`, an id may also be -1, and its row of out is zero (K1's
+    backward over an index with dropped ids)."""
     dev = data.get_device()
     if not (data.is_cuda and data.dtype in _DATA_DTYPES and data.dim() == 3
             and data.is_contiguous() and ids.is_cuda and ids.dtype == torch.int32
@@ -259,7 +261,7 @@ def gather_cuda(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return out
     rc = function("gns_gather")(
         data.data_ptr(), ids.data_ptr(), out.data_ptr(),
-        s, r, e, d * data.element_size(), _stream_of(dev),
+        s, r, e, d * data.element_size(), 1 if masked else 0, _stream_of(dev),
     )
     if rc != 0:
         raise RuntimeError(f"K2 gather launch failed: cudaError {rc}")
@@ -287,9 +289,15 @@ def segment_sum_plain(data: torch.Tensor, order: torch.Tensor,
     return out.index_add(1, seg, rows)
 
 
-def gather_plain(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """K2's plain twin: index_select along the row axis."""
-    return data.index_select(1, ids.long())
+def gather_plain(data: torch.Tensor, ids: torch.Tensor, masked: bool = False) -> torch.Tensor:
+    """K2's plain twin: index_select along the row axis; with `masked`,
+    rows whose id is -1 are zero."""
+    if not masked:
+        return data.index_select(1, ids.long())
+    ids = ids.long()
+    out = data.index_select(1, ids.clamp_min(0))
+    return torch.where((ids >= 0)[None, :, None], out, torch.zeros((), dtype=data.dtype,
+                                                                    device=data.device))
 
 
 # K2's launch plan, mirrored from csrc/segment.cu gather_plan (the same

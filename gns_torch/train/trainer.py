@@ -15,7 +15,11 @@ gns_tpu's epoch is one `lax.scan` of update steps per dispatch, to remove
 the per-batch host dispatch. The port's counterpart on CUDA captures one
 update step in a `torch.cuda.graph` and replays it once per batch after
 copying the batch into the graph's static inputs; the host syncs once per
-epoch. On the CPU the same step runs in a Python loop.
+epoch. A graph replays fixed index sets, so batches without a shared
+topology (a padded mixed-case dataset, which gns_tpu scans with topo=None)
+take the same update step eagerly, batch by batch, still on K1/K2 on the
+card, with each batch's index sets built once. On the CPU the same step
+runs in a Python loop.
 
 Early stopping, best-checkpoint and divergence semantics follow the
 reference driver (GNS/main.py:235-309) as gns_tpu's `train` does.
@@ -186,13 +190,21 @@ def loss_and_grads(model: GNS, cfg: GNSConfig, batch: GridBatch, graph, method: 
     return loss.detach(), out.last_loss.detach().mean(), list(grads)
 
 
-def _update_core(cfg, optimizer, method, dense):
+def _update_core(cfg, optimizer, method, dense, grads_fn=None):
     """The update step on device tensors: forward, backward, optimizer,
     written into the state in place. No host sync and no host-to-device
-    copy, so a CUDA graph can capture it."""
+    copy, so a CUDA graph can capture it.
 
-    def core(state: TrainState, batch: GridBatch, graph):
-        loss, last, grads = loss_and_grads(state.model, cfg, batch, graph, method, dense)
+    grads_fn(model, batch, graph, *extra) -> (metric, metric, gradients in
+    the order of model.parameters()), the metrics detached; default
+    loss_and_grads (mean total_loss, mean last_loss). The core returns the
+    two metrics."""
+    if grads_fn is None:
+        def grads_fn(model, batch, graph):
+            return loss_and_grads(model, cfg, batch, graph, method, dense)
+
+    def core(state: TrainState, batch: GridBatch, graph, *extra):
+        loss, last, grads = grads_fn(state.model, batch, graph, *extra)
         params = list(state.model.parameters())
         with torch.no_grad():
             updates, new = optimizer.update(grads, state.opt_state, params)
@@ -272,31 +284,37 @@ def make_train_step(
 
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
-    batch: GridBatch  # the static inputs the graph reads
+    inputs: tuple  # the static inputs the graph reads: the batch's arrays, then any extra
     loss: torch.Tensor  # the static outputs it writes
     last_loss: torch.Tensor
 
 
-def _capture(core, state: TrainState, graph, sample: GridBatch) -> _Captured:
-    """Capture one update step of `state` in a CUDA graph.
+_NB = len(GridBatch._fields)
+
+
+def _capture(core, state: TrainState, graph, sample: tuple) -> _Captured:
+    """Capture one update step of `state` in a CUDA graph. sample: one
+    batch's arrays (GridBatch order) followed by any extra inputs of the
+    core.
 
     Capture needs warm-up iterations on a side stream first. The warm-ups
     and the capture itself each run the update once, so the parameters,
     the optimizer state and the step are saved before them and restored
     after: the first replay is the epoch's first step. An error in the
     capture raises."""
-    static = GridBatch(*(a.clone() for a in sample))
+    static = tuple(a.clone() for a in sample)
+    args = (GridBatch(*static[:_NB]), graph, *static[_NB:])
     tensors = _state_tensors(state)
     saved = [t.detach().clone() for t in tensors]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(CAPTURE_WARMUP):
-            core(state, static, graph)
+            core(state, *args)
     torch.cuda.current_stream().wait_stream(side)
     cuda_graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(cuda_graph):
-        loss, last = core(state, static, graph)
+        loss, last = core(state, *args)
     with torch.no_grad():
         torch._foreach_copy_(tensors, saved)
     return _Captured(cuda_graph, static, loss, last)
@@ -313,47 +331,58 @@ def make_epoch_step(
     (n_batches, batch, ...) axes) -> (TrainState, {loss (n_batches,),
     last_loss (n_batches,)}), the state updated in place.
 
-    On CUDA the update step is captured once per state and batch shape in
-    a CUDA graph and replayed once per batch after the batch is copied into
-    the graph's static inputs; each step's losses are copied into (n,)
-    device tensors, and nothing waits for the device (the caller reads the
-    losses once per epoch). The capture needs one shared topology (topo):
-    a graph replays fixed index sets. On the CPU the same step runs in a
-    Python loop. Either way the result equals a loop of make_train_step.
+    On CUDA with one shared topology (topo) the update step is captured
+    once per state and batch shape in a CUDA graph and replayed once per
+    batch after the batch is copied into the graph's static inputs; each
+    step's losses are copied into (n,) device tensors, and nothing waits
+    for the device (the caller reads the losses once per epoch). A graph
+    replays fixed index sets, so without a shared topology (topo=None) the
+    step runs eagerly per batch, on the card as on the CPU, with each
+    batch's index sets built once per stacked dataset. On the CPU the step
+    always runs in a Python loop. Every way, the result equals a loop of
+    make_train_step.
     """
-    core = _update_core(cfg, optimizer or make_optimizer(cfg), method, dense)
+    return _epoch_fn(_update_core(cfg, optimizer or make_optimizer(cfg), method, dense), topo)
+
+
+def _epoch_fn(core, topo) -> Callable:
+    """make_epoch_step's epoch around an update core (see there); shared
+    with train/supervised.py, whose batches carry their labels beside the
+    GridBatch (core(state, batch, graph, *extra))."""
     graphs = _Graphs(topo)
     captured = {}
+    per_batch = {}  # without a shared topology: the last stacked data's index sets
 
-    def epoch_fn(state: TrainState, batches: GridBatch):
+    def epoch_fn(state: TrainState, batches: GridBatch, *extra):
         device = _device(state)
         n = batches.buses.shape[0]
-        if device.type != "cuda":
+        if device.type != "cuda" or topo is None:
+            if topo is None and per_batch.get("of") is not batches:
+                per_batch.clear()
+                per_batch["of"] = batches  # held, so it is not freed and its id reused
+                per_batch["graphs"] = [graphs(GridBatch(*(a[i] for a in batches)), device)
+                                       for i in range(n)]
             losses, lasts = [], []
             for i in range(n):
                 batch = GridBatch(*(a[i] for a in batches))
-                loss, last = core(state, _on(batch, device), graphs(batch, device))
+                graph = per_batch["graphs"][i] if topo is None else graphs(batch, device)
+                loss, last = core(state, _on(batch, device), graph, *(x[i] for x in extra))
                 losses.append(loss)
                 lasts.append(last)
             return state, {"loss": torch.stack(losses), "last_loss": torch.stack(lasts)}
-        if topo is None:
-            raise ValueError(
-                "the CUDA-graph epoch replays one set of index sets: pass the "
-                "batches' shared topology (utils/prepare.py extract_shared_topology); "
-                "per-sample topologies train with make_train_step"
-            )
         xs = _on(batches, device)
-        sample = GridBatch(*(a[0] for a in xs))
+        flat = (*xs, *extra)
+        sample = tuple(a[0] for a in flat)
         key = (tuple(t.data_ptr() for t in _state_tensors(state)),
                tuple((a.shape, a.dtype) for a in sample))
         if key not in captured:
             captured.clear()  # a graph holds its state's tensors and its memory pool
-            captured[key] = _capture(core, state, graphs(sample, device), sample)
+            captured[key] = _capture(core, state, graphs(GridBatch(*sample[:_NB]), device), sample)
         cap = captured[key]
         losses = xs.buses.new_empty((n,))
         lasts = xs.buses.new_empty((n,))
         for i in range(n):
-            for dst, src in zip(cap.batch, xs):
+            for dst, src in zip(cap.inputs, flat):
                 dst.copy_(src[i])
             cap.graph.replay()
             losses[i].copy_(cap.loss)
@@ -437,7 +466,9 @@ def train(
     """Full training run with the reference's semantics (see _loop).
 
     Epochs over `data` (a host GridBatch) in batch_size chunks, one
-    make_epoch_step call per epoch; a new state is made from
+    make_epoch_step call per epoch (on the card a replayed CUDA graph, or,
+    for a dataset without a shared topology, eager steps); a new state is
+    made from
     seed (default cfg.seed) on `device` unless `state` is given, which is
     then trained in place on its own device. Returns (best_state, history),
     best_state a CPU copy.

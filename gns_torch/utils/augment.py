@@ -18,6 +18,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from gns_torch.eval.newton_raphson import newton_raphson_pf
 from gns_torch.utils import cases as case_tables
 
 RANGES = {
@@ -80,16 +81,27 @@ def generate_cases(
 ) -> Iterator[Dict]:
     """Yield the base case (index 0) then `num_augmentations` perturbed cases.
 
-    feasible_only needs the Newton-Raphson oracle, which this package has
-    not ported yet.
+    feasible_only: rejection-sample each augmentation until Newton-Raphson
+    (eval/newton_raphson.py) converges on it, drawing from the one RNG
+    stream, so the cases equal gns_tpu's for the same seed. Large cases
+    leave the AC-solvable region for most draws at scale 1, and an
+    accuracy-vs-oracle set must not hold a non-converged oracle iterate.
     """
-    if feasible_only:
-        raise NotImplementedError(
-            "feasible_only needs the Newton-Raphson oracle, which gns_torch "
-            "does not port yet"
-        )
     base = case_tables.load_case(case_nr)
     yield copy.deepcopy(base)
     rng = np.random.default_rng(seed)
     for _ in range(num_augmentations):
-        yield augment_case(base, rng, scale=scale)
+        if not feasible_only:
+            yield augment_case(base, rng, scale=scale)
+            continue
+        for _try in range(max_tries_per_case):
+            c = augment_case(base, rng, scale=scale)
+            if newton_raphson_pf(c).success:
+                yield c
+                break
+        else:
+            raise RuntimeError(
+                f"no NR-feasible augmentation of case{case_nr} in "
+                f"{max_tries_per_case} tries: the perturbation ranges are "
+                f"too violent for this case"
+            )

@@ -131,5 +131,15 @@ def test_config_and_schema_match():
 
 
 def test_feasible_only_needs_the_oracle():
-    with pytest.raises(NotImplementedError):
-        next(iter(augment.generate_cases(14, 1, feasible_only=True)))
+    """feasible_only rejection-samples through the port's own NR oracle
+    (eval/newton_raphson.py): the cases are NR-feasible and equal gns_tpu's
+    for the same seed."""
+    from gns_torch.eval.newton_raphson import newton_raphson_pf
+
+    got = list(augment.generate_cases(14, 2, seed=4, feasible_only=True))
+    want = list(j_augment.generate_cases(14, 2, seed=4, feasible_only=True))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for key in w:
+            np.testing.assert_array_equal(np.asarray(g[key]), np.asarray(w[key]), err_msg=key)
+        assert newton_raphson_pf(g).success

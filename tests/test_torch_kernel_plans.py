@@ -46,8 +46,9 @@ def _dst(case):
 
 def _emulate_gather_plan(ids, r, row_bytes, s, data_ptr, out_ptr):
     """For each output unit of an (s, E, row_bytes) gather, which source unit
-    (sample, row, unit of row) the kernel's plan copies into it, and how
-    often it is written; built from gather_plan the way the kernel walks it."""
+    (sample, row, unit of row) the kernel's plan copies into it (-1 where
+    the id is -1: a masked launch writes a zero there), and how often it is
+    written; built from gather_plan the way the kernel walks it."""
     e = ids.size
     p = kern.gather_plan(s, e, row_bytes, data_ptr, out_ptr)
     w, unit = p["units_per_row"], p["unit"]
@@ -72,7 +73,7 @@ def _emulate_gather_plan(ids, r, row_bytes, s, data_ptr, out_ptr):
                         h = h0 + q
                         if 0 <= h < units:
                             row, col = divmod(h, w)
-                            src[si, h] = (si * r + ids[row]) * w + col
+                            src[si, h] = (si * r + ids[row]) * w + col if ids[row] >= 0 else -1
                             writes[si, h] += 1
     else:
         magic = p["magic"]
@@ -87,7 +88,8 @@ def _emulate_gather_plan(ids, r, row_bytes, s, data_ptr, out_ptr):
             col = np.arange(n * w) - row * w
             for si in range(s):
                 np.add.at(writes[si], (e0 + row) * w + col, 1)
-                src[si, (e0 + row) * w + col] = (si * r + ids[e0 + row]) * w + col
+                src[si, (e0 + row) * w + col] = np.where(
+                    ids[e0 + row] >= 0, (si * r + ids[e0 + row]) * w + col, -1)
     assert p["grid_y"] == min(s, 65535)
     return p, src, writes
 
@@ -99,6 +101,19 @@ K2_SHAPES = [  # (D, dtype bytes, index)
 ]
 
 
+def _k2_ids(which):
+    """(ids, rows of the table, samples) of a K2 plan test's index."""
+    dst, n = _dst(300)
+    if which == "dst":
+        return dst, n, 3
+    if which == "src_rows":
+        topo_src = extract_shared_topology(base_case_batch(300)).src
+        return np.clip(topo_src, 0, len(dst) - 1), len(dst), 3
+    # a flattened per-sample index: one sample, a table of 3 * n rows
+    flat = SegmentIndex(np.tile(dst, (3, 1)), n)
+    return flat.ids.numpy(), flat.rows, 1
+
+
 @pytest.mark.parametrize("d, esz, which", K2_SHAPES)
 @pytest.mark.parametrize("shift", [0, 1, 2, 3])
 def test_k2_plan_covers_every_output_row_once(d, esz, which, shift):
@@ -107,16 +122,7 @@ def test_k2_plan_covers_every_output_row_once(d, esz, which, shift):
     16-byte word: every unit of the output is written exactly once, with
     the unit of the row that out[s, e] = data[s, ids[e]] names, and the
     variant is the one the shape and alignment pick."""
-    dst, n = _dst(300)
-    topo_src = extract_shared_topology(base_case_batch(300)).src
-    s = 3
-    if which == "dst":
-        ids, r = dst, n
-    elif which == "src_rows":
-        ids, r = np.clip(topo_src, 0, len(dst) - 1), len(dst)
-    else:  # a flattened per-sample index: one sample, a table of s * n rows
-        flat = SegmentIndex(np.tile(dst, (s, 1)), n)
-        ids, r, s = flat.ids.numpy(), flat.rows, 1
+    ids, r, s = _k2_ids(which)
     row_bytes = d * esz
     data_ptr, out_ptr = 0x7F0000000000 + shift * esz, 0x7F0000100000
     p, src, writes = _emulate_gather_plan(np.asarray(ids), r, row_bytes, s, data_ptr, out_ptr)
@@ -132,6 +138,28 @@ def test_k2_plan_covers_every_output_row_once(d, esz, which, shift):
     else:
         assert p["variant"] == 0
         assert p["unit"] == (4 if row_bytes % 4 == 0 and align % 4 == 0 else 2)
+
+
+@pytest.mark.parametrize("d, esz, which", K2_SHAPES)
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_k2_masked_plan_writes_zero_rows(d, esz, which, shift):
+    """A masked launch (K1's backward over an index with dropped ids) takes
+    the same plan: with every seventh id -1, every output unit is still
+    written once, a dropped id's units are zero, the others copy their
+    row's unit, and the result equals gather_plain(masked=True) exactly."""
+    ids, r, s = _k2_ids(which)
+    ids = np.where(np.arange(len(ids)) % 7 == 3, -1, ids)
+    data_ptr, out_ptr = 0x7F0000000000 + shift * esz, 0x7F0000100000
+    p, src, writes = _emulate_gather_plan(ids, r, d * esz, s, data_ptr, out_ptr)
+    assert p == kern.gather_plan(s, len(ids), d * esz, data_ptr, out_ptr)
+    assert np.all(writes == 1)
+    w = p["units_per_row"]
+    units = np.arange(1, s * r * w + 1, dtype=np.float64).reshape(s, r, w)  # unit i holds i + 1
+    got = np.where(src >= 0, units.reshape(-1)[np.maximum(src, 0)], 0.0)
+    want = kern.gather_plain(torch.from_numpy(units), torch.as_tensor(ids, dtype=torch.int32),
+                             masked=True)
+    assert np.array_equal(got, want.reshape(s, -1).numpy())
+    assert np.all(got.reshape(s, len(ids), w)[:, ids < 0] == 0)
 
 
 def test_launch_path_signatures_cover_every_c_function():
@@ -232,7 +260,7 @@ def test_k3_order_of_adds_equals_segment_sum(case):
                        kern.segment_sum_plain(x, index.order, index.indptr, index.n))
 
 
-@pytest.mark.parametrize("latent, hidden", [(20, 10), (8, 8), (12, 6)])
+@pytest.mark.parametrize("latent, hidden", [(20, 10), (8, 8), (12, 6), (40, 10)])
 def test_k3_packed_weights_unpack_exactly(latent, hidden):
     """pack_weights lays the 18 weights out as fused_edge.cu's Pack reads
     them: per head w1, b1, w2, b2, w4, b4, each matrix transposed to (in,

@@ -32,12 +32,21 @@ from gns_torch.utils.prepare import base_case_batch, batch_from_cases, extract_s
 
 torch.set_num_threads(1)
 LAT, HID = 20, 10
-CFG = GNSConfig(K=4, latent_dim=LAT, hidden_dim=HID, multiple_phi=True, reference_parity=True)
-JCFG = JConfig(K=4, latent_dim=LAT, hidden_dim=HID, multiple_phi=True, reference_parity=True)
-# tile offsets and padded bias offsets of megakernel.cu's Dims<20, 10>
-T_PW1, T_PW2, T_PW4, T_LW1, T_LW2, T_LW4, N_TILES = 0, 12, 18, 27, 45, 51, 56
-B_PB1, B_PB2, B_PB4, B_LB1, B_LB2, B_LB4, N_BIAS = 0, 48, 96, 168, 216, 264, 304
+# tile offsets (phi w1, w2, w4, L w1, w2, w4, count) and padded bias offsets
+# (the same, then the count) of megakernel.cu's Dims<L, H>, by (L, H)
+DIMS = {
+    (20, 10): ((0, 12, 18, 27, 45, 51, 56), (0, 48, 96, 168, 216, 264, 304)),
+    (40, 10): ((0, 18, 24, 39, 75, 81, 88), (0, 48, 96, 216, 264, 312, 368)),
+}
 RTOL = 1e-6
+
+
+def _cfgs(lat, hid):
+    kw = dict(K=4, latent_dim=lat, hidden_dim=hid, multiple_phi=True, reference_parity=True)
+    return GNSConfig(**kw), JConfig(**kw)
+
+
+CFG, JCFG = _cfgs(LAT, HID)
 
 
 @pytest.fixture(autouse=True)
@@ -46,11 +55,12 @@ def _no_grad():
         yield
 
 
-def _packs(seed=0):
-    params = init_gns_params(jax.random.key(seed), JCFG)
-    model = module_from_jax_params(jax.tree.map(np.asarray, params), CFG, device="cpu")
-    fused = step_params(model, CFG.replace(fused_heads=True, fold_output="off"))
-    wpack, bpack = mk.pack_step_weights(fused, LAT, HID)
+def _packs(seed=0, lat=LAT, hid=HID):
+    cfg, jcfg = _cfgs(lat, hid)
+    params = init_gns_params(jax.random.key(seed), jcfg)
+    model = module_from_jax_params(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    fused = step_params(model, cfg.replace(fused_heads=True, fold_output="off"))
+    wpack, bpack = mk.pack_step_weights(fused, lat, hid)
     return fused, wpack, bpack
 
 
@@ -63,12 +73,12 @@ def _b(tiles, t):
     return out
 
 
-def _unpack(wrow, brow):
+def _unpack(wrow, brow, lat=LAT, hid=HID):
     """One step's tiles and padded biases back to the fused layout
     {"phi_fused": {w1, b1, ...}, "L_fused": {...}}: bf16 weights, float32
     biases, zero wherever no tile slot lands (the block-diagonal zeros)."""
-    widx, bidx = mk._tile_plan(LAT, HID)
-    shapes = mk._fused_shapes(LAT, HID)
+    widx, bidx = mk._tile_plan(lat, hid)
+    shapes = mk._fused_shapes(lat, hid)
     flat = {}
     for idx, row, n, dtype in ((widx, wrow, sum(o * i for _, _, (o, i) in shapes), torch.bfloat16),
                                (bidx, brow, sum(o for _, _, (o, _) in shapes), torch.float32)):
@@ -94,35 +104,50 @@ def _close(got, want, x, w):
     assert torch.all((got - want).abs() <= RTOL * scale + 1e-30), float((got - want).abs().max())
 
 
+def _check_unpack(seed, lat, hid):
+    """Unpacking the tiles gives step_params' bf16 fused weights exactly,
+    and the slots hold each of the heads' own weights once."""
+    (_, _, _, _, _, _, n_tiles), (*_, n_bias) = DIMS[(lat, hid)]
+    fused, wpack, bpack = _packs(seed, lat, hid)
+    assert wpack.shape == (CFG.K, n_tiles * 128) and bpack.shape == (CFG.K, n_bias)
+    for k, st in enumerate(fused):
+        back = _unpack(wpack[k], bpack[k], lat, hid)
+        for head in ("phi_fused", "L_fused"):
+            for n, t in st[head].items():
+                want = t.to(torch.bfloat16) if n.startswith("w") else t
+                assert torch.equal(back[head][n], want), (k, head, n)
+    widx, bidx = mk._tile_plan(lat, hid)
+    kept = widx[widx >= 0]
+    per_edge = 3 * (hid * (lat + 5) + hid * hid + lat * hid)
+    per_bus = 3 * hid * (4 + 2 * lat) + 3 * hid * hid + hid * (2 + lat)
+    assert kept.size == np.unique(kept).size == per_edge + per_bus
+    assert bidx[bidx >= 0].size == np.unique(bidx[bidx >= 0]).size == 3 * (hid + hid + lat) \
+        + 3 * hid + 3 * hid + 2 + lat
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_unpack_gives_fused_bf16_weights(seed):
     """Unpacking the tiles gives step_params' bf16 fused weights exactly:
     the per-head blocks, the block-diagonal zeros, the padding and L w1's
     column selection. Every fused weight lands in at most one slot, and the
     slots hold exactly the heads' own weights (1650 per edge, 1840 per bus)."""
-    fused, wpack, bpack = _packs(seed)
-    assert wpack.shape == (CFG.K, N_TILES * 128) and bpack.shape == (CFG.K, N_BIAS)
-    for k, st in enumerate(fused):
-        back = _unpack(wpack[k], bpack[k])
-        for head in ("phi_fused", "L_fused"):
-            for n, t in st[head].items():
-                want = t.to(torch.bfloat16) if n.startswith("w") else t
-                assert torch.equal(back[head][n], want), (k, head, n)
-    widx, bidx = mk._tile_plan(LAT, HID)
-    kept = widx[widx >= 0]
-    assert kept.size == np.unique(kept).size == 1650 + 1840
-    assert bidx[bidx >= 0].size == np.unique(bidx[bidx >= 0]).size == 3 * (HID + HID + LAT) \
-        + 3 * HID + 3 * HID + 2 + LAT
+    _check_unpack(seed, LAT, HID)
 
 
-@pytest.mark.parametrize("case", [14, 30])
-def test_tile_products_match_dense_mlp(case):
-    """A torch emulation of the kernel's per-head, padded tile products on
-    the packed operands equals the twin's dense-layout mlp layer by layer
-    (pre-activation, on the twin's own bf16 activations) within float32
-    rounding, on every step's weights; the edge and node rows are case
-    grids' sizes with seeded inputs."""
-    fused, wpack, bpack = _packs()
+@pytest.mark.parametrize("seed", [0, 1])
+def test_unpack_gives_fused_bf16_weights_at_40_10(seed):
+    """The same at (L, H) = (40, 10), the deep checkpoints' width and
+    megakernel.cu's Dims<40, 10> (88 tiles, 368 biases): 5850 weights per
+    edge, 4140 per bus."""
+    _check_unpack(seed, 40, 10)
+
+
+def _check_tile_products(case, lat, hid):
+    (T_PW1, T_PW2, T_PW4, T_LW1, T_LW2, T_LW4, N_TILES), \
+        (B_PB1, B_PB2, B_PB4, B_LB1, B_LB2, B_LB4, _) = DIMS[(lat, hid)]
+    LAT, HID = lat, hid  # noqa: N806 (the widths under test)
+    kp, kl, nl = -(-(LAT + 5) // 16), -(-(4 + 2 * LAT) // 16), -(-LAT // 8)
+    fused, wpack, bpack = _packs(0, lat, hid)
     batch = base_case_batch(case)
     n_bus, n_line = batch.buses.shape[1], batch.lines.shape[1]
     rng = np.random.default_rng(case)
@@ -136,10 +161,11 @@ def test_tile_products_match_dense_mlp(case):
         # phi: edge rows, input (E, L + 5)
         x = _bf(torch.as_tensor(rng.standard_normal((n_line, LAT + 5)), dtype=torch.float32))
         ref1 = x @ w["phi"]["w1"].t() + w["phi"]["b1"]
-        xp = torch.nn.functional.pad(x, (0, 32 - x.shape[1]))
+        xp = torch.nn.functional.pad(x, (0, 16 * kp - x.shape[1]))
         for nt in range(6):
             head, half = divmod(nt, 2)
-            got = sum(xp[:, 16 * kt:16 * kt + 16] @ _b(tiles, T_PW1 + nt * 2 + kt) for kt in range(2))
+            got = sum(xp[:, 16 * kt:16 * kt + 16] @ _b(tiles, T_PW1 + nt * kp + kt)
+                      for kt in range(kp))
             got = got + bias[B_PB1 + nt * 8:B_PB1 + nt * 8 + 8]
             cols = slice(head * HID + half * 8, head * HID + min(half * 8 + 8, HID))
             n_real = cols.stop - cols.start
@@ -157,8 +183,8 @@ def test_tile_products_match_dense_mlp(case):
             rows = slice(h * HID, (h + 1) * HID)
             _close(got, ref2[:, rows], h1, w["phi"]["w2"][rows])
             a = torch.nn.functional.pad(h2[:, h * HID:(h + 1) * HID], (0, 16 - HID))
-            got = torch.cat([a @ _b(tiles, T_PW4 + h * 3 + nt) for nt in range(3)], 1)
-            got = (got + bias[B_PB4 + 24 * h:B_PB4 + 24 * h + 24])[:, :LAT]
+            got = torch.cat([a @ _b(tiles, T_PW4 + h * nl + nt) for nt in range(nl)], 1)
+            got = (got + bias[B_PB4 + 8 * nl * h:B_PB4 + 8 * nl * (h + 1)])[:, :LAT]
             rows = slice(h * LAT, (h + 1) * LAT)
             _close(got, ref4[:, rows], h2, w["phi"]["w4"][rows])
 
@@ -170,13 +196,13 @@ def test_tile_products_match_dense_mlp(case):
         h2 = _bf(torch.where(ref2 >= 0, ref2, 0.01 * ref2))
         ref4 = h2 @ w["L"]["w4"].t() + w["L"]["b4"]
         out_rows = (slice(0, 1), slice(1, 2), slice(2, 2 + LAT))
-        out_tiles = ([T_LW4], [T_LW4 + 1], [T_LW4 + 2 + nt for nt in range(3)])
+        out_tiles = ([T_LW4], [T_LW4 + 1], [T_LW4 + 2 + nt for nt in range(nl)])
         out_bias = (B_LB4, B_LB4 + 8, B_LB4 + 16)
         for h, blk in enumerate((1, 0, 2)):
             xi = torch.cat([x[:, :4 + LAT], x[:, 4 + LAT + blk * LAT:4 + LAT + (blk + 1) * LAT]], 1)
-            xi = torch.nn.functional.pad(xi, (0, 48 - xi.shape[1]))
-            got = torch.cat([sum(xi[:, 16 * kt:16 * kt + 16] @ _b(tiles, T_LW1 + (h * 2 + nt) * 3 + kt)
-                                 for kt in range(3)) for nt in range(2)], 1)
+            xi = torch.nn.functional.pad(xi, (0, 16 * kl - xi.shape[1]))
+            got = torch.cat([sum(xi[:, 16 * kt:16 * kt + 16] @ _b(tiles, T_LW1 + (h * 2 + nt) * kl + kt)
+                                 for kt in range(kl)) for nt in range(2)], 1)
             got = (got + bias[B_LB1 + 16 * h:B_LB1 + 16 * h + 16])[:, :HID]
             rows = slice(h * HID, (h + 1) * HID)
             _close(got, ref1[:, rows], x, w["L"]["w1"][rows])
@@ -189,6 +215,23 @@ def test_tile_products_match_dense_mlp(case):
             width = out_rows[h].stop - out_rows[h].start
             got = got[:, :width] + bias[out_bias[h]:out_bias[h] + width]
             _close(got, ref4[:, out_rows[h]], h2, w["L"]["w4"][out_rows[h]])
+
+
+@pytest.mark.parametrize("case", [14, 30])
+def test_tile_products_match_dense_mlp(case):
+    """A torch emulation of the kernel's per-head, padded tile products on
+    the packed operands equals the twin's dense-layout mlp layer by layer
+    (pre-activation, on the twin's own bf16 activations) within float32
+    rounding, on every step's weights; the edge and node rows are case
+    grids' sizes with seeded inputs."""
+    _check_tile_products(case, LAT, HID)
+
+
+@pytest.mark.parametrize("case", [14, 30])
+def test_tile_products_match_dense_mlp_at_40_10(case):
+    """The same tile products at (L, H) = (40, 10): phi's first layer over
+    3 k-tiles, L's over 6, 5 n-tiles of each 40-wide output."""
+    _check_tile_products(case, 40, 10)
 
 
 def _kernel_aggregate(x, index: SegmentIndex):
@@ -240,3 +283,55 @@ def test_dst_order_aggregate_equals_segment_sum(case):
                         dtype=torch.float32)
     assert torch.equal(_kernel_aggregate(x, index),
                        segment_sum_plain(x, index.order, index.indptr, index.n))
+
+
+def _lane_aggregate(x, index: SegmentIndex, width: int):
+    """megakernel.cu's aggregate with its lane layout: lane c of the warp
+    keeps running sums of columns c, c + 32, ... (Dims::NA of them) of the
+    3L-wide phi outputs, adding a 16-row tile's rows in order and storing
+    at each bus's last row. Returns the sums and how often each column was
+    written per bus row."""
+    items, row_bus = schedule_items(index.indptr.numpy(), mk.ROWS)
+    order = index.order.numpy()
+    na = -(-width // 32)
+    out = torch.zeros((x.shape[0], index.n, width), dtype=torch.float32)
+    seen = np.zeros((index.n, width), np.int64)
+    for _, _, r0, r1 in items.tolist():
+        acc = [[torch.zeros(x.shape[0]) for _ in range(na)] for _ in range(32)]
+        for row0 in range(r0, r1, 16):
+            for j in range(row0, min(row0 + 16, r1)):
+                for lane in range(32):
+                    for a in range(na):
+                        col = 32 * a + lane
+                        if col >= width:
+                            continue
+                        acc[lane][a] = acc[lane][a] + x[:, order[j], col]
+                        if row_bus[j] & 1:
+                            out[:, row_bus[j] >> 1, col] = acc[lane][a]
+                            seen[row_bus[j] >> 1, col] += 1
+                            acc[lane][a] = torch.zeros(x.shape[0])
+    return out, seen
+
+
+@pytest.mark.parametrize("case", [14, 30, "hub"])
+def test_dst_order_aggregate_at_l40_equals_segment_sum(case):
+    """At L = 40 each lane sums four of the aggregate's 120 columns (c, c +
+    32, c + 64 and, for lanes below 24, c + 96): every column of every bus
+    with lines is stored once, and the sums equal segment_sum_plain bit for
+    bit, a 40-edge hub bus over three tiles included."""
+    if case == "hub":
+        rng = np.random.default_rng(3)
+        dst = np.concatenate([np.full(40, 5), rng.integers(0, 30, 60)])
+        rng.shuffle(dst)
+        n = 32
+    else:
+        batch = batch_from_cases(list(generate_cases(case, 1, seed=0)))
+        dst, n = extract_shared_topology(batch).dst, batch.buses.shape[1]
+    index = SegmentIndex(dst, n, "cpu")
+    width = 3 * 40
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((2, len(dst), width)),
+                        dtype=torch.float32)
+    got, seen = _lane_aggregate(x, index, width)
+    has_lines = np.diff(index.indptr.numpy()) > 0
+    assert np.all(seen[has_lines] == 1) and np.all(seen[~has_lines] == 0)
+    assert torch.equal(got, segment_sum_plain(x, index.order, index.indptr, index.n))

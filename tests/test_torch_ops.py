@@ -149,6 +149,44 @@ def test_vjps_match_jax_grad():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_dropped_ids_gradient_matches_jax_grad(per_sample):
+    """Segment ids outside [0, n) are dropped and get a zero gradient: the
+    twin's autograd equals jax.grad(jax.ops.segment_sum) (TOL), and the
+    masked gather that K1's backward launches on the card (its plain twin
+    here, on SegmentIndex.masked_ids) gives the twin's gradient bit for
+    bit."""
+    rng = np.random.default_rng(9)
+    s, e, n, d = 3, 23, 7, 5
+    ids = rng.integers(0, n, (s, e) if per_sample else (e,)).astype(np.int32)
+    flat = ids.reshape(-1)
+    flat[[2, 9]] = [n + 3, -2]  # dropped
+    data = rng.standard_normal((s, e, d)).astype(np.float32)
+    w = rng.standard_normal((s, n, d)).astype(np.float32)
+    idx = SegmentIndex(ids, n)
+    assert not idx.in_range and idx.masked_ids is not None
+
+    def f_jax(x):
+        if per_sample:
+            sums = jax.vmap(lambda v, i: jax.ops.segment_sum(v, i, n))(x, ids)
+        else:
+            sums = jax.vmap(lambda v: jax.ops.segment_sum(v, ids, n))(x)
+        return (sums * w).sum()
+
+    x = torch.from_numpy(data).requires_grad_(True)
+    out = segment_sum(x, idx)
+    g_out = torch.from_numpy(w)
+    (out * g_out).sum().backward()
+    want = np.asarray(jax.grad(f_jax)(data))
+    np.testing.assert_allclose(x.grad.numpy(), want, **TOL)
+    dropped = (flat < 0) | (flat >= n)
+    assert np.all(x.grad.numpy()[np.broadcast_to(dropped.reshape(-1, e), (s, e))] == 0)
+    g_flat = g_out.reshape(1, -1, d) if per_sample else g_out
+    got = kern.gather_plain(g_flat, idx.masked_ids, masked=True).reshape(s, e, d)
+    assert torch.equal(got, x.grad)
+    assert np.array_equal(idx.masked_ids.numpy() < 0, dropped)
+
+
 def test_broadcast_col0_quirk():
     data, seg, n = _problem(6, d=1)
     out = broadcast_col0_segment_sum(torch.from_numpy(data), SegmentIndex(seg, n), 6).numpy()

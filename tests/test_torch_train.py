@@ -197,6 +197,25 @@ def test_train_matches_gns_tpu(data14):
     assert next(best.model.parameters()).device.type == "cpu"
 
 
+def test_train_padded_mixed_batch_matches_gns_tpu():
+    """train() on a padded case9 + case14 dataset (no shared topology: the
+    epoch takes its eager path, as it does on the card) for 2 epochs of 2
+    batches that mix both cases: each epoch's final_loss against gns_tpu's
+    train(), which scans the same batches with topo=None (rtol 1e-3)."""
+    c9 = list(generate_cases(9, 4, seed=11))[1:]
+    c14 = list(generate_cases(14, 4, seed=12))[1:]
+    data = batch_from_cases([c for pair in zip(c9, c14) for c in pair])
+    assert not data.is_dense() and extract_shared_topology(data) is None
+    cfg = CFG.replace(epochs=2, batch_size=4)
+    params = _np_params(cfg, seed=2)
+    _, want = j_trainer.train(cfg, _jbatch(data), method="scatter", state=_j_state(cfg, params))
+    _, got = train(cfg, data, state=_state(cfg, params))
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [0, 1]
+    np.testing.assert_allclose([r["final_loss"] for r in got], [r["final_loss"] for r in want],
+                               rtol=1e-3)
+    assert not any(r["diverged"] for r in got)
+
+
 def test_early_stop_matches_gns_tpu(data14):
     """lr 0 keeps the loss constant: both stop after patience + 1
     non-improving epochs, at the same epoch, and call checkpoint_fn once."""
