@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gns_torch's serving, training and evaluation paths on one NVIDIA GPU
-(an H100) and check them.
+"""Drive gns_torch's serving, training, evaluation and solver paths on one
+NVIDIA GPU (an H100) and check them.
 
     python3 chip_smoke.py
 
@@ -100,6 +100,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      train() for 2 epochs on a padded case9 + case14 dataset (no shared
      topology: eager steps on K1/K2); (e) K1's backward over an index with
      dropped ids (a masked K2) bit-equal to the CPU twin's gradient.
+ 11. solve: the exact-solver ladder (gns_torch/eval/) on the 256 grids of
+     generate_cases(300, 255, seed=0, scale=0.5, feasible_only=True), one
+     chunk at gns_tpu's chunk_size 256, with the shipped case300
+     checkpoint: flat solve_batched, solve_batched_fdpf, hybrid_solve with
+     a Newton and with a fast-decoupled tail, solve_ac on auto,
+     solve_batched_dc, and run_nr_oracle(backend="batched") on the first
+     64 (the eval phase's grids). Each arm: its K1 / K2 launches against
+     the counts the code gives (solve_launches); against the port's CPU run
+     on the same grids (SOLVE_CARD_VS_CPU; per-grid counts may differ only
+     where a gate decided at its edge, SOLVE_EDGE; DC_CARD_VS_CPU); against
+     the scipy float64 oracle on every grid (SOLVE_VS_ORACLE; the DC angles
+     within DC_VS_ORACLE_DEG). Every distinct K1 / K2 launch of the phase
+     is replayed bit-equal to its twin. Printed: ms per chunk and per grid
+     of each arm beside scipy's host ms per grid, iterations and host
+     syncs, peak device memory, one Newton iteration's parts (trig terms,
+     Jacobian, lu_factor_ex, lu_solve), measured_dispatch_rtt and what
+     compact_after="auto" resolves to; then, in a process of its own
+     (`chip_smoke.py --solve-timing CASES.npz`), the busy and idle share
+     of one flat solve from one profiler trace.
+ 12. bench: `python -m gns_torch.bench` in a process of its own; its one
+     JSON line must parse with bench.py's keys and finite values, and is
+     printed beside the train phase's replay reading of config B.
 Then one JSON line with every kernel's numbers, and last the
 {"ok": true, "device": ...} line.
 """
@@ -165,6 +187,34 @@ SEEDS = (101, 102, 103, 104, 105)
 GNS_TPU_BAND = (0.0161, 0.0187)  # gns_tpu's case30 v MSE over those seeds (ACCURACY_SEEDS.json)
 WORST_DRAW = 0.0401  # the worst case30 v MSE of either side in ACCURACY_SEEDS.json (0.04006)
 SUP_EPOCHS = 5
+SOLVE_GRIDS = 256  # solve phase: feasible case300 grids, one chunk at gns_tpu's chunk_size
+# Solve phase, each arm on the card against the port's CPU run on the same
+# grids: v and theta (degrees) on the converged grids, tests/test_eval.py:209-226's
+# bounds (the CPU run of the port against gns_tpu on 32 of these grids read
+# v 3.6e-06, theta 4.0e-04).
+SOLVE_CARD_VS_CPU = (2e-5, 2e-3)
+# A grid whose iteration count differs between the two runs must have been
+# accepted, in the run that stopped first, by the stall gate or by the tol
+# gate at a mismatch of at least SOLVE_EDGE x tol: at the gate's edge, where
+# float32 roundings fall on either side. Set from a CPU run: the port's
+# fast-decoupled solve against gns_tpu's on six case30 grids
+# (tests/test_torch_fdpf.py's) differed on two grids, accepted at 2.97e-05
+# and 2.35e-05 (tol 3e-05) by one package and one iteration later by the
+# other; their lock-step counts then differ by one.
+SOLVE_EDGE = 0.5
+# Against the scipy float64 oracle on every grid, (v, theta in degrees):
+# gns_tpu's case30 bounds, Newton tests/test_eval.py:209-226, fast-decoupled
+# tests/test_fdpf.py. The port's CPU run on these 256 case300 grids met them:
+# Newton v 3.917e-06, theta 8.068e-04; fast-decoupled 1.203e-05, 1.045e-03.
+SOLVE_VS_ORACLE = {"nr": (2e-5, 2e-3), "fdpf": (3e-5, 3e-3)}
+# DC, card vs CPU: theta in radians, flows relative to the largest |flow|
+# (the CPU run against gns_tpu's on these grids read 2.2e-06 rad and
+# 3.4e-06 of the largest flow, 163.8 MW).
+DC_CARD_VS_CPU = (1e-5, 1e-5)
+# DC against the AC oracle, worst angle in degrees: a sanity band, not an
+# accuracy bound; DC drops losses and magnitudes, and case300's angles reach
+# 58.7 degrees. The port's CPU run on these grids read 47.57 degrees at worst.
+DC_VS_ORACLE_DEG = 60.0
 K3_FWD = dict(rtol=1e-5, atol=1e-5)  # exact float32; dot products add in another order
 K3_GRAD = dict(rtol=2e-4, atol=1e-5)  # tests/test_fused.py:61
 S_TRAIN = 256  # bench.py's batch
@@ -1673,7 +1723,8 @@ def phase_train(kern, seg, card):
         idle = {"eager step": step_idle(label, "eager step", lambda: step(state, bt), expect)}
         host_ops(label, lambda: step(state, bt))
         results[tag] = dict(forward=fwd, backward=bwd, steps=main, eager_ms=wall, replay_ms=replay_wall,
-                            grad_share=grad_share, idle=idle)
+                            replay_edges_per_s=work / replay_wall * 1e3, grad_share=grad_share,
+                            idle=idle)
         del state, step, graph_state, epoch
 
     # a padded case9 + case14 batch (per-sample topology) through the
@@ -1768,23 +1819,10 @@ def phase_train_child(results: dict) -> None:
     (it is killed after 300 s); its replayed-step idle shares join
     `results`."""
     t0 = time.perf_counter()
-    try:
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-timing"],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                             timeout=300)
-    except subprocess.TimeoutExpired as exc:
-        out = exc.output or b""
-        log(out.decode(errors="replace") if isinstance(out, bytes) else out)
-        fail("the train timing process did not end within 300 s")
-    last = ""
-    for line in run.stdout.splitlines():
-        if line.startswith('{"replayed_step_idle"'):
-            last = line
-        else:
-            log(line)
-    check(run.returncode == 0 and bool(last),
-          f"the train timing process failed (exit {run.returncode})")
-    for tag, idle in json.loads(last)["replayed_step_idle"].items():
+    lines = run_child(["--train-timing"], "train timing", 300)
+    last = [line for line in lines if line.startswith('{"replayed_step_idle"')]
+    check(bool(last), "the train timing process printed no idle shares")
+    for tag, idle in json.loads(last[-1])["replayed_step_idle"].items():
         results[tag]["idle"]["replayed step"] = idle
     log(f"[train timing] the train phase's device-time readings took {time.perf_counter() - t0:.1f} s "
         f"in a process of their own")
@@ -1957,6 +1995,301 @@ def phase_eval(kern, seg, card) -> dict:
     return out
 
 
+def solve_arms(model, cfg, cases):
+    """The solve phase's arms on the model's device, by name: functions of
+    no argument returning the result dict."""
+    from gns_torch.eval import dcpf, fdpf, hybrid, nr_batched, solve
+
+    dev = next(model.parameters()).device
+    return {
+        "flat NR": lambda: nr_batched.solve_batched(cases, device=dev),
+        "FDPF": lambda: fdpf.solve_batched_fdpf(cases, device=dev),
+        "hybrid NR": lambda: hybrid.hybrid_solve(model, cfg, cases),
+        "hybrid FDPF": lambda: hybrid.hybrid_solve(model, cfg, cases, solver="fdpf", max_iter=60),
+        "solve_ac auto": lambda: solve.solve_ac(cases, params=model, cfg=cfg, device=dev),
+        "DC": lambda: dcpf.solve_batched_dc(cases, device=dev),
+    }
+
+
+def solve_launches(arm: str, out: dict, forward: dict) -> dict:
+    """K1 / K2 launches of one solve arm over one chunk, as eval/ gives
+    them: a Newton solve assembles G/B once (one K1), and its compaction is
+    off; a fast-decoupled solve assembles B' and B'' (two K1) and evaluates
+    the injections once before the loop and twice per iteration, each one
+    K2 gather of (vm, va) at the branch ends and one K1 sum at the buses;
+    the hybrids add one forward (`forward`, serving's counts); a flat
+    Newton fallback adds one assembly; the DC solve is one K1 (matrix and
+    injections) and one K2 (the flows' angles)."""
+    it = out.get("iterations", 0)
+    fallback = 1 if out.get("fallback_grids", 0) else 0
+    fd = {"K1": 3 + 2 * it, "K2": 1 + 2 * it}
+    want = {
+        "flat NR": {"K1": 1, "K2": 0},
+        "FDPF": fd,
+        "hybrid NR": {"K1": forward["K1"] + 1 + fallback, "K2": forward["K2"]},
+        "hybrid FDPF": {"K1": forward["K1"] + fd["K1"] + fallback, "K2": forward["K2"] + fd["K2"]},
+        "solve_ac auto": {"K1": fd["K1"] + fallback, "K2": fd["K2"]},
+        "DC": {"K1": 1, "K2": 1},
+    }[arm]
+    return dict(want, K3=0, K4=0)
+
+
+def hold_solve(arm: str, got: dict, want: dict, tol: float = 3e-5) -> None:
+    """One arm on the card (got) against the port's CPU run on the same
+    grids (want): converged masks equal; v and theta within
+    SOLVE_CARD_VS_CPU on the converged grids; per-grid iteration counts
+    equal except on grids where a gate decided at its edge (module
+    constant SOLVE_EDGE), and lock-step counts equal or off by exactly what
+    those grids explain."""
+    v_tol, th_tol = SOLVE_CARD_VS_CPU
+    if arm == "DC":
+        th = np.abs(np.deg2rad(got["theta_deg"]) - np.deg2rad(want["theta_deg"])).max()
+        pf = np.abs(got["pf_mw"] - want["pf_mw"]).max()
+        ok = th <= DC_CARD_VS_CPU[0] and pf <= DC_CARD_VS_CPU[1] * max(1.0, np.abs(want["pf_mw"]).max())
+        log(f"[solve] {arm} card vs cpu: theta {th:.3e} rad, pf {pf:.3e} MW {'ok' if ok else 'MISMATCH'}")
+        check(ok and np.isfinite(got["theta_deg"]).all(), f"{arm}: card vs cpu")
+        return
+    conv = want["converged"]
+    check(np.array_equal(got["converged"], conv), f"{arm}: converged masks differ, card "
+          f"{int(got['converged'].sum())} cpu {int(conv.sum())}")
+    dv = np.abs(got["v"] - want["v"])[conv].max()
+    dth = np.abs(got["theta_deg"] - want["theta_deg"])[conv].max()
+    diff = np.flatnonzero(got["iterations_per_grid"] != want["iterations_per_grid"])
+    edge = []
+    for g in diff:
+        a, b = int(got["iterations_per_grid"][g]), int(want["iterations_per_grid"][g])
+        first = got if a < b else want  # the run that accepted the grid first
+        m = float(first["mismatch"][g])
+        if abs(a - b) == 1 and conv[g] and m >= SOLVE_EDGE * tol:
+            edge.append(g)
+    lock_card, lock_cpu = got["iterations"], want["iterations"]
+    explained = (lock_card == lock_cpu
+                 or (abs(lock_card - lock_cpu) == 1 and set(diff) == set(edge)
+                     and lock_card - lock_cpu == int(got["iterations_per_grid"].max())
+                     - int(want["iterations_per_grid"].max())))
+    ok = dv <= v_tol and dth <= th_tol and set(diff) == set(edge) and explained
+    log(f"[solve] {arm} card vs cpu: converged {int(conv.sum())} of {len(conv)} both; v {dv:.3e} "
+        f"(<= {v_tol:g}), theta {dth:.3e} deg (<= {th_tol:g}); lock-step iterations card "
+        f"{lock_card} cpu {lock_cpu}; per-grid counts differ on {len(diff)} grids, {len(edge)} of "
+        f"them decided at a gate's edge{': ' + str(sorted(int(g) for g in edge)) if edge else ''} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{arm}: card vs cpu")
+
+
+def hold_oracle(arm: str, got: dict, ref_v, ref_th, bounds) -> None:
+    """One arm against the scipy float64 oracle on every grid."""
+    conv = got["converged"]
+    check(bool(conv.all()), f"{arm}: {int((~conv).sum())} grids did not converge")
+    dv = np.abs(got["v"] - ref_v)
+    dth = np.abs(got["theta_deg"] - ref_th)
+    ok = dv.max() <= bounds[0] and dth.max() <= bounds[1]
+    log(f"[solve] {arm} vs the scipy float64 oracle, {len(conv)} grids: v {dv.max():.3e} worst, "
+        f"{np.quantile(dv, 0.999):.3e} at p99.9 (<= {bounds[0]:g}); theta {dth.max():.3e} deg "
+        f"worst, {np.quantile(dth, 0.999):.3e} at p99.9 (<= {bounds[1]:g}) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{arm}: against the oracle")
+
+
+def phase_solve(kern, seg, card) -> dict:
+    """The exact-solver ladder on the card (module docstring, phase 11).
+    Returns each arm's K1 / K2 counts for the kernels line."""
+    from gns_torch.eval import nr_batched
+    from gns_torch.eval.harness import run_nr_oracle
+    from gns_torch.eval.newton_raphson import newton_raphson_pf
+    from gns_torch.models.pretrained import load_pretrained
+    from gns_torch.utils.augment import generate_cases
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # "f32 means f32" (ROADMAP)
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cases = list(generate_cases(CASE, SOLVE_GRIDS - 1, seed=0, scale=0.5, feasible_only=True))
+    log(f"[solve] {len(cases)} feasible case{CASE} grids (generate_cases(300, 255, seed=0, "
+        f"scale=0.5, feasible_only=True)) in {time.perf_counter() - t0:.2f} s (host)")
+    t0 = time.perf_counter()
+    refs = [newton_raphson_pf(c) for c in cases]
+    scipy_ms = 1e3 * (time.perf_counter() - t0) / len(cases)
+    check(all(r.success for r in refs), "the scipy oracle did not converge on every grid")
+    ref_v = np.stack([r.vm for r in refs])
+    ref_th = np.stack([r.va_deg for r in refs])
+    log(f"[solve] scipy float64 oracle: {scipy_ms:.3f} ms per grid (host)")
+    model, cfg = load_pretrained(CASE, device="cuda")
+    model_cpu, _ = load_pretrained(CASE, device="cpu")
+    forward = train_launches(cfg)[0]  # one forward's K1 / K2, serving's counts
+    on_card, on_cpu = solve_arms(model, cfg, cases), solve_arms(model_cpu, cfg, cases)
+    recorder = PathRecorder(kern, seg)
+    results = {}
+    for arm, run in on_card.items():
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with NoPlainTwins(kern), recorder:
+            got = run()
+            torch.cuda.synchronize()
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want_launches = solve_launches(arm, got, forward)
+        t0 = time.perf_counter()
+        run()  # the same solve again, timed: index sets built, libraries loaded
+        ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = on_cpu[arm]()
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        per = f", of which one forward {forward}" if "hybrid" in arm else ""
+        log(f"[solve] {arm}: launches {launches} (expected {want_launches}{per}); "
+            + ("" if arm == "DC" else
+               f"iterations {got['iterations']} (per grid {int(got['iterations_per_grid'].min())}-"
+               f"{int(got['iterations_per_grid'].max())}), host syncs {got['host_syncs']}, "
+               f"fallback grids {got.get('fallback_grids', 0)}, stalled "
+               f"{int(got['stalled'].sum())}; ")
+            + f"{ms:.3f} ms per chunk of {len(cases)}, {ms / len(cases):.4f} ms per grid on the card "
+            f"(host wall, second run), scipy {scipy_ms:.3f} ms per grid; the port's CPU path "
+            f"{cpu_ms:.1f} ms; peak device memory {peak:.3f} GiB (card: {card})")
+        check(launches == want_launches, f"{arm}: launches {launches} != {want_launches}")
+        hold_solve(arm, got, want)
+        if arm == "DC":
+            err = np.abs(got["theta_deg"] - ref_th)
+            log(f"[solve] DC vs the AC oracle (an approximation): theta {err.max():.3f} deg worst, "
+                f"{err.mean():.3f} mean (<= {DC_VS_ORACLE_DEG:g} worst)")
+            check(err.max() <= DC_VS_ORACLE_DEG, "DC angles beyond the DC band")
+        else:
+            hold_oracle(arm, got, ref_v, ref_th,
+                        SOLVE_VS_ORACLE["fdpf" if "FDPF" in arm or "auto" in arm else "nr"])
+        if arm == "solve_ac auto":
+            log(f"[solve] solve_ac auto resolved to warm_start {got['warm_start']!r}, method "
+                f"{got['method']!r}, compact_after {got['compact_after']}")
+        results[arm] = {k: launches[k] for k in ("K1", "K2")}
+    del on_cpu, model_cpu
+
+    # run_nr_oracle(backend="batched") on the eval phase's 64 grids (the
+    # first 64 of these: generate_cases draws them in the same order)
+    first = cases[:EVAL_GRIDS]
+    reset_counts()
+    with NoPlainTwins(kern), recorder:
+        nr = run_nr_oracle(first, backend="batched", device="cuda")
+        torch.cuda.synchronize()
+    launches = counts()
+    want_launches = {"K1": 2, "K2": 0, "K3": 0, "K4": 0}  # a warm pass and the timed pass
+    log(f"[solve] run_nr_oracle(backend='batched') on the first {len(first)} grids: launches "
+        f"{launches} (expected {want_launches}), {1e3 * float(nr['time'][0]):.4f} ms per grid "
+        f"(the timed pass over the grid count; card: {card})")
+    check(launches == want_launches, f"batched oracle launches {launches}")
+    check(set(nr) == {"time", "v", "theta_deg", "line_flow", "converged"}, "batched oracle keys")
+    hold_oracle("run_nr_oracle batched", dict(nr, theta_deg=nr["theta_deg"]), ref_v[:EVAL_GRIDS],
+                ref_th[:EVAL_GRIDS], SOLVE_VS_ORACLE["nr"])
+    results["run_nr_oracle batched"] = {k: launches[k] for k in ("K1", "K2")}
+    held = hold_recorded(kern, recorder.inputs, "solve")
+    log(f"[solve] all {held} distinct K1 / K2 launches of the phase bit-equal to their plain twins")
+
+    # one Newton iteration's parts at this chunk's shape (CUDA events)
+    bus, branch, gen, base = nr_batched.stack_cases(cases)
+    ns = nr_batched.build_nr_small_stacked(bus, branch, gen, base)
+    f = branch[0, :, 0].astype(np.int64) - 1
+    t = branch[0, :, 1].astype(np.int64) - 1
+    topo = nr_batched._topology(f, t, bus.shape[1], ns.pvpq, ns.pq, torch.device("cuda"))
+    busj, branchj, basej, vm, va = nr_batched._on("cuda", bus, branch, base, ns.vm0, ns.va0)
+    with torch.no_grad():
+        gmat, bmat = nr_batched._assemble_gb(busj, branchj, basej, topo.pattern, True)
+        terms = nr_batched._trig_terms(gmat, bmat, vm, va)
+        jac = nr_batched._jacobian(gmat, bmat, vm, *terms, topo.pvpq, topo.pq)
+        lu, piv = nr_batched.lu_factor(jac)
+        rhs = torch.ones((jac.shape[0], jac.shape[1], 1), device="cuda")
+        parts = {
+            "trig terms": cuda_ms(lambda: nr_batched._trig_terms(gmat, bmat, vm, va), reps=10, warmup=2),
+            "Jacobian build": cuda_ms(
+                lambda: nr_batched._jacobian(gmat, bmat, vm, *terms, topo.pvpq, topo.pq),
+                reps=10, warmup=2),
+            "lu_factor_ex": cuda_ms(lambda: nr_batched.lu_factor(jac), reps=10, warmup=2),
+            "lu_solve": cuda_ms(lambda: torch.linalg.lu_solve(lu, piv, rhs), reps=10, warmup=2),
+        }
+    total = sum(parts.values())
+    log(f"[solve] one Newton iteration's parts at S={jac.shape[0]}, M={jac.shape[1]} (CUDA events): "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + f"; the LU's share {100 * parts['lu_factor_ex'] / total:.1f}% (card: {card})")
+    rtt = nr_batched.measured_dispatch_rtt("cuda")
+    log(f"[solve] measured_dispatch_rtt {1e3 * rtt:.4f} ms; compact_after='auto' resolves to "
+        f"{nr_batched.resolve_compact_after('auto', device='cuda')} (break-even "
+        f"{1e3 * nr_batched._COMPACT_RTT_BREAKEVEN:g} ms)")
+    del gmat, bmat, terms, jac, lu
+
+    # the busy and idle share of one flat solve, traced in a process of its
+    # own (after the train phase this process's traces drop activities)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "solve_cases.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, bus=bus, branch=branch, gen=gen, base=base)
+    t0 = time.perf_counter()
+    run_child(["--solve-timing", path], "solve timing", 300)
+    log(f"[solve timing] the flat solve's trace took {time.perf_counter() - t0:.1f} s in a process "
+        f"of its own")
+    log(f"[solve] phase took {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def solve_timing_child(path: str) -> int:
+    """`chip_smoke.py --solve-timing CASES.npz`: the device's busy and idle
+    share of one flat Newton solve of the stacked cases, from one profiler
+    trace (trace_busy), in a process of its own."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gns_torch.eval.nr_batched import solve_batched
+
+    card = phase_device()
+    with np.load(path) as z:
+        bus, branch, gen, base = z["bus"], z["branch"], z["gen"], z["base"]
+    cases = [{"bus": bus[i], "branch": branch[i], "gen": gen[i], "baseMVA": float(base[i])}
+             for i in range(len(base))]
+    out = solve_batched(cases)  # warm: index sets, libraries
+    untraced, traced, busy, spans, _ = trace_busy(lambda: solve_batched(cases), reps=2,
+                                                  what="flat solve", expect={"segment_sum_": 1})
+    log(f"[solve timing] flat NR, {len(cases)} case{CASE} grids, {out['iterations']} iterations, "
+        f"{out['host_syncs']} host syncs: device windows {', '.join(f'{w:.3f}' for w in traced)} ms "
+        f"traced, {', '.join(f'{w:.3f}' for w in untraced)} ms untraced; busy {busy / 2:.3f} ms per "
+        f"solve in {len(spans) / 2:.1f} device activities; idle {100 * (1 - busy / sum(traced)):.1f}% "
+        f"of the traced windows, {100 * (1 - busy / sum(untraced)):.1f}% of the untraced (card: {card})")
+    return 0
+
+
+def phase_bench(train: dict, card) -> dict:
+    """`python -m gns_torch.bench` in a process of its own: its one JSON
+    line must parse with bench.py's keys and finite values; it is printed
+    beside the train phase's replay reading of config B, the same model,
+    batch and dtype."""
+    keys = {"metric", "value", "unit", "vs_baseline", "achieved_tflops", "mfu_bf16", "hbm_bw_util"}
+    t0 = time.perf_counter()
+    lines = run_child(["-m", "gns_torch.bench"], "bench", 600, module=True)
+    printed = [x for x in lines if x.startswith('{"metric"')]
+    check(len(printed) == 1, f"bench printed {len(printed)} JSON lines")
+    line = json.loads(printed[0])
+    check(set(line) == keys, f"bench printed keys {sorted(line)}")
+    check(line["metric"] == f"train_edges_per_sec_case{CASE}_K4_b{S_TRAIN}", f"bench metric {line['metric']}")
+    check(all(np.isfinite(line[k]) and line[k] > 0 for k in keys - {"metric", "unit"}),
+          f"bench values not finite and positive: {line}")
+    replay = train["B"]["replay_edges_per_s"]
+    log(f"[bench] python -m gns_torch.bench: {json.dumps(line)} in {time.perf_counter() - t0:.1f} s; "
+        f"the train phase's replay of config B (the same model, batch and dtype, {TRAIN_STEPS} steps): "
+        f"{replay:.4e} train edges/s (card: {card})")
+    return line
+
+
+def run_child(args, what: str, timeout: int, module: bool = False):
+    """Run this script (or, with module=True, `python -m ...`) in a process
+    of its own from the checkout's root, log its output, fail on a non-zero
+    exit or a timeout; returns its stdout lines."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, *args] if module else [sys.executable, os.path.abspath(__file__), *args]
+    try:
+        run = subprocess.run(cmd, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as exc:
+        out = exc.output or b""
+        log(out.decode(errors="replace") if isinstance(out, bytes) else out)
+        fail(f"the {what} process did not end within {timeout} s")
+    lines = run.stdout.splitlines()
+    for line in lines:
+        log(line)
+    check(run.returncode == 0 and bool(lines), f"the {what} process failed (exit {run.returncode})")
+    return lines
+
+
 def phase_train_timing(kern, backward_launches: dict, card):
     """Each distinct K1 / K2 shape of the training backward: device us per
     launch (profiler, the kernel alone), its bound (bytes at 3.35 TB/s) and
@@ -2041,6 +2374,8 @@ def main() -> int:
     train = phase_train(kern, seg, card)
     phase_train_child(train)
     evals = phase_eval(kern, seg, card)
+    solves = phase_solve(kern, seg, card)
+    phase_bench(train, card)
     kernels = []
     meta = {
         "K1": ("segment_sum_warp / segment_sum_narrow", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:29"),
@@ -2067,6 +2402,8 @@ def main() -> int:
                 grids=evals["eval"]["grids"], forwards=evals["eval"]["forwards"],
                 launches=evals["eval"]["launches"][k], per_forward=evals["eval"]["per_forward"][k],
                 supervised_step=evals["supervised_step"][k])
+            # the solve phase: each arm's launches over one chunk of 256 case300 grids
+            kernels[-1]["solve_launches"] = {arm: c[k] for arm, c in solves.items()}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2077,4 +2414,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(train_timing_child() if sys.argv[1:] == ["--train-timing"] else main())
+    if sys.argv[1:] == ["--train-timing"]:
+        sys.exit(train_timing_child())
+    if sys.argv[1:2] == ["--solve-timing"] and len(sys.argv) == 3:
+        sys.exit(solve_timing_child(sys.argv[2]))
+    sys.exit(main())

@@ -44,7 +44,7 @@ def main(argv=None):
                         "NR oracle converges on them")
     p.add_argument("--nr-backend", choices=["scipy", "batched"], default="scipy",
                    help="oracle: scipy = sequential float64 (parity-grade); batched = "
-                        "the batched solver, not ported yet (raises)")
+                        "the batched float32 solver (eval/nr_batched.py) on the model's device")
     p.add_argument("--method", default="auto")
     p.add_argument("--plot", default="images/per_bus_errors.png")
     p.add_argument("--json-out", default=None)

@@ -49,21 +49,43 @@ def _np_active_line_flow(v, theta, x, src, dst):
     return (1.0 / x) * v[src] * v[dst] * np.sin(theta[src] - theta[dst])
 
 
-def run_nr_oracle(cases: List[Dict], backend: str = "scipy"):
+def run_nr_oracle(cases: List[Dict], backend: str = "scipy", device="cuda"):
     """Solve each case with NR; returns a dict of stacked results and
-    per-grid host times.
+    per-grid times.
 
     backend="scipy": the float64 sequential oracle (eval/newton_raphson.py,
-    pypower-equivalent; the parity-grade ground truth). backend="batched",
-    gns_tpu's accelerator-batched solver, is not ported yet (ROADMAP §1
-    item 4, the exact-solver ladder) and raises.
+    pypower-equivalent; the parity-grade ground truth), host times per
+    grid. backend="batched": the batched solver (eval/nr_batched.py) on
+    `device` ("cuda" by default), the whole shared-topology set at once in
+    float32 (~1e-6 p.u. agreement with scipy); the per-grid time is the
+    timed batch's wall time over the grid count. A full untimed pass runs
+    first, so the timed pass finds the index sets built and the device's
+    libraries loaded.
     """
     if backend == "batched":
-        raise NotImplementedError(
-            "run_nr_oracle(backend='batched') needs the batched NR solver "
-            "(eval/nr_batched.py), which gns_torch does not port yet "
-            "(ROADMAP §1 item 4); use backend='scipy'"
-        )
+        from gns_torch.eval.nr_batched import solve_batched
+
+        solve_batched(cases, device=device)
+        t0 = time.perf_counter()
+        res = solve_batched(cases, device=device)
+        per_grid = (time.perf_counter() - t0) / len(cases)
+        flows = []
+        for i, case in enumerate(cases):
+            br = np.asarray(case["branch"], dtype=np.float64)
+            flows.append(
+                _np_active_line_flow(
+                    res["v"][i].astype(np.float64),
+                    np.deg2rad(res["theta_deg"][i].astype(np.float64)),
+                    br[:, 3], br[:, 0], br[:, 1],
+                )
+            )
+        return {
+            "time": np.full(len(cases), per_grid, np.float32),
+            "v": res["v"],
+            "theta_deg": res["theta_deg"],
+            "line_flow": np.stack(flows).astype(np.float32),
+            "converged": res["converged"],
+        }
     if backend != "scipy":
         raise ValueError(f"backend must be scipy/batched, got {backend!r}")
     times, v_out, th_out, flows, ok = [], [], [], [], []
@@ -324,8 +346,9 @@ def evaluate(
     verbose: bool = True,
     nr_backend: str = "scipy",
 ) -> Dict:
-    """Full evaluation: NR and GNS on the SAME grids (Q6 fixed), metrics."""
-    nr = run_nr_oracle(cases, backend=nr_backend)
+    """Full evaluation: NR and GNS on the SAME grids (Q6 fixed), metrics.
+    The batched NR backend runs on the model's device."""
+    nr = run_nr_oracle(cases, backend=nr_backend, device=next(model.parameters()).device)
     gns = run_gns(model, cfg, cases, method=method)
     m = compute_metrics(nr, gns)
     if plot_path:

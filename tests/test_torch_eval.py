@@ -128,12 +128,16 @@ def test_compute_metrics_matches_gns_tpu(converged):
         harness.compute_metrics({**nr, "converged": np.zeros(6, bool)}, gns)
 
 
-def test_nr_oracle_matches_and_batched_raises():
+def test_nr_oracle_matches_and_batched_raises(monkeypatch):
+    """The scipy oracle equals gns_tpu's; the batched backend runs on the
+    card by default, so without one it raises (its results are held in
+    test_batched_nr_oracle_matches_gns_tpu)."""
     cases = list(generate_cases(14, 3, seed=8))
     got, want = harness.run_nr_oracle(cases), j_harness.run_nr_oracle(cases)
     for key in ("v", "theta_deg", "line_flow", "converged"):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         harness.run_nr_oracle(cases, backend="batched")
     with pytest.raises(ValueError):
         harness.run_nr_oracle(cases, backend="bogus")
@@ -171,3 +175,22 @@ def test_eval_cli_on_the_cpu(tmp_path):
     again = harness.evaluate(model, cfg, cases, verbose=False)
     for key in ("v_mse", "theta_mse", "alf_pct_median", "last_loss_mean"):
         assert again[key] == saved[key], key
+
+
+def test_batched_nr_oracle_matches_gns_tpu():
+    """run_nr_oracle(backend="batched") on the CPU: gns_tpu's dict
+    contract, its values (v 2e-5, theta 2e-3 degrees), and agreement with
+    the scipy backend at tests/test_eval.py's bounds (line flows, which
+    carry the float32 angles, at rtol / atol 1e-3)."""
+    cases = list(generate_cases(30, 6, seed=3, feasible_only=True))[1:]
+    got = harness.run_nr_oracle(cases, backend="batched", device="cpu")
+    want = j_harness.run_nr_oracle(cases, backend="batched")
+    scipy = harness.run_nr_oracle(cases)
+    assert got.keys() == want.keys()
+    assert got["converged"].all() and got["time"].shape == (6,) and (got["time"] > 0).all()
+    assert got["v"].shape == (6, 30) and got["line_flow"].shape == want["line_flow"].shape
+    np.testing.assert_array_equal(got["converged"], want["converged"])
+    for ref in (want, scipy):
+        np.testing.assert_allclose(got["v"], ref["v"], atol=2e-5)
+        np.testing.assert_allclose(got["theta_deg"], ref["theta_deg"], atol=2e-3)
+    np.testing.assert_allclose(got["line_flow"], scipy["line_flow"], rtol=1e-3, atol=1e-3)
