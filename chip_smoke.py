@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gns_torch's serving, training, evaluation and solver paths on one
-NVIDIA GPU (an H100) and check them.
+"""Drive gns_torch's serving, training, evaluation, solver and screening
+paths on one NVIDIA GPU (an H100) and check them.
 
     python3 chip_smoke.py
 
@@ -122,6 +122,31 @@ Phases, each printing its own lines; any failure exits non-zero:
  12. bench: `python -m gns_torch.bench` in a process of its own; its one
      JSON line must parse with bench.py's keys and finite values, and is
      printed beside the train phase's replay reading of config B.
+ 13. screen: the contingency screens (gns_torch/eval/contingency.py,
+     eval/n2.py) on the authentic case118 at full size: (a) screen_n1 over
+     its 239 branch and generator outages, method "auto" and "nr",
+     warm="base", against the port's CPU run (converged, worst and the
+     violation counts equal, states within SOLVE_CARD_VS_CPU, per-grid
+     counts at most one apart) and the scipy oracle on every non-bridge
+     outage (SOLVE_VS_ORACLE); its non-converged branch outages must be
+     exactly find_bridges(case), 9 of 186; (b) screen_n1_ranked with
+     118-n1, top_k=64: islanded flags equal to the CPU run's, pred_v within
+     serving's float32 bound, severities within what that bound lets them
+     move (screen_sev_bound), the verified sets equal but for near-ties of
+     the k-th severity, the verified solves against the oracle; (c)
+     screen_n2 over all 17,205 in-service pairs in chunks of 2048: the
+     first chunk against the port's CPU run (hold_solve), every
+     structurally islanded pair non-converged but for the balanced-island
+     class (counted), 64 converged pairs drawn with a seed against the
+     oracle on explicit variant dicts; (d) screen_n2_ranked with
+     118-deep-n1, score "depth", top_k=256: the first chunk's severities
+     against the CPU run's, and its precision at k beside gns_tpu's record
+     in docs/N1_SCREEN.md. Each screen: its K1 / K2 launches against the
+     counts the code gives, the host wall of its second run, contingencies
+     per second, ms per N-2 chunk, host syncs and peak device memory; every
+     distinct K1 / K2 launch of the phase replayed bit-equal to its twin.
+     Then, in a process of its own (`chip_smoke.py --screen-timing`), the
+     busy and idle share of one N-2 chunk, end to end and its solve core.
 Then one JSON line with every kernel's numbers, and last the
 {"ok": true, "device": ...} line.
 """
@@ -129,6 +154,7 @@ Then one JSON line with every kernel's numbers, and last the
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -215,6 +241,17 @@ DC_CARD_VS_CPU = (1e-5, 1e-5)
 # accuracy bound; DC drops losses and magnitudes, and case300's angles reach
 # 58.7 degrees. The port's CPU run on these grids read 47.57 degrees at worst.
 DC_VS_ORACLE_DEG = 60.0
+# Screen phase: the authentic IEEE case118 (186 branches, 54 generators), at
+# gns_tpu's N-2 chunk size and the ranked screens' budgets of
+# docs/N1_SCREEN.md (k=64 at N-1, k=256 at N-2).
+SCREEN_CASE = 118
+SCREEN_CHUNK = 2048
+N1_TOP_K, N2_TOP_K = 64, 256
+N2_ORACLE_PAIRS = 64  # converged N-2 pairs, drawn with a seed, held against the oracle
+# The ranked screens' GNS predictions, card vs the port's CPU run: serving's
+# float32 bound on v (each value within 2e-4 + 2e-4 |v_cpu|). Severities are
+# held to what that bound lets them move (screen_sev_bound).
+SCREEN_V_RTOL = SCREEN_V_ATOL = 2e-4
 K3_FWD = dict(rtol=1e-5, atol=1e-5)  # exact float32; dot products add in another order
 K3_GRAD = dict(rtol=2e-4, atol=1e-5)  # tests/test_fused.py:61
 S_TRAIN = 256  # bench.py's batch
@@ -1498,6 +1535,19 @@ def train_configs() -> dict:
     return {"A": a, "B": b}
 
 
+def forward_launches(cfg) -> dict:
+    """K1 / K2 launches of one forward of a dense batch with a shared
+    topology (train_launches' forward counts): per step m[dst] (K2), the
+    phi aggregate (K1), the two paired line-flow sums and the generator sum
+    (3 K1), the gathers of (v, theta) at src and dst (2 K2), in parity mode
+    the Q2 gathers of delta (2 K2); once the generator init (K1), the Q2
+    geometry (2 K2, parity) or, with the fold on, the in-degree (K1)."""
+    k = cfg.K
+    if cfg.reference_parity:
+        return {"K1": 1 + 4 * k, "K2": 2 + 5 * k}
+    return {"K1": 1 + int(cfg.resolved_fold_output) + 4 * k, "K2": 3 * k}
+
+
 def train_launches(cfg):
     """K1 / K2 launches of one update step on a dense batch with a shared
     topology, (forward, backward), as models/gns.py and physics/fused.py
@@ -1511,8 +1561,8 @@ def train_launches(cfg):
     launches (their inputs are data)."""
     k = cfg.K
     if cfg.reference_parity:
-        return {"K1": 1 + 4 * k, "K2": 2 + 5 * k}, {"K1": (k - 1) + 4 * k, "K2": 4 * k}
-    return {"K1": 2 + 4 * k, "K2": 3 * k}, {"K1": (k - 1) + 2 * k, "K2": 4 * k}
+        return forward_launches(cfg), {"K1": (k - 1) + 4 * k, "K2": 4 * k}
+    return forward_launches(cfg), {"K1": (k - 1) + 2 * k, "K2": 4 * k}
 
 
 def hold_recorded(kern, recorded: dict, tag: str) -> int:
@@ -2022,7 +2072,7 @@ def solve_launches(arm: str, out: dict, forward: dict) -> dict:
     injections) and one K2 (the flows' angles)."""
     it = out.get("iterations", 0)
     fallback = 1 if out.get("fallback_grids", 0) else 0
-    fd = {"K1": 3 + 2 * it, "K2": 1 + 2 * it}
+    fd = fdpf_launches(it)
     want = {
         "flat NR": {"K1": 1, "K2": 0},
         "FDPF": fd,
@@ -2270,6 +2320,426 @@ def phase_bench(train: dict, card) -> dict:
     return line
 
 
+class Compactions:
+    """While active, counts the straggler sub-batch solves of
+    nr_batched.solve_batched's per-grid exit (compact_after): the chunks
+    that still held a grid not converged after the lock-step iterations."""
+
+    def __init__(self):
+        self.solves = 0
+
+    def __enter__(self):
+        from gns_torch.eval import nr_batched
+
+        self.module, self.saved = nr_batched, nr_batched._compact_stragglers
+
+        def counted(packed, k1, max_iter, *args):
+            n = (packed.shape[1] - 4) // 2
+            self.solves += int(k1 < max_iter and bool((packed[:, 2 * n] < 0.5).any()))
+            return self.saved(packed, k1, max_iter, *args)
+
+        nr_batched._compact_stragglers = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module._compact_stragglers = self.saved
+        return False
+
+
+def screen_sev_bound(card_v, cpu_v, is_pq, score: str, card_base=None, cpu_base=None,
+                     v_limits=(0.94, 1.06)):
+    """Per-contingency bound on |severity(card) - severity(cpu)| from the
+    predictions' own deviations (each already held to serving's float32
+    bound). "rms": the rms of (v - v_intact) moves by at most
+    max |dv| + max |dv_intact| (the triangle inequality). "depth": each PQ
+    bus adds its excursion past a limit, a 1-Lipschitz function of v that
+    is 0 unless v lies past the limit, so the sum moves by at most the
+    |dv| of the buses past a limit in either run. A float32 rounding of
+    the score (1e-6 of it) comes on top."""
+    dv = np.abs(card_v.astype(np.float64) - cpu_v)
+    if score == "rms":
+        return dv.max(axis=1) + np.abs(card_base.astype(np.float64) - cpu_base).max()
+    lo, hi = v_limits
+    past = ((cpu_v < lo) | (cpu_v > hi) | (card_v < lo) | (card_v > hi)) & is_pq[None, :]
+    return (dv * past).sum(axis=1)
+
+
+def screen_group_iterations(variants, idx, itg) -> list:
+    """The lock-step iteration count of each bus-type group's solve, in the
+    screens' order (contingency._by_signature): the largest per-grid count
+    of its members (a loop runs until its last grid converged or its
+    budget ran out)."""
+    from gns_torch.eval.contingency import _by_signature
+
+    idx = np.asarray(idx)
+    return [int(itg[idx[rows]].max()) for rows in _by_signature(variants, idx).values()]
+
+
+def fdpf_launches(it: int) -> dict:
+    """One fast-decoupled solve of `it` iterations: B' and B'' (two K1),
+    the injections before the loop and twice per iteration (a K2 gather at
+    the branch ends and a K1 sum at the buses each); solve_launches' FDPF."""
+    return {"K1": 3 + 2 * it, "K2": 1 + 2 * it}
+
+
+def add_launches(*parts) -> dict:
+    return {k: sum(p[k] for p in parts) for k in ("K1", "K2")}
+
+
+def island_injection(case, pair) -> float:
+    """Sum of |Pd| + |Pg| (in-service) + |Gs| over the buses that the
+    pair's two outages cut off from the slack: 0 for the balanced-island
+    class (gns_torch/eval/n2.py n2_islanding_pairs)."""
+    bus = np.asarray(case["bus"], np.float64)
+    br = np.asarray(case["branch"], np.float64)
+    gen = np.asarray(case["gen"], np.float64)
+    n = bus.shape[0]
+    parent = list(range(n))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for j in np.flatnonzero(br[:, 10] > 0):
+        if j not in pair:
+            parent[find(int(br[j, 0]) - 1)] = find(int(br[j, 1]) - 1)
+    slack = find(int(np.flatnonzero(bus[:, 1] == 3)[0]))
+    cut = np.array([find(i) != slack for i in range(n)])
+    pg = np.zeros(n)
+    np.add.at(pg, gen[:, 0].astype(int) - 1, np.abs(gen[:, 1]) * (gen[:, 7] > 0))
+    return float((np.abs(bus[:, 2]) + pg + np.abs(bus[:, 4]))[cut].sum())
+
+
+def hold_screen_states(tag, got, want, conv, skip_theta=None) -> None:
+    """States of the contingencies both runs converged: v and theta
+    (degrees) within SOLVE_CARD_VS_CPU; skip_theta masks angles that are
+    indeterminate (a balanced island)."""
+    v_tol, th_tol = SOLVE_CARD_VS_CPU
+    keep = conv if skip_theta is None else conv & ~skip_theta
+    dv = float(np.abs(got["v"] - want["v"])[conv].max())
+    dth = float(np.abs(got["theta_deg"] - want["theta_deg"])[keep].max())
+    ok = dv <= v_tol and dth <= th_tol
+    log(f"[screen] {tag} card vs cpu on {int(conv.sum())} converged: v {dv:.3e} (<= {v_tol:g}), "
+        f"theta {dth:.3e} deg (<= {th_tol:g}) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{tag}: states card vs cpu")
+
+
+def hold_counts(tag, got, want, conv, hold: bool = True, tol: float = 3e-5) -> None:
+    """Per-grid iteration counts, card against the port's CPU run.
+    hold_solve's rule lets a count differ, by one, where the run that
+    stopped first accepted the grid at its gate's edge (mismatch >=
+    SOLVE_EDGE x tol). On case118 the float32 mismatch floor (about
+    2.5e-5, nr_batched._nr_solve) sits at tol: a converged grid's mismatch
+    wanders between 1e-5 and 5e-5 from one iteration to the next, and
+    which iteration first dips under tol, or passes the stall gate's
+    progress test, is decided by rounding. So the screens hold a count
+    that differs to this: either run accepted the grid at the floor
+    (mismatch >= SOLVE_EDGE x tol). The port's CPU run and gns_tpu's on
+    JAX's CPU differ so too (tests/test_torch_n2.py
+    test_screen_n2_case118_at_the_float32_floor). hold=False (Newton,
+    where even that rule missed a grid on the card) prints the counts
+    only."""
+    a, b = got["iterations_per_grid"].astype(int), want["iterations_per_grid"].astype(int)
+    diff = np.flatnonzero(a != b)
+    floor = SOLVE_EDGE * tol
+    first = np.where(a < b, got["mismatch"], want["mismatch"])
+    strict = diff[conv[diff] & (np.abs(a - b)[diff] == 1) & (first[diff] >= floor)]
+    wide = diff[conv[diff] & (np.maximum(got["mismatch"], want["mismatch"])[diff] >= floor)]
+    rest = sorted(set(diff.tolist()) - set(strict.tolist()))[:10]
+    ok = len(wide) == len(diff)
+    log(f"[screen] {tag}: per-grid iteration counts differ from the CPU run on {len(diff)} of "
+        f"{len(a)}, by at most {int(np.abs(a - b).max())}; {len(strict)} within hold_solve's rule, "
+        f"{len(wide)} accepted at the floor (mismatch >= {floor:g}) in either run"
+        + (f"; beyond hold_solve's rule (index, card, cpu, mismatch card, cpu): "
+           + ", ".join(f"({i}, {a[i]}, {b[i]}, {got['mismatch'][i]:.2e}, {want['mismatch'][i]:.2e})"
+                       for i in rest) if rest else "")
+        + f"; grids accepted at the floor: card {int((got['mismatch'][conv] >= floor).sum())}, "
+        f"cpu {int((want['mismatch'][conv] >= floor).sum())} of {int(conv.sum())}"
+        + ("" if hold else " (printed, not held)") + (" ok" if ok or not hold else " MISMATCH"))
+    if hold:
+        check(ok, f"{tag}: per-grid counts differ away from the float32 floor")
+
+
+def hold_ranked(tag, got, want, score, is_pq, bases=(None, None), verified=True) -> None:
+    """A ranked screen on the card against the port's CPU run: the
+    structural flags equal; pred_v within serving's float32 bound; the
+    severities within screen_sev_bound (`bases`: the card's and the CPU's
+    intact predictions, for "rms"); with `verified`, the verified sets
+    equal but for contingencies whose severity lies within that bound of
+    the k-th severity (printed)."""
+    check(np.array_equal(got["islanded"], want["islanded"]), f"{tag}: islanded flags differ")
+    agree("screen", tag, got["pred_v"], want["pred_v"], SCREEN_V_RTOL, SCREEN_V_ATOL, "pred_v")
+    bound = screen_sev_bound(got["pred_v"], want["pred_v"], is_pq, score, *bases)
+    fin = ~want["islanded"]
+    bound = bound + 1e-6 * np.abs(np.where(fin, want["severity"], 0.0))
+    dsev = np.abs(got["severity"][fin] - want["severity"][fin])
+    ok = bool((dsev <= bound[fin]).all())
+    log(f"[screen] {tag} severity ({score}) card vs cpu: worst {dsev.max():.3e}, its bound "
+        f"{bound[fin][np.argmax(dsev)]:.3e}, largest bound {bound[fin].max():.3e} (the predictions' "
+        f"deviations carried through the score) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{tag}: severities beyond their bound")
+    if not verified:
+        return
+    k = len(want["verified_idx"])
+    rank = want["order"][~want["islanded"][want["order"]]]
+    kth = rank[k - 1]
+    near = np.flatnonzero(fin & (np.abs(want["severity"] - want["severity"][kth])
+                                 <= bound + bound[kth]))
+    diff = set(got["verified_idx"].tolist()) ^ set(want["verified_idx"].tolist())
+    ok = diff <= set(near.tolist())
+    log(f"[screen] {tag} verified sets of {k}: {len(diff)} contingencies differ, {len(near)} lie "
+        f"within the severity bound of the k-th severity {want['severity'][kth]:.4e} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{tag}: verified sets differ beyond near-ties")
+
+
+def phase_screen(kern, seg, card) -> dict:
+    """The contingency screens on the card (module docstring, phase 13).
+    Returns each screen's K1 / K2 counts for the kernels line."""
+    from gns_torch.eval import contingency, n2
+    from gns_torch.eval.newton_raphson import newton_raphson_pf
+    from gns_torch.models.pretrained import load_pretrained
+    from gns_torch.serve import GNSPredictor
+    from gns_torch.utils.cases import load_case
+
+    t_phase = time.perf_counter()
+    case = load_case(SCREEN_CASE)
+    types = np.asarray(case["bus"])[:, 1].astype(int)
+    bridges = set(contingency.find_bridges(case).tolist())
+    variants = contingency.n1_variants(case, gen_outages=True)
+    c = len(variants)
+    recorder = PathRecorder(kern, seg)
+    results = {}
+
+    def drive(name, run, watch=None):
+        """One run with the launches counted and recorded (and `watch`
+        active), then the same run again, timed (host wall, index sets
+        built)."""
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with NoPlainTwins(kern), recorder, watch or contextlib.nullcontext():
+            got = run()
+            torch.cuda.synchronize()
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results[name] = {k: launches[k] for k in ("K1", "K2")}
+        return got, launches, peak, wall
+
+    def report(name, launches, want, got, wall, peak, n, chunks=None):
+        want = dict(want, K3=0, K4=0)
+        per_chunk = f", {1e3 * wall / chunks:.3f} ms per chunk of {SCREEN_CHUNK}" if chunks else ""
+        log(f"[screen] {name}: launches {launches} (expected {want}); host wall {1e3 * wall:.3f} ms "
+            f"(second run) = {n / wall:.1f} contingencies/s{per_chunk}; host syncs "
+            f"{got['host_syncs']}; peak device memory {peak:.3f} GiB (card: {card})")
+        check(launches == want, f"{name}: launches {launches} != {want}")
+
+    # (a) screen_n1, branch and generator outages, warm="base"
+    t0 = time.perf_counter()
+    refs = {i: newton_raphson_pf(va) for i, va in enumerate(variants)
+            if not (va["outage"][0] == "branch" and va["outage"][1] in bridges)}
+    check(all(r.success for r in refs.values()), "the oracle failed on a non-bridge outage")
+    log(f"[screen] case{SCREEN_CASE}: {c} N-1 contingencies ({sum(o['outage'][0] == 'branch' for o in variants)} "
+        f"branch, {sum(o['outage'][0] == 'gen' for o in variants)} generator), {len(bridges)} bridges; "
+        f"the scipy oracle on the {len(refs)} others in {time.perf_counter() - t0:.2f} s (host)")
+    for method in ("auto", "nr"):
+        name = f"screen_n1 {method}"
+        compactions = Compactions()
+        got, launches, peak, wall = drive(
+            name, lambda: contingency.screen_n1(case, gen_outages=True, method=method),
+            compactions)
+        want = contingency.screen_n1(case, gen_outages=True, method=method, device="cpu")
+        its = screen_group_iterations(variants, range(c), got["iterations_per_grid"])
+        if method == "auto":
+            expect = add_launches({"K1": 1, "K2": 0}, *(fdpf_launches(it) for it in its))
+        else:
+            # compact_after=3: a group with a grid not converged after 3
+            # lock-step iterations solves its stragglers again (one more
+            # assembly); a group needing more than 3 iterations must have
+            expect = {"K1": 1 + len(its) + compactions.solves, "K2": 0}
+            check(compactions.solves >= sum(it > 3 for it in its),
+                  f"{name}: fewer straggler solves than groups needing them")
+        report(name, launches, expect, got, wall, peak, c)
+        log(f"[screen] {name}: {len(its)} bus-type groups, lock-step iterations "
+            f"{sorted(collections.Counter(its).items())} (count: groups); straggler sub-batch "
+            f"solves {compactions.solves}")
+        for key in ("converged", "worst", "v_violations", "flow_violations"):
+            check(np.array_equal(got[key], want[key]), f"{name}: {key} differs from the CPU run")
+        conv = want["converged"]
+        hold_screen_states(name, got, want, conv)
+        hold_counts(name, got, want, conv, hold=method == "auto")
+        nonconv = {got["outages"][i][1] for i in np.flatnonzero(~got["converged"])
+                   if got["outages"][i][0] == "branch"}
+        gen_fail = [i for i in np.flatnonzero(~got["converged"]) if got["outages"][i][0] == "gen"]
+        log(f"[screen] {name}: non-converged branch outages {sorted(nonconv)} = the {len(bridges)} "
+            f"bridges: {nonconv == bridges}; generator outages non-converged: {len(gen_fail)}; "
+            f"worst {len(got['worst'])}, voltage-violating {int((got['v_violations'] > 0).sum())}")
+        check(nonconv == bridges and not gen_fail, f"{name}: non-converged set is not the bridges")
+        ok = np.array(sorted(refs))
+        hold_oracle(name, {k: got[k][ok] for k in ("converged", "v", "theta_deg")},
+                    np.stack([refs[i].vm for i in ok]), np.stack([refs[i].va_deg for i in ok]),
+                    SOLVE_VS_ORACLE["nr" if method == "nr" else "fdpf"])
+
+    # (b) screen_n1_ranked with the outage-aware 118-n1 checkpoint
+    model, cfg = load_pretrained(f"{SCREEN_CASE}-n1", device="cuda")
+    model_cpu, _ = load_pretrained(f"{SCREEN_CASE}-n1", device="cpu")
+    name = "screen_n1_ranked"
+    got, launches, peak, wall = drive(name, lambda: contingency.screen_n1_ranked(
+        case, model, cfg, gen_outages=True, top_k=N1_TOP_K))
+    want = contingency.screen_n1_ranked(case, model_cpu, cfg, gen_outages=True, top_k=N1_TOP_K,
+                                        device="cpu")
+    its = screen_group_iterations(variants, got["verified_idx"], got["iterations_per_grid"])
+    report(name, launches, add_launches(forward_launches(cfg), *(fdpf_launches(it) for it in its)),
+           got, wall, peak, c)
+    # the intact predictions, the rms score's reference, as the screen makes
+    # them: the last row of one batch of every variant and the intact case
+    enc = contingency.n1_variants(case, gen_outages=True, encode_impedance=True) + [case]
+    bases = [GNSPredictor(m, cfg, batch_size=c + 1, device=d).predict(enc)["v"][c]
+             for m, d in ((model, "cuda"), (model_cpu, "cpu"))]
+    hold_ranked(name, got, want, "rms", types == 1, bases)
+    vi = got["verified_idx"]
+    conv = got["converged"][vi]
+    ok = vi[conv]
+    log(f"[screen] {name}: {len(vi)} verified ({len(its)} bus-type groups), {int(conv.sum())} "
+        f"converged, worst {len(got['worst'])} ({int(got['islanded'].sum())} islanded by structure)")
+    check(bool(conv.all()), f"{name}: a verified contingency did not converge")
+    hold_oracle(name, {k: got[k][ok] for k in ("converged", "v", "theta_deg")},
+                np.stack([refs[i].vm for i in ok]), np.stack([refs[i].va_deg for i in ok]),
+                SOLVE_VS_ORACLE["fdpf"])
+    del model, model_cpu
+
+    # (c) screen_n2 over every in-service pair, chunks of SCREEN_CHUNK
+    pairs = n2.n2_pairs(case)
+    t0 = time.perf_counter()
+    islanded = n2.n2_islanding_pairs(case, pairs)
+    log(f"[screen] {len(pairs)} N-2 pairs, {int(islanded.sum())} structurally islanded "
+        f"(n2_islanding_pairs, {1e3 * (time.perf_counter() - t0):.1f} ms on the host)")
+    chunks = -(-len(pairs) // SCREEN_CHUNK)
+    name = "screen_n2"
+    full, launches, peak, wall = drive(name, lambda: n2.screen_n2(case, pairs, chunk_size=SCREEN_CHUNK))
+    report(name, launches, add_launches(*(fdpf_launches(it) for it in full["iterations_per_chunk"])),
+           full, wall, peak, len(pairs), chunks)
+    log(f"[screen] {name}: iterations per chunk {full['iterations_per_chunk']}, converged "
+        f"{int(full['converged'].sum())}, worst {len(full['worst'])}, voltage-violating "
+        f"{int((full['v_violations'] > 0).sum())}")
+    check(len(full["iterations_per_chunk"]) == chunks, "N-2 chunk count")
+    first = slice(0, SCREEN_CHUNK)
+    want = n2.screen_n2(case, pairs[first], chunk_size=SCREEN_CHUNK, device="cpu")
+    got1 = {k: full[k][first] for k in ("converged", "islanded", "v_violations", "worst", "v",
+                                         "theta_deg", "iterations_per_grid", "mismatch")}
+    got1["worst"] = full["worst"][full["worst"] < SCREEN_CHUNK]
+    for key in ("converged", "islanded", "v_violations", "worst"):
+        check(np.array_equal(got1[key], want[key]), f"{name} first chunk: {key} differs from the CPU run")
+    check(full["iterations_per_chunk"][0] == want["iterations_per_chunk"][0], "N-2 lock-step count")
+    hold_screen_states(f"{name} first chunk", got1, want, want["converged"])
+    hold_counts(f"{name} first chunk", got1, want, want["converged"])
+    odd = np.flatnonzero(full["islanded"] & full["converged"])
+    balanced = [i for i in odd if island_injection(case, set(pairs[i].tolist())) == 0.0]
+    log(f"[screen] {name}: {int(islanded.sum())} structurally islanded pairs, "
+        f"{int((islanded & ~full['converged']).sum())} non-converged; converged islands {len(odd)}, "
+        f"of them the balanced-island class (no active injection cut off) {len(balanced)}"
+        + (f": pairs {[tuple(pairs[i]) for i in balanced]}" if balanced else ""))
+    check(len(balanced) == len(odd), f"{name}: a structurally islanded pair converged outside "
+          "the balanced-island class")
+    rng = np.random.default_rng(0)
+    pool = np.flatnonzero(full["converged"] & ~islanded)
+    draw = np.sort(rng.choice(pool, N2_ORACLE_PAIRS, replace=False))
+    refs2 = []
+    for i in draw:
+        va = {k: (np.asarray(case[k], np.float64).copy() if k in ("bus", "branch", "gen") else case[k])
+              for k in case}
+        va["branch"][pairs[i], 10] = 0.0
+        refs2.append(newton_raphson_pf(va))
+    check(all(r.success for r in refs2), "the oracle failed on a converged N-2 pair")
+    hold_oracle(f"{name} ({N2_ORACLE_PAIRS} pairs, rng seed 0)",
+                {k: full[k][draw] for k in ("converged", "v", "theta_deg")},
+                np.stack([r.vm for r in refs2]), np.stack([r.va_deg for r in refs2]),
+                SOLVE_VS_ORACLE["fdpf"])
+
+    # (d) screen_n2_ranked with 118-deep-n1, score "depth"
+    deep, deep_cfg = load_pretrained(f"{SCREEN_CASE}-deep-n1", device="cuda")
+    deep_cpu, _ = load_pretrained(f"{SCREEN_CASE}-deep-n1", device="cpu")
+    name = "screen_n2_ranked"
+    got, launches, peak, wall = drive(name, lambda: n2.screen_n2_ranked(
+        case, deep, deep_cfg, pairs, top_k=N2_TOP_K, chunk_size=SCREEN_CHUNK))
+    vi = got["verified_idx"]
+    fwd = forward_launches(deep_cfg)
+    expect = add_launches(*([fwd] * (2 * chunks)), fdpf_launches(int(got["iterations_per_grid"][vi].max())))
+    report(name, launches, expect, got, wall, peak, len(pairs), chunks)
+    want = n2.screen_n2_ranked(case, deep_cpu, deep_cfg, pairs[first], top_k=N2_TOP_K,
+                               chunk_size=SCREEN_CHUNK, device="cpu")
+    first_got = {k: got[k][first] for k in ("islanded", "pred_v", "severity")}
+    hold_ranked(f"{name} first chunk", first_got, want, "depth", types == 1, verified=False)
+    conv = got["converged"][vi]
+    violating = int(np.isin(vi, got["worst"]).sum())
+    truth = set(full["worst"].tolist()) - set(np.flatnonzero(islanded).tolist())
+    hits = len(truth & set(vi.tolist()))
+    log(f"[screen] {name}: {len(vi)} verified pairs, {int(conv.sum())} converged; precision at "
+        f"k={N2_TOP_K}: {violating}/{len(vi)} = {violating / len(vi):.3f} verified pairs the exact "
+        f"verdict finds violating; recall of the full screen's {len(truth)} non-islanded worst "
+        f"pairs {hits / max(len(truth), 1):.3f} (ceiling {min(1.0, N2_TOP_K / max(len(truth), 1)):.3f}). "
+        f"gns_tpu's record (docs/N1_SCREEN.md, the same checkpoint and k, an accuracy "
+        f"comparison): precision 1.0 (256 of 256 true violators), recall 0.143 of 1788 true-worst")
+    del deep, deep_cpu
+
+    # the device's busy / idle share of one N-2 chunk, in a process of its own
+    t0 = time.perf_counter()
+    run_child(["--screen-timing"], "screen timing", 300)
+    log(f"[screen timing] one N-2 chunk's traces took {time.perf_counter() - t0:.1f} s in a "
+        f"process of its own")
+    held = hold_recorded(kern, recorder.inputs, "screen")
+    log(f"[screen] all {held} distinct K1 / K2 launches of the phase bit-equal to their plain twins")
+    log(f"[screen] phase took {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def screen_timing_child() -> int:
+    """`chip_smoke.py --screen-timing`: the device's busy and idle share of
+    one N-2 chunk (the first SCREEN_CHUNK pairs of case118), traced twice:
+    screen_n2 end to end (the host's structural islanding included), and
+    its solve core alone (the device-built variants, the fast-decoupled
+    loop, the fetch)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gns_torch.eval import n2, nr_batched
+    from gns_torch.utils.cases import load_case
+
+    card = phase_device()
+    case = load_case(SCREEN_CASE)
+    pairs = n2.n2_pairs(case)[:SCREEN_CHUNK]
+    out = n2.screen_n2(case, pairs)  # warm: index sets, libraries
+    bus, branch, gen, base = nr_batched.stack_cases([case])
+    ns = nr_batched.build_nr_small_stacked(bus, branch, gen, base)
+    f = branch[0, :, 0].astype(np.int64) - 1
+    t = branch[0, :, 1].astype(np.int64) - 1
+    topo = nr_batched._topology(f, t, bus.shape[1], ns.pvpq, ns.pq, torch.device("cuda"))
+    args = (*nr_batched._on("cuda", bus[0], branch[0], base[0], ns.p_sched[0], ns.q_sched[0],
+                            ns.vm0[0], ns.va0[0]),
+            torch.as_tensor(pairs.astype(np.int64), device="cuda"))
+
+    def core():
+        return n2._n2_core(topo, *args, "fdpf", 3e-5, 60)[0].cpu()
+
+    it = out["iterations_per_chunk"][0]
+    expect = {"segment_sum_": 3 + 2 * it, "gns_gather_": 1 + 2 * it}
+    for what, run in (("screen_n2, one chunk", lambda: n2.screen_n2(case, pairs)),
+                      ("its solve core", core)):
+        untraced, traced, busy, spans, _ = trace_busy(run, reps=2, what=what, expect=expect)
+        log(f"[screen timing] {what} ({len(pairs)} case{SCREEN_CASE} pairs, {it} iterations): "
+            f"device windows {', '.join(f'{w:.3f}' for w in traced)} ms traced, "
+            f"{', '.join(f'{w:.3f}' for w in untraced)} ms untraced; busy {busy / 2:.3f} ms per run "
+            f"in {len(spans) / 2:.1f} device activities; idle {100 * (1 - busy / sum(traced)):.1f}% "
+            f"of the traced windows, {100 * (1 - busy / sum(untraced)):.1f}% of the untraced "
+            f"(card: {card})")
+    return 0
+
+
 def run_child(args, what: str, timeout: int, module: bool = False):
     """Run this script (or, with module=True, `python -m ...`) in a process
     of its own from the checkout's root, log its output, fail on a non-zero
@@ -2376,6 +2846,7 @@ def main() -> int:
     evals = phase_eval(kern, seg, card)
     solves = phase_solve(kern, seg, card)
     phase_bench(train, card)
+    screens = phase_screen(kern, seg, card)
     kernels = []
     meta = {
         "K1": ("segment_sum_warp / segment_sum_narrow", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:29"),
@@ -2404,6 +2875,8 @@ def main() -> int:
                 supervised_step=evals["supervised_step"][k])
             # the solve phase: each arm's launches over one chunk of 256 case300 grids
             kernels[-1]["solve_launches"] = {arm: c[k] for arm, c in solves.items()}
+            # the screen phase: each screen's launches on case118
+            kernels[-1]["screen_launches"] = {name: c[k] for name, c in screens.items()}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2418,4 +2891,6 @@ if __name__ == "__main__":
         sys.exit(train_timing_child())
     if sys.argv[1:2] == ["--solve-timing"] and len(sys.argv) == 3:
         sys.exit(solve_timing_child(sys.argv[2]))
+    if sys.argv[1:] == ["--screen-timing"]:
+        sys.exit(screen_timing_child())
     sys.exit(main())

@@ -25,7 +25,8 @@ flows): typical transmission-grid angle errors are a few degrees and
 branch-flow errors a few percent; callers needing exact states use
 `solve_ac`. Returns per-branch MW flows, the quantity DC screening ranks
 on. `lodf_matrix` and `dc_outage_severity` are host numpy (float64), a
-copy of gns_tpu's.
+copy of gns_tpu's; the bridge set comes from eval/contingency.py
+`find_bridges`, as in gns_tpu.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 import torch
 
+from gns_torch.eval.contingency import find_bridges
 from gns_torch.eval.nr_batched import (_cache_put, _on, check_no_mesh, f32_matmuls, lu_factor,
                                        stack_cases)
 from gns_torch.ops.segment import SegmentIndex, gather, segment_sum
@@ -167,63 +169,6 @@ def solve_batched_dc(cases: List[Dict], chunk_size: int = 1024, mesh=None,
     }
 
 
-def find_bridges(case: Dict) -> np.ndarray:
-    """Branch rows whose outage ISLANDS the network (graph bridges of the
-    in-service branch multigraph; a branch with an in-service parallel
-    companion is never a bridge), by an iterative Tarjan search, O(N+E).
-    gns_tpu keeps this in eval/contingency.py; the port's copy lives here
-    until the screens are ported."""
-    bus = np.asarray(case["bus"], float)
-    br = np.asarray(case["branch"], float)
-    n = bus.shape[0]
-    f = br[:, 0].astype(int) - 1
-    t = br[:, 1].astype(int) - 1
-    status = br[:, 10] > 0 if br.shape[1] > 10 else np.ones(br.shape[0], bool)
-    adj: List[list] = [[] for _ in range(n)]
-    pair_count: Dict[tuple, int] = {}
-    for i in np.flatnonzero(status):
-        a, b = int(f[i]), int(t[i])
-        adj[a].append((b, i))
-        adj[b].append((a, i))
-        key = (min(a, b), max(a, b))
-        pair_count[key] = pair_count.get(key, 0) + 1
-
-    disc = np.full(n, -1, np.int64)
-    low = np.zeros(n, np.int64)
-    out = []
-    timer = 0
-    for root in range(n):
-        if disc[root] != -1:
-            continue
-        # iterative DFS: stack of (node, parent-edge, next-child-pointer)
-        stack = [(root, -1, 0)]
-        disc[root] = low[root] = timer
-        timer += 1
-        while stack:
-            u, pe, ptr = stack[-1]
-            if ptr < len(adj[u]):
-                stack[-1] = (u, pe, ptr + 1)
-                vtx, ei = adj[u][ptr]
-                if ei == pe:
-                    continue
-                if disc[vtx] == -1:
-                    disc[vtx] = low[vtx] = timer
-                    timer += 1
-                    stack.append((vtx, ei, 0))
-                else:
-                    low[u] = min(low[u], disc[vtx])
-            else:
-                stack.pop()
-                if stack:
-                    p = stack[-1][0]
-                    low[p] = min(low[p], low[u])
-                    if low[u] > disc[p]:
-                        key = (min(p, u), max(p, u))
-                        if pair_count[key] == 1:
-                            out.append(pe)
-    return np.asarray(sorted(out), np.int64)
-
-
 def lodf_matrix(case: Dict):
     """Line Outage Distribution Factors of `case` (numpy, float64).
 
@@ -233,7 +178,7 @@ def lodf_matrix(case: Dict):
     injection-shift (PTDF) matrix: S = B_f * inv(B_bus) (slack column
     zero), PTDF_br[l, k] = S[l, f_k] - S[l, t_k],
     LODF[l, k] = PTDF_br[l, k] / (1 - PTDF_br[k, k]), LODF[k, k] = -1.
-    A bridge branch (find_bridges) has PTDF_br[k, k] -> 1: its column is
+    A bridge branch (contingency.find_bridges) has PTDF_br[k, k] -> 1: its column is
     returned as +inf (islanding).
 
     Islanding is decided by the structural bridge set, not by the numeric
