@@ -147,7 +147,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      distinct K1 / K2 launch of the phase replayed bit-equal to its twin.
      Then, in a process of its own (`chip_smoke.py --screen-timing`), the
      busy and idle share of one N-2 chunk, end to end and its solve core.
-Then one JSON line with every kernel's numbers, and last the
+ 14. parallel: the parallel layer (gns_torch/parallel) with its ranks as
+     processes of this script on the one card (`chip_smoke.py --parallel
+     WORLD RANK STORE`, all on cuda:0): a gloo pair runs every solver arm
+     sharded over dp on the solve phase's 256 case300 grids, GNSPredictor
+     on the 1024 serving requests, screen_n1 on case118, and one train
+     step each of dp = 2, gp = 2 (parity mode), the edge partition (gp =
+     2, paper mode) and TP = 2 at bench.py's config A on its batch (411
+     lines padded to 412), and the pipeline's forward and train step on
+     `300-deep` over pp = 2 (4 microbatches of 64); a gloo square the dp x
+     gp = 2 x 2 step; an NCCL world of one (the card holds one NCCL rank)
+     a sharded solve and a step. Meanwhile this process runs each path
+     single-process on the card. Each rank's path is held to it: verdicts
+     and converged flags equal, states within SOLVE_CARD_VS_CPU (counts
+     off only at a gate's edge), predictions and the pipeline's forward
+     within the CPU tests' bounds, gradients leaf by leaf (a Recorder
+     optimizer keeps them); its K1 / K2 launches equal the single-process
+     run's (the pipeline's stages: each > 0), every distinct launch
+     bit-equal to its twin, and its collectives equal to what the code
+     gives (`par_collectives`). Walls are second runs of W processes
+     sharing the one card, not scaling figures.
+Then one JSON line with every kernel's numbers (K1 / K2 with each rank's
+launches per phase-14 path under "parallel_launches"), and last the
 {"ok": true, "device": ...} line.
 """
 
@@ -1565,10 +1586,11 @@ def train_launches(cfg):
     return forward_launches(cfg), {"K1": (k - 1) + 2 * k, "K2": 4 * k}
 
 
-def hold_recorded(kern, recorded: dict, tag: str) -> int:
+def hold_recorded(kern, recorded: dict, tag: str, quiet: bool = False) -> int:
     """Every recorded K1 / K2 launch replayed on its input: bit-equal to its
     plain twin on CPU copies (the same order of adds), and K2 also to its
-    twin on the card (a copy). Returns the number of launches held."""
+    twin on the card (a copy). Returns the number of launches held. quiet:
+    log only a launch that is not bit-equal."""
     for key, (args, count) in recorded.items():
         name, shape, dtype = key[:3]
         what = f"S={shape[0]} rows={shape[1]} D={shape[2]} {str(dtype)[6:]} x{count}"
@@ -1587,7 +1609,9 @@ def hold_recorded(kern, recorded: dict, tag: str) -> int:
             same = torch.equal(got.cpu(), want) and torch.equal(got, kern.gather_plain(*args))
             what = f"E={ids.numel()} {what}"
         err = (got.cpu().float() - want.float()).abs().max().item()
-        log(f"[train] {tag} {name} {what} max_abs_err {err:.3e} {'bit-equal' if same else 'MISMATCH'}")
+        if not (quiet and same):
+            log(f"[train] {tag} {name} {what} max_abs_err {err:.3e} "
+                f"{'bit-equal' if same else 'MISMATCH'}")
         check(same, f"{tag} {name} {what} is not bit-equal to its plain twin")
     return len(recorded)
 
@@ -2045,19 +2069,21 @@ def phase_eval(kern, seg, card) -> dict:
     return out
 
 
-def solve_arms(model, cfg, cases):
+def solve_arms(model, cfg, cases, mesh=None):
     """The solve phase's arms on the model's device, by name: functions of
-    no argument returning the result dict."""
+    no argument returning the result dict. mesh: phase 14's dp mesh."""
     from gns_torch.eval import dcpf, fdpf, hybrid, nr_batched, solve
 
     dev = next(model.parameters()).device
+    m = dict(mesh=mesh)
     return {
-        "flat NR": lambda: nr_batched.solve_batched(cases, device=dev),
-        "FDPF": lambda: fdpf.solve_batched_fdpf(cases, device=dev),
-        "hybrid NR": lambda: hybrid.hybrid_solve(model, cfg, cases),
-        "hybrid FDPF": lambda: hybrid.hybrid_solve(model, cfg, cases, solver="fdpf", max_iter=60),
-        "solve_ac auto": lambda: solve.solve_ac(cases, params=model, cfg=cfg, device=dev),
-        "DC": lambda: dcpf.solve_batched_dc(cases, device=dev),
+        "flat NR": lambda: nr_batched.solve_batched(cases, device=dev, **m),
+        "FDPF": lambda: fdpf.solve_batched_fdpf(cases, device=dev, **m),
+        "hybrid NR": lambda: hybrid.hybrid_solve(model, cfg, cases, **m),
+        "hybrid FDPF": lambda: hybrid.hybrid_solve(model, cfg, cases, solver="fdpf", max_iter=60,
+                                                   **m),
+        "solve_ac auto": lambda: solve.solve_ac(cases, params=model, cfg=cfg, device=dev, **m),
+        "DC": lambda: dcpf.solve_batched_dc(cases, device=dev, **m),
     }
 
 
@@ -2084,24 +2110,25 @@ def solve_launches(arm: str, out: dict, forward: dict) -> dict:
     return dict(want, K3=0, K4=0)
 
 
-def hold_solve(arm: str, got: dict, want: dict, tol: float = 3e-5) -> None:
+def hold_solve(arm: str, got: dict, want: dict, tol: float = 3e-5, tag: str = "solve",
+               what: str = "card vs cpu") -> None:
     """One arm on the card (got) against the port's CPU run on the same
-    grids (want): converged masks equal; v and theta within
-    SOLVE_CARD_VS_CPU on the converged grids; per-grid iteration counts
-    equal except on grids where a gate decided at its edge (module
-    constant SOLVE_EDGE), and lock-step counts equal or off by exactly what
-    those grids explain."""
+    grids (want; phase 14: a sharded run against the single-process one):
+    converged masks equal; v and theta within SOLVE_CARD_VS_CPU on the
+    converged grids; per-grid iteration counts equal except on grids where
+    a gate decided at its edge (module constant SOLVE_EDGE), and lock-step
+    counts equal or off by exactly what those grids explain."""
     v_tol, th_tol = SOLVE_CARD_VS_CPU
     if arm == "DC":
         th = np.abs(np.deg2rad(got["theta_deg"]) - np.deg2rad(want["theta_deg"])).max()
         pf = np.abs(got["pf_mw"] - want["pf_mw"]).max()
         ok = th <= DC_CARD_VS_CPU[0] and pf <= DC_CARD_VS_CPU[1] * max(1.0, np.abs(want["pf_mw"]).max())
-        log(f"[solve] {arm} card vs cpu: theta {th:.3e} rad, pf {pf:.3e} MW {'ok' if ok else 'MISMATCH'}")
-        check(ok and np.isfinite(got["theta_deg"]).all(), f"{arm}: card vs cpu")
+        log(f"[{tag}] {arm} {what}: theta {th:.3e} rad, pf {pf:.3e} MW {'ok' if ok else 'MISMATCH'}")
+        check(ok and np.isfinite(got["theta_deg"]).all(), f"{arm}: {what}")
         return
     conv = want["converged"]
-    check(np.array_equal(got["converged"], conv), f"{arm}: converged masks differ, card "
-          f"{int(got['converged'].sum())} cpu {int(conv.sum())}")
+    check(np.array_equal(got["converged"], conv), f"{arm}: converged masks differ ({what}) "
+          f"{int(got['converged'].sum())} against {int(conv.sum())}")
     dv = np.abs(got["v"] - want["v"])[conv].max()
     dth = np.abs(got["theta_deg"] - want["theta_deg"])[conv].max()
     diff = np.flatnonzero(got["iterations_per_grid"] != want["iterations_per_grid"])
@@ -2118,12 +2145,12 @@ def hold_solve(arm: str, got: dict, want: dict, tol: float = 3e-5) -> None:
                      and lock_card - lock_cpu == int(got["iterations_per_grid"].max())
                      - int(want["iterations_per_grid"].max())))
     ok = dv <= v_tol and dth <= th_tol and set(diff) == set(edge) and explained
-    log(f"[solve] {arm} card vs cpu: converged {int(conv.sum())} of {len(conv)} both; v {dv:.3e} "
-        f"(<= {v_tol:g}), theta {dth:.3e} deg (<= {th_tol:g}); lock-step iterations card "
-        f"{lock_card} cpu {lock_cpu}; per-grid counts differ on {len(diff)} grids, {len(edge)} of "
+    log(f"[{tag}] {arm} {what}: converged {int(conv.sum())} of {len(conv)} both; v {dv:.3e} "
+        f"(<= {v_tol:g}), theta {dth:.3e} deg (<= {th_tol:g}); lock-step iterations "
+        f"{lock_card} and {lock_cpu}; per-grid counts differ on {len(diff)} grids, {len(edge)} of "
         f"them decided at a gate's edge{': ' + str(sorted(int(g) for g in edge)) if edge else ''} "
         f"{'ok' if ok else 'MISMATCH'}")
-    check(ok, f"{arm}: card vs cpu")
+    check(ok, f"{arm}: {what}")
 
 
 def hold_oracle(arm: str, got: dict, ref_v, ref_th, bounds) -> None:
@@ -2273,6 +2300,14 @@ def phase_solve(kern, seg, card) -> dict:
     return results
 
 
+def cases_from_npz(path: str) -> list:
+    """The case dicts of phase_solve's stacked arrays."""
+    with np.load(path) as z:
+        bus, branch, gen, base = z["bus"], z["branch"], z["gen"], z["base"]
+    return [{"bus": bus[i], "branch": branch[i], "gen": gen[i], "baseMVA": float(base[i])}
+            for i in range(len(base))]
+
+
 def solve_timing_child(path: str) -> int:
     """`chip_smoke.py --solve-timing CASES.npz`: the device's busy and idle
     share of one flat Newton solve of the stacked cases, from one profiler
@@ -2283,10 +2318,7 @@ def solve_timing_child(path: str) -> int:
     from gns_torch.eval.nr_batched import solve_batched
 
     card = phase_device()
-    with np.load(path) as z:
-        bus, branch, gen, base = z["bus"], z["branch"], z["gen"], z["base"]
-    cases = [{"bus": bus[i], "branch": branch[i], "gen": gen[i], "baseMVA": float(base[i])}
-             for i in range(len(base))]
+    cases = cases_from_npz(path)
     out = solve_batched(cases)  # warm: index sets, libraries
     untraced, traced, busy, spans, _ = trace_busy(lambda: solve_batched(cases), reps=2,
                                                   what="flat solve", expect={"segment_sum_": 1})
@@ -2740,6 +2772,524 @@ def screen_timing_child() -> int:
     return 0
 
 
+# Phase 14, the parallel layer: each world's ranks are processes of this
+# script (`chip_smoke.py --parallel WORLD RANK STORE`) that all sit on the
+# one card, cuda:0, joined by a process group of the backend named here.
+# The card cannot hold two NCCL ranks, so NCCL runs a world of one.
+PAR_WORLDS = {"pair": ("gloo", 2), "square": ("gloo", 4), "nccl": ("nccl", 1)}
+PAR_TIMEOUT = 420  # seconds for every world to end
+PAR_MICRO = 64  # the pipeline's microbatch: bench.py's 256 grids in 4
+# Sharded against single-process, on the card. Solves: hold_solve's
+# (SOLVE_CARD_VS_CPU, gates decided at their edge). The predictor and the
+# pipeline's forward: tests/test_torch_solver_dp.py's and test_torch_tp_pp.py's
+# bounds (v rtol 2e-5 / atol 1e-6; theta atol 1e-5 for the decoded gauge);
+# the pipeline's and TP's gradients rtol 1e-3 / atol 2e-5 (test_torch_tp_pp.py);
+# the sharded and edge-partitioned gradients par_hold_leaves's bound
+# (tests/torch_parallel_ranks.py hold_leaves); losses rtol 2e-5.
+PAR_FWD = dict(rtol=2e-5, atol=1e-6)
+PAR_GRAD = dict(rtol=1e-3, atol=2e-5)
+
+
+class Recorder:
+    """An optimizer (train/trainer.py GradientTransformation) that keeps
+    the gradients it is handed and moves no parameter, so a step's
+    gradients can be held leaf by leaf."""
+
+    def __init__(self):
+        self.grads = None
+
+    def transformation(self):
+        from gns_torch.train.trainer import GradientTransformation
+
+        def init(params):
+            return {"count": torch.zeros((), dtype=torch.int32, device="cuda")}
+
+        def update(grads, state, params=None):
+            self.grads = [g.detach().cpu().numpy() for g in grads]
+            return [torch.zeros_like(g) for g in grads], {"count": state["count"] + 1}
+
+        return GradientTransformation(init, update)
+
+
+def par_train_batch():
+    """bench.py's 256 case300 grids, their 411 lines padded to 412 so that
+    gp = 2 and 4 divide them (masks on), and the batch's topology."""
+    from gns_torch.utils.augment import generate_cases
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    cases = list(generate_cases(CASE, S_TRAIN - 1, seed=0))
+    g = np.asarray(cases[0]["gen"]).shape[0]
+    batch = batch_from_cases(cases, pad_sizes=(CASE + 1, 412, g))
+    return batch, extract_shared_topology(batch)
+
+
+def par_configs() -> dict:
+    """Config A (parity) for the sharded steps and TP, A in paper physics
+    for the edge partition, and 300-deep's for the pipeline."""
+    from gns_torch.models.pretrained import pretrained_config
+
+    a = train_configs()["A"]
+    return {"A": a, "A paper": a.replace(reference_parity=False),
+            "deep": pretrained_config("300-deep")}
+
+
+def par_step(step_fn, model, cfg):
+    """One train step of `step_fn` over bench.py's padded batch with a
+    Recorder: the gradients and the metrics, on the host."""
+    from gns_torch.train.trainer import TrainState
+
+    batch, _ = par_train_batch()
+    rec = Recorder()
+    opt = rec.transformation()
+    state = TrainState(model, opt.init(None), torch.zeros((), dtype=torch.int32, device="cuda"))
+    _, metrics = step_fn(opt)(state, batch)
+    return {"grads": rec.grads, "loss": float(metrics["loss"]), "last_loss": float(metrics["last_loss"])}
+
+
+def par_paths(world: str) -> dict:
+    """The paths one world drives, by name, each a function of no
+    argument; every rank runs them in this order (meshes are made by all
+    ranks together)."""
+    from gns_torch.eval import contingency
+    from gns_torch.models.gns import GNS
+    from gns_torch.models.pretrained import load_pretrained
+    from gns_torch.parallel import pipeline, sharding, tensor_parallel
+    from gns_torch.parallel.edge_partition import make_edge_partitioned_train_step
+    from gns_torch.parallel.mesh import make_mesh
+    from gns_torch.parallel.solver_dp import solver_mesh
+    from gns_torch.serve import GNSPredictor
+    from gns_torch.utils.augment import generate_cases
+    from gns_torch.utils.cases import load_case
+
+    cfgs = par_configs()
+    _, topo = par_train_batch()
+
+    def sharded(cfg, mesh, **kw):
+        return lambda: par_step(lambda opt: sharding.make_sharded_train_step(
+            cfg, mesh, optimizer=opt, topo=topo, **kw), GNS(cfg, seed=0), cfg)
+
+    paths = {}
+    if world == "nccl":
+        model, cfg = load_pretrained(CASE, device="cuda")
+        cases = cases_from_npz(par_solve_cases())
+        paths["solve/flat NR"] = solve_arms(model, cfg, cases, solver_mesh())["flat NR"]
+        paths["train/dp1 parity"] = sharded(cfgs["A"], make_mesh(dp=1, gp=1), gp=None)
+        return paths
+    if world == "square":
+        paths["train/dp2xgp2 parity"] = sharded(cfgs["A"], make_mesh(dp=2, gp=2))
+        return paths
+    model, cfg = load_pretrained(CASE, device="cuda")
+    mesh = solver_mesh()
+    cases = cases_from_npz(par_solve_cases())
+    for arm, run in solve_arms(model, cfg, cases, mesh).items():
+        paths[f"solve/{arm}"] = run
+    serve_cases = list(generate_cases(CASE, S_SERVE - 1, seed=0))
+    paths["serve/GNSPredictor"] = lambda: GNSPredictor(
+        model, cfg, batch_size=S_SERVE, mesh=mesh).predict(serve_cases)
+    paths["screen/screen_n1 auto"] = lambda: contingency.screen_n1(
+        load_case(SCREEN_CASE), gen_outages=True, mesh=mesh)
+    paths["train/dp2 parity"] = sharded(cfgs["A"], make_mesh(dp=2, gp=1))
+    paths["train/gp2 parity"] = sharded(cfgs["A"], make_mesh(dp=1, gp=2))
+    gp2 = make_mesh(dp=1, gp=2)
+    paths["train/gp2 edge"] = lambda: par_step(lambda opt: make_edge_partitioned_train_step(
+        cfgs["A paper"], gp2, optimizer=opt, topo=topo), GNS(cfgs["A paper"], seed=0),
+        cfgs["A paper"])
+    tp = make_mesh(dp=1, gp=2, axis_names=("dp", "tp"))
+    paths["train/tp2 parity"] = lambda: dict(par_step(
+        lambda opt: tensor_parallel.make_tp_train_step(cfgs["A"], tp, optimizer=opt, topo=topo),
+        tensor_parallel.shard_params_tp(GNS(cfgs["A"], seed=0, device="cpu"), tp), cfgs["A"]),
+        tp_index=tp.get_local_rank("tp"))
+    pp = make_mesh(dp=2, gp=1, axis_names=("pp", "unused"))
+    deep, deep_cfg = load_pretrained("300-deep", device="cuda")
+    batch, _ = par_train_batch()
+    paths["forward/pp2 300-deep"] = lambda: pipeline.make_pipelined_forward(
+        deep_cfg, pp, microbatch=PAR_MICRO)(deep, batch)._asdict()
+    paths["train/pp2 300-deep"] = lambda: dict(par_step(
+        lambda opt: pipeline.make_pipelined_train_step(deep_cfg, pp, optimizer=opt,
+                                                       microbatch=PAR_MICRO),
+        deep, deep_cfg), stage=pp.get_local_rank("pp"),
+        indices=pipeline.stage_param_indices(deep, deep_cfg, pp.get_local_rank("pp"), 2))
+    return paths
+
+
+def par_solve_cases() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "solve_cases.npz")
+
+
+def par_out(world: str, rank: int) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parallel",
+                        f"{world}.{rank}.pkl")
+
+
+def par_host(x):
+    """Results to host numpy (tensors, dicts, lists)."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: par_host(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [par_host(v) for v in x]
+    return x
+
+
+def parallel_child(world: str, rank: int, store: str) -> int:
+    """`chip_smoke.py --parallel WORLD RANK STORE`: one rank of a phase 14
+    world on cuda:0. Drives par_paths(world) with every K1 / K2 launch
+    counted and recorded, holds each recorded launch bit-equal to its plain
+    twin, and pickles each path's output, launches, collectives and wall
+    for the parent (par_out)."""
+    import pickle
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gns_torch.ops import collectives
+    from gns_torch.ops import segment as seg
+    from gns_torch.ops import segment_kernels as kern
+
+    backend, size = PAR_WORLDS[world]
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(store, size), rank=rank,
+                            world_size=size)
+    torch.backends.cuda.matmul.allow_tf32 = False  # "f32 means f32"
+    torch.backends.cudnn.allow_tf32 = False
+    recorder = PathRecorder(kern, seg)
+    res = {}
+    for path, run in par_paths(world).items():
+        reset_counts()
+        collectives.reset_counts()
+        with NoPlainTwins(kern), recorder:
+            out = run()
+            torch.cuda.synchronize()
+        res[path] = dict(out=par_host(out), launches=counts(),
+                         collectives=dict(collectives.COUNTS))
+        res[path]["wall"] = par_wall(run)  # after the counts: it runs the path again
+    res["held"] = hold_recorded(kern, recorder.inputs, f"parallel {world} rank {rank}", quiet=True)
+    os.makedirs(os.path.dirname(par_out(world, rank)), exist_ok=True)
+    with open(par_out(world, rank), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+    log(f"[parallel] {world} rank {rank}: {len(res) - 1} paths, {res['held']} distinct K1 / K2 "
+        f"launches bit-equal to their plain twins")
+    return 0
+
+
+def par_collectives(path: str, out: dict, cfgs: dict, stage: int, screen: dict) -> dict:
+    """The collectives one rank issues on `path`, as the code gives them.
+    Solves: each exit test of a sharded loop is one all-reduce and each
+    fetch of a packed chunk one all-gather, so the two add up to the
+    solve's host syncs; the all-gathers are the chunks (a flat fallback
+    adds one); broadcasts share compact_after's resolution (solve_batched,
+    hybrid_solve, solve_ac; a fallback's solve_batched adds one). The
+    predictor: one all-gather per batch. Train steps (tests/
+    test_torch_parallel.py _collectives): under gp = 2 per K step four
+    all-reduces (message aggregate, Joule sum, two mismatch sums) and
+    their four backward sums, in parity mode one all-gather of the angle
+    differences per step (its gradient summed in the backward) and one of
+    the Q2 geometry; one all-reduce of the gradients. TP: per K step two
+    forward all-reduces (phi, L) and two backward ones but for step 0's
+    phi input, plus the gradients' over dp. The pipeline, stage 0: a carry
+    out per microbatch (and its gradient back when training), one
+    broadcast from the last stage. screen_n1: its one-grid base solve is
+    unsharded (screen["base_syncs"] host syncs, no collective); each
+    bus-type group is one solve_ac (a broadcast) of one chunk (an
+    all-gather), with no rescue solve when every non-bridge outage
+    converges, as phase 13 finds on case118."""
+    if path.startswith("screen/"):
+        groups = screen["groups"]
+        return {"all_reduce": out["host_syncs"] - screen["base_syncs"] - groups,
+                "all_gather": groups, "broadcast": groups}
+    if path.startswith("solve/"):
+        arm = path[len("solve/"):]
+        if arm == "DC":
+            return {"all_gather": 1}
+        fallback = 1 if out.get("fallback_grids", 0) else 0
+        gathers = len(out["iterations_per_chunk"]) + fallback
+        want = {"all_reduce": out["host_syncs"] - gathers, "all_gather": gathers}
+        agree = {"flat NR": 1, "FDPF": 0}.get(arm, 1) + fallback
+        if agree:
+            want["broadcast"] = agree
+        return want
+    if path.startswith("serve/"):
+        return {"all_gather": 1}
+    k, n_micro = None, S_TRAIN // PAR_MICRO
+    if "pp2" in path:
+        if path.startswith("forward/"):
+            return {"send": n_micro, "broadcast": 1} if stage == 0 else {
+                "recv": n_micro, "broadcast": 1}
+        return {"send": n_micro, "recv": n_micro, "broadcast": 1}
+    cfg = cfgs["A paper"] if "edge" in path else cfgs["A"]
+    k = cfg.K
+    if "tp2" in path:
+        return {"all_reduce": 4 * k}
+    if "gp2" in path:
+        ar = 8 * k + 1 + int(cfg.resolved_fold_output)
+        if cfg.reference_parity:
+            return {"all_reduce": ar + k, "all_gather": k + 1}
+        return {"all_reduce": ar}
+    return {"all_reduce": 1}
+
+
+def par_hold_leaves(tag: str, got, want) -> float:
+    """Gradients leaf by leaf: each within 5e-5 of its own largest entry
+    plus 1e-5 of the largest entry of all leaves (the floor for leaves
+    whose exact gradient is 0, tests/torch_parallel_ranks.py hold_leaves).
+    Returns the worst share of the bound used."""
+    check(len(got) == len(want), f"{tag}: {len(got)} gradients for {len(want)} leaves")
+    floor = 1e-5 * max(float(np.abs(b).max()) for b in want)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        bound = 5e-5 * float(np.abs(b).max()) + floor
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err / bound)
+        check(err <= bound, f"{tag}: leaf {i} off by {err:.3e} > {bound:.3e}")
+    return worst
+
+
+def par_single() -> dict:
+    """The single-process run of each path on the card: the references,
+    with their K1 / K2 launches."""
+    from gns_torch.eval import contingency, nr_batched
+    from gns_torch.models.gns import GNS, batch_tensors, gns_forward_batch
+    from gns_torch.models.pretrained import load_pretrained
+    from gns_torch.physics.common import build_graph
+    from gns_torch.serve import GNSPredictor
+    from gns_torch.train.trainer import loss_and_grads
+    from gns_torch.utils.augment import generate_cases
+    from gns_torch.utils.cases import load_case
+
+    cfgs = par_configs()
+    model, cfg = load_pretrained(CASE, device="cuda")
+    cases = cases_from_npz(par_solve_cases())
+    batch, topo = par_train_batch()
+    bt = batch_tensors(batch, "cuda")
+    graph = build_graph(batch.buses, batch.lines, batch.generators, topo, "cuda")
+    runs = {f"solve/{arm}": run for arm, run in solve_arms(model, cfg, cases).items()}
+    serve_cases = list(generate_cases(CASE, S_SERVE - 1, seed=0))
+    runs["serve/GNSPredictor"] = lambda: GNSPredictor(model, cfg, batch_size=S_SERVE).predict(
+        serve_cases)
+    case118 = load_case(SCREEN_CASE)
+    runs["screen/screen_n1 auto"] = lambda: contingency.screen_n1(case118, gen_outages=True)
+    runs["screen base solve"] = lambda: nr_batched.solve_batched([case118])
+    deep, deep_cfg = load_pretrained("300-deep", device="cuda")
+
+    def grads(m, c):
+        loss, last, g = loss_and_grads(m, c, bt, graph)
+        return {"grads": [x.cpu().numpy() for x in g], "loss": float(loss), "last_loss": float(last)}
+
+    runs["train A"] = lambda: grads(GNS(cfgs["A"], seed=0), cfgs["A"])
+    runs["train A paper"] = lambda: grads(GNS(cfgs["A paper"], seed=0), cfgs["A paper"])
+    runs["train deep"] = lambda: grads(deep, deep_cfg)
+
+    def deep_forward():
+        with torch.no_grad():
+            return gns_forward_batch(deep, deep_cfg, batch, topo=topo)._asdict()
+
+    runs["forward deep"] = deep_forward
+    out = {}
+    for name, run in runs.items():
+        reset_counts()
+        got = run()
+        torch.cuda.synchronize()
+        out[name] = dict(out=par_host(got), launches=counts())
+        out[name]["wall"] = par_wall(run)  # after the counts: it runs the path again
+    return out
+
+
+def par_wall(run) -> float:
+    """Host seconds of a second run of `run` (the first built the index
+    sets, loaded the libraries and started autograd's and the
+    checkpoint's machinery: a pipeline train step's first run takes
+    several times its second)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_parallel(card) -> dict:
+    """The parallel layer on the card (module docstring, phase 14).
+    Returns each rank's K1 / K2 launches per path for the kernels line."""
+    import pickle
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)  # no result of an earlier run is read
+    os.makedirs(out_dir)
+    store_dir = tempfile.mkdtemp(dir=out_dir)
+    procs = []
+    for world, (backend, size) in PAR_WORLDS.items():
+        store = os.path.join(store_dir, f"{world}.store")
+        for rank in range(size):
+            logf = open(os.path.join(out_dir, f"{world}.{rank}.log"), "w")
+            procs.append((world, rank, logf, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel", world, str(rank), store],
+                cwd=here, stdout=logf, stderr=subprocess.STDOUT)))
+    log(f"[parallel] started {len(procs)} rank processes on cuda:0: "
+        + ", ".join(f"{w} ({b}, {n} rank{'s' if n > 1 else ''})" for w, (b, n) in PAR_WORLDS.items()))
+    try:
+        single = par_single()
+        deadline = time.perf_counter() + PAR_TIMEOUT
+        for world, rank, logf, proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fail(f"[parallel] {world} rank {rank} did not end within {PAR_TIMEOUT} s")
+    finally:
+        for world, rank, logf, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    failed = []
+    for world, rank, _, proc in procs:
+        with open(os.path.join(out_dir, f"{world}.{rank}.log")) as f:
+            lines = f.read().splitlines()
+        if proc.returncode != 0:
+            failed.append(f"{world} rank {rank}")
+            for line in lines[-40:]:
+                log(f"[parallel {world} {rank}] {line}")
+        else:
+            for line in lines:
+                if line.startswith("[parallel]"):
+                    log(line)
+    check(not failed, f"[parallel] ranks failed: {failed}")
+    log(f"[parallel] every world ended in {time.perf_counter() - t_phase:.1f} s")
+    ranks = {}
+    for world, rank, _, _ in procs:
+        with open(par_out(world, rank), "rb") as f:
+            ranks[(world, rank)] = pickle.load(f)
+    cfgs = par_configs()
+    from gns_torch.eval import contingency
+    from gns_torch.utils.cases import load_case
+
+    case118 = load_case(SCREEN_CASE)
+    variants = contingency.n1_variants(case118, gen_outages=True)
+    screen = {"base_syncs": single["screen base solve"]["out"]["host_syncs"],
+              "groups": len(contingency._by_signature(variants, range(len(variants))))}
+    # every world runs at once, beside this script's single-process runs
+    on_card = sum(n for _, n in PAR_WORLDS.values()) + 1
+    par_launches = {}
+    for (world, rank), res in ranks.items():
+        size = PAR_WORLDS[world][1]
+        for path, r in res.items():
+            if path == "held":
+                continue
+            stage = r["out"].get("stage", rank) if isinstance(r["out"], dict) else rank
+            want_coll = par_collectives(path, r["out"], cfgs, stage, screen)
+            got_coll = r["collectives"]
+            launches = {k: r["launches"][k] for k in ("K1", "K2")}
+            par_launches[f"{world}/rank{rank}/{path}"] = launches
+            ref_key = par_reference(path)
+            ref = single[ref_key]
+            if "pp2" in path:
+                ok = launches["K1"] > 0 and launches["K2"] > 0
+                want_l = "> 0 each (a stage's own steps)"
+            else:
+                ok = launches == {k: ref["launches"][k] for k in ("K1", "K2")}
+                want_l = f"{ {k: ref['launches'][k] for k in ('K1', 'K2')} } (the single-process run's)"
+            log(f"[parallel] {world} rank {rank} {path}: K1/K2 launches {launches}, expected "
+                f"{want_l}; collectives {got_coll}, predicted {want_coll}; host wall "
+                f"{1e3 * r['wall']:.1f} ms, second run ({on_card} processes sharing one {card}: this "
+                f"world's {size}, the other worlds' {on_card - 1 - size}, this script; the "
+                f"single-process run {1e3 * ref['wall']:.1f} ms shared it too; not a scaling "
+                f"figure)")
+            check(ok, f"{world} rank {rank} {path}: launches {launches}")
+            check(got_coll == want_coll, f"{world} rank {rank} {path}: collectives {got_coll} "
+                  f"!= {want_coll}")
+            par_hold(world, rank, path, r["out"], ref["out"], single)
+    log(f"[parallel] phase took {time.perf_counter() - t_phase:.1f} s")
+    return par_launches
+
+
+def par_reference(path: str) -> str:
+    """The single-process run (par_single) a path is held against."""
+    if path.startswith(("solve/", "serve/", "screen/")):
+        return path
+    if path.startswith("forward/"):
+        return "forward deep"
+    if "pp2" in path:
+        return "train deep"
+    return "train A paper" if "edge" in path else "train A"
+
+
+def par_hold(world, rank, path, got, want, single) -> None:
+    """One rank's result of `path` against the single-process run."""
+    tag = f"{world} rank {rank} {path}"
+    if path.startswith("solve/"):
+        hold_solve(path[len("solve/"):], got, want, tag="parallel",
+                   what=f"{world} rank {rank}, sharded vs single")
+        return
+    if path.startswith("serve/"):
+        for key, tol in (("v", PAR_FWD), ("theta", dict(rtol=2e-5, atol=1e-5)),
+                         ("last_loss", dict(rtol=2e-5, atol=0.0))):
+            err = float(np.abs(got[key] - want[key]).max())
+            ok = got[key].shape == want[key].shape and np.allclose(got[key], want[key], **tol)
+            log(f"[parallel] {tag} {key} max_abs_err {err:.3e} ({tol}) {'ok' if ok else 'MISMATCH'}")
+            check(ok, f"{tag} {key}")
+        return
+    if path.startswith("screen/"):
+        for key in ("converged", "v_violations", "flow_violations", "worst"):
+            check(np.array_equal(got[key], want[key]), f"{tag}: {key} differs")
+        conv = want["converged"]
+        dv = float(np.abs(got["v"] - want["v"])[conv].max())
+        dth = float(np.abs(got["theta_deg"] - want["theta_deg"])[conv].max())
+        ok = dv <= SOLVE_CARD_VS_CPU[0] and dth <= SOLVE_CARD_VS_CPU[1]
+        log(f"[parallel] {tag}: verdicts equal ({int(conv.sum())} of {len(conv)} converged, "
+            f"{len(want['worst'])} worst); v {dv:.3e}, theta {dth:.3e} deg (SOLVE_CARD_VS_CPU) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, tag)
+        base = single["screen base solve"]["out"]["host_syncs"]
+        log(f"[parallel] {tag}: host syncs {got['host_syncs']} of which {base} the unsharded base "
+            f"solve's")
+        return
+    if path.startswith("forward/"):
+        for key in ("v", "theta", "total_loss", "last_loss"):
+            err = float(np.abs(got[key] - want[key]).max())
+            ok = np.allclose(got[key], want[key], **PAR_FWD)
+            log(f"[parallel] {tag} {key} max_abs_err {err:.3e} ({PAR_FWD}) {'ok' if ok else 'MISMATCH'}")
+            check(ok, f"{tag} {key}")
+        return
+    for key in ("loss", "last_loss"):
+        ok = abs(got[key] - want[key]) <= 2e-5 * abs(want[key])
+        check(ok, f"{tag}: {key} {got[key]} against {want[key]}")
+    if "pp2" in path:
+        worst = 0.0
+        for i, g in zip(got["indices"], got["grads"]):
+            w = want["grads"][i]
+            check(np.allclose(g, w, **PAR_GRAD), f"{tag}: gradient leaf {i}")
+            worst = max(worst, float(np.abs(g - w).max()))
+        log(f"[parallel] {tag}: loss {got['loss']:.6g} (single {want['loss']:.6g}); stage "
+            f"{got['stage']}'s {len(got['indices'])} gradient leaves within {PAR_GRAD}, worst "
+            f"{worst:.3e}")
+        return
+    if "tp2" in path:
+        from gns_torch.models.gns import GNS
+        from gns_torch.parallel.tensor_parallel import tp_param_shardings
+
+        cfg = par_configs()["A"]
+        model = GNS(cfg, seed=0, device="cpu")
+        dims = list(tp_param_shardings(model).values())
+        half = cfg.hidden_dim // 2
+        part = slice(got["tp_index"] * half, (got["tp_index"] + 1) * half)
+        worst = 0.0
+        for i, (g, w, d) in enumerate(zip(got["grads"], want["grads"], dims)):
+            w = w if d is None else (w[part] if d == 0 else w[:, part])
+            check(np.allclose(g, w, **PAR_GRAD), f"{tag}: gradient leaf {i}")
+            worst = max(worst, float(np.abs(g - w).max()))
+        log(f"[parallel] {tag}: loss {got['loss']:.6g} (single {want['loss']:.6g}); "
+            f"{len(dims)} gradient leaves (hidden units {part.start}-{part.stop - 1}) within "
+            f"{PAR_GRAD}, worst {worst:.3e}")
+        return
+    share = par_hold_leaves(tag, got["grads"], want["grads"])
+    log(f"[parallel] {tag}: loss {got['loss']:.6g} (single {want['loss']:.6g}); "
+        f"{len(got['grads'])} gradient leaves within the leaf bound, worst at {share:.3f} of it")
+
+
 def run_child(args, what: str, timeout: int, module: bool = False):
     """Run this script (or, with module=True, `python -m ...`) in a process
     of its own from the checkout's root, log its output, fail on a non-zero
@@ -2847,6 +3397,7 @@ def main() -> int:
     solves = phase_solve(kern, seg, card)
     phase_bench(train, card)
     screens = phase_screen(kern, seg, card)
+    parallel = phase_parallel(card)
     kernels = []
     meta = {
         "K1": ("segment_sum_warp / segment_sum_narrow", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:29"),
@@ -2877,6 +3428,8 @@ def main() -> int:
             kernels[-1]["solve_launches"] = {arm: c[k] for arm, c in solves.items()}
             # the screen phase: each screen's launches on case118
             kernels[-1]["screen_launches"] = {name: c[k] for name, c in screens.items()}
+            # the parallel phase: each rank's launches per path ("world/rank/path")
+            kernels[-1]["parallel_launches"] = {name: c[k] for name, c in parallel.items()}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2893,4 +3446,6 @@ if __name__ == "__main__":
         sys.exit(solve_timing_child(sys.argv[2]))
     if sys.argv[1:] == ["--screen-timing"]:
         sys.exit(screen_timing_child())
+    if sys.argv[1:2] == ["--parallel"] and len(sys.argv) == 5:
+        sys.exit(parallel_child(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -44,9 +44,10 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from gns_torch.eval.nr_batched import check_no_mesh, f32_matmuls, solve_batched
+from gns_torch.eval.nr_batched import f32_matmuls, solve_batched
 from gns_torch.eval.solve import solve_ac
 from gns_torch.models.gns import GNS
+from gns_torch.parallel.solver_dp import dp_size, padded_rows
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 
@@ -194,11 +195,14 @@ def screen_n1(
       "host_syncs":    exit tests and fetches of every solve,
     }
 
-    mesh: not ported (only None). device: "cuda" (default) or "cpu".
+    mesh: a DeviceMesh with a "dp" axis (parallel/solver_dp.py): every
+    group's solve and every rescue is sharded over it (the one-grid base
+    solve is not), and every rank returns the whole screen. device:
+    "cuda" (default) or "cpu"; under a mesh, this rank's device.
     """
-    check_no_mesh(mesh)
     dev = resolve_device(device)
     f32_matmuls()
+    dp_size(mesh)
     variants = n1_variants(
         case, branch_outages, gen_outages,
         encode_impedance=encode_impedance,
@@ -233,7 +237,7 @@ def screen_n1(
         # ANY start, so a flat re-solve would only burn a solve;
         # non-convergence is the screen's signal, not an error
         common = dict(method=method, tol=tol, max_iter=max_iter, chunk_size=len(group),
-                      compact_after=compact_after, device=dev)
+                      compact_after=compact_after, mesh=mesh, device=dev)
         if params is not None:
             return solve_ac(group, params=params, cfg=cfg, warm_start="gns",
                             fallback_flat=False, **common)
@@ -275,7 +279,7 @@ def screen_n1(
             res = solve_ac(
                 [variants[i] for i in ridx], warm_start="flat",
                 method="nr", tol=tol, max_iter=max_iter,
-                chunk_size=len(ridx), compact_after=compact_after, device=dev,
+                chunk_size=len(ridx), compact_after=compact_after, mesh=mesh, device=dev,
             )
             syncs += res["host_syncs"]
             ok = np.flatnonzero(res["converged"])
@@ -504,13 +508,16 @@ def screen_n1_ranked(
       "host_syncs", the predictor's fetches and the verify solves' syncs,
     }
 
-    mesh: not ported (only None). device: "cuda" (default) or "cpu".
+    mesh: a DeviceMesh with a "dp" axis: the forward's batch is sharded
+    over it (the default batch, c + 1, rounded up to a dp multiple) and
+    so are the verify solves. device: "cuda" (default) or "cpu"; under a
+    mesh, this rank's device.
     """
     from gns_torch.serve import GNSPredictor
 
-    check_no_mesh(mesh)
     dev = resolve_device(device)
     f32_matmuls()
+    dp_size(mesh)
     variants = n1_variants(
         case, branch_outages, gen_outages,
         encode_impedance=encode_impedance,
@@ -529,8 +536,9 @@ def screen_n1_ranked(
 
     # stage 2: one batched forward over variants + the intact case (the
     # intact prediction is the bias-cancelling reference for severity)
-    bs = batch_size or (c + 1)
-    predictor = GNSPredictor(params, cfg, batch_size=bs, align_slack=True, device=dev)
+    bs = batch_size or padded_rows(c + 1, mesh)
+    predictor = GNSPredictor(params, cfg, batch_size=bs, align_slack=True, mesh=mesh,
+                             device=dev)
     pred = predictor.predict(variants + [case])
     syncs = 3 * -(-(c + 1) // bs)  # v, theta, last_loss fetched per batch
     pv, pth = pred["v"][:c], pred["theta"][:c]
@@ -562,7 +570,7 @@ def screen_n1_ranked(
     if top_k:
         sub = _verify_subset(
             variants, verified_idx, {"v": pv, "theta": pth},
-            tol, max_iter, compact_after, method=method, device=dev,
+            tol, max_iter, compact_after, method=method, mesh=mesh, device=dev,
         )
         syncs += sub["host_syncs"]
         conv[verified_idx] = sub["converged"]
@@ -620,8 +628,8 @@ def _verify_subset(
     """Solve the selected variants exactly, warm-started by the GNS
     prediction already in hand (no second forward), grouped by bus-type
     signature like screen_n1. Results in `idx` order ("converged", "v",
-    "theta_deg", "iterations_per_grid"), plus "host_syncs"."""
-    check_no_mesh(mesh)
+    "theta_deg", "iterations_per_grid"), plus "host_syncs". mesh: the
+    solves' dp mesh, or None."""
     idx = np.asarray(idx)
     n = pred["v"].shape[1]
     out = {
@@ -640,7 +648,7 @@ def _verify_subset(
             prev=(pred["v"][gidx], pred["theta"][gidx]),
             method=method,
             tol=tol, max_iter=max_iter, chunk_size=len(gidx),
-            compact_after=compact_after, fallback_flat=False, device=device,
+            compact_after=compact_after, fallback_flat=False, mesh=mesh, device=device,
         )
         out["converged"][rows] = res["converged"]
         out["v"][rows] = res["v"]
@@ -658,7 +666,8 @@ def _verify_subset(
             res = solve_ac(
                 [variants[i] for i in idx[rows]], warm_start="flat",
                 method="nr", tol=tol, max_iter=max_iter,
-                chunk_size=len(rows), compact_after=compact_after, device=device,
+                chunk_size=len(rows), compact_after=compact_after, mesh=mesh,
+                device=device,
             )
             out["host_syncs"] += res["host_syncs"]
             ok = np.flatnonzero(res["converged"])

@@ -37,9 +37,9 @@ import numpy as np
 import torch
 
 from gns_torch.eval.contingency import find_bridges
-from gns_torch.eval.nr_batched import (_cache_put, _on, check_no_mesh, f32_matmuls, lu_factor,
-                                       stack_cases)
+from gns_torch.eval.nr_batched import _cache_put, _on, f32_matmuls, lu_factor, stack_cases
 from gns_torch.ops.segment import SegmentIndex, gather, segment_sum
+from gns_torch.parallel.solver_dp import dp_size, gather_rows, shard_chunk
 from gns_torch.utils.device import resolve_device
 
 _DC_CACHE: Dict[tuple, object] = {}
@@ -125,11 +125,14 @@ def solve_batched_dc(cases: List[Dict], chunk_size: int = 1024, mesh=None,
     islands). Magnitudes are the DC assumption's flat profile; use solve_ac
     for exact states.
 
-    mesh: not ported (only None). device: "cuda" (default) or "cpu".
+    mesh: a DeviceMesh with a "dp" axis: each chunk's rows are sharded
+    over it and the packed result all-gathered (parallel/solver_dp.py),
+    the same answer on every rank. device: "cuda" (default) or "cpu";
+    under a mesh, this rank's device.
     """
-    check_no_mesh(mesh)
     dev = resolve_device(device)
     f32_matmuls()
+    dp_size(mesh)
     outs_th, outs_pf, outs_sl = [], [], []
     for lo in range(0, len(cases), chunk_size):
         bus, branch, gen, base = stack_cases(cases[lo:lo + chunk_size])
@@ -149,8 +152,9 @@ def solve_batched_dc(cases: List[Dict], chunk_size: int = 1024, mesh=None,
         t = branch[0, :, 1].astype(np.int64) - 1
         has_status = branch.shape[2] > 10
         topo = _dc_pattern(f, t, n, nonslack, dev)
-        packed = _dc_core(topo, *_on(dev, bus, branch, base, p_sched), has_status,
-                          slack).cpu().numpy()
+        local = shard_chunk(mesh, (bus, branch, base, p_sched), s)
+        packed = gather_rows(mesh, _dc_core(topo, *_on(dev, *local), has_status, slack),
+                             s).cpu().numpy()
         theta = packed[:, :n]
         pf = packed[:, n:]
         # slack balances the (lossless) system: its injection is total

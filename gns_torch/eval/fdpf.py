@@ -55,12 +55,12 @@ from gns_torch.eval.nr_batched import (
     _topology,
     build_nr_small_stacked,
     lu_factor,
-    check_no_mesh,
     f32_matmuls,
     stack_cases,
     unpack_results,
 )
 from gns_torch.ops.segment import SegmentIndex, gather, segment_sum
+from gns_torch.parallel.solver_dp import all_converged, dp_group, gather_rows, shard_chunk
 from gns_torch.utils.device import resolve_device
 
 
@@ -135,13 +135,14 @@ def _build_b_matrices(bus, branch, base, pattern, has_status: bool, alg: str):
 
 
 def _fdpf_solve(injections, bp_inv, bpp_inv, p_sched, q_sched, vm0, va0,
-                pvpq, pq, tol: float, max_iter: int):
+                pvpq, pq, tol: float, max_iter: int, group=None):
     """The fast-decoupled loop: alternating P-theta / Q-V half-steps with
     per-grid freezing and the same stalled-at-floor acceptance contract as
     `_nr_solve` (a stricter 0.95 progress factor: fast-decoupled
     convergence is geometric, so "still shrinking" looks different from
     Newton's quadratic drops). Returns (vm, va, conv, iters,
-    iters_per_grid, mismatch, host_syncs)."""
+    iters_per_grid, mismatch, host_syncs). group: as `_nr_solve`'s (the
+    exit test all-reduced over a sharded chunk's dp group)."""
     stall_cap = _stall_cap(tol)
 
     def f_of(p, q):
@@ -155,7 +156,7 @@ def _fdpf_solve(injections, bp_inv, bpp_inv, p_sched, q_sched, vm0, va0,
     it, syncs = 0, 0
     while it < max_iter:
         syncs += 1
-        if bool(conv.all()):
+        if all_converged(conv, group):
             break
         frozen = conv[:, None]
         # P half-step: B' dtheta = dP / Vm  (pypower fdpf conventions)
@@ -180,7 +181,7 @@ def _fdpf_solve(injections, bp_inv, bpp_inv, p_sched, q_sched, vm0, va0,
 
 
 def _fdpf_core(topo, bus, branch, base, p_sched, q_sched, vm0, va0,
-               has_status: bool, alg: str, tol: float, max_iter: int):
+               has_status: bool, alg: str, tol: float, max_iter: int, group=None):
     """B'/B'' assembly, the one-time batched inverses, the fast-decoupled
     loop and the packed output of one chunk on its device. Returns (packed
     (S, 2N+4) tensor, host syncs)."""
@@ -192,6 +193,7 @@ def _fdpf_core(topo, bus, branch, base, p_sched, q_sched, vm0, va0,
     injections = _make_injections(parts, topo.ends)
     vm, va, conv, it, itg, fmax, syncs = _fdpf_solve(
         injections, bp_inv, bpp_inv, p_sched, q_sched, vm0, va0, pvpq, pq, tol, max_iter,
+        group,
     )
     return _pack_solution(vm, va, conv, it, itg, fmax), syncs
 
@@ -244,13 +246,15 @@ def solve_batched_fdpf(
     whose r/x ratios defeat the decoupling, re-solve with full Newton
     (`solve_ac(..., method="auto")` does exactly that).
 
-    mesh: not ported (only None). device: "cuda" (default) or "cpu".
+    mesh: a DeviceMesh with a "dp" axis: each chunk sharded over it as in
+    nr_batched.solve_batched. device: "cuda" (default) or "cpu"; under a
+    mesh, this rank's device.
     """
     if alg not in ("XB", "BX"):
         raise ValueError(f"alg must be XB|BX, got {alg!r}")
-    check_no_mesh(mesh)
     dev = resolve_device(device)
     f32_matmuls()
+    group = dp_group(mesh)
     packs, its, syncs = [], [], 0
     for lo in range(0, len(cases), chunk_size):
         bus, branch, gen, base = stack_cases(cases[lo:lo + chunk_size])
@@ -260,11 +264,11 @@ def solve_batched_fdpf(
         t = branch[0, :, 1].astype(np.int64) - 1
         has_status = branch.shape[2] > 10
         topo = _topology(f, t, bus.shape[1], ns.pvpq, ns.pq, dev)
-        packed, chunk_syncs = _fdpf_core(
-            topo, *_on(dev, bus, branch, base, ns.p_sched, ns.q_sched, vm0, va0),
-            has_status, alg, tol, max_iter,
-        )
-        packed = packed.cpu().numpy()
+        k = bus.shape[0]
+        local = shard_chunk(mesh, (bus, branch, base, ns.p_sched, ns.q_sched, vm0, va0), k)
+        packed, chunk_syncs = _fdpf_core(topo, *_on(dev, *local), has_status, alg, tol,
+                                         max_iter, group)
+        packed = gather_rows(mesh, packed, k).cpu().numpy()
         packs.append(packed)
         its.append(int(packed[0, 2 * bus.shape[1] + 1]))
         syncs += chunk_syncs + 1

@@ -46,7 +46,6 @@ from gns_torch.eval.nr_batched import (
     _on,
     _topology,
     build_nr_small_stacked,
-    check_no_mesh,
     f32_matmuls,
     resolve_compact_after,
     solve_batched,
@@ -54,6 +53,7 @@ from gns_torch.eval.nr_batched import (
     unpack_results,
 )
 from gns_torch.models.gns import GNS, gns_forward, step_params
+from gns_torch.parallel.solver_dp import agree, dp_group, gather_rows, shard_chunk
 from gns_torch.physics.common import build_graph
 from gns_torch.serve import GNSPredictor
 from gns_torch.utils.config import GNSConfig
@@ -108,8 +108,10 @@ def _forward_graph(bus, branch, gen, device):
 
 def _fused_fn(steps, cfg: GNSConfig, method: str, graph, topo, slack_idx: int,
               bus, branch, gen, base, p_sched, q_sched, vm0, va0,
-              has_status: bool, tol: float, max_iter: int, solver: str = "nr"):
-    """One chunk's fused path (module docstring) on the chunk's device:
+              has_status: bool, tol: float, max_iter: int, solver: str = "nr",
+              group=None):
+    """One chunk's fused path (module docstring) on the chunk's device
+    (this rank's rows under a dp group, whose exit tests it all-reduces):
     returns (packed (S, 2N+4) solution, host syncs, predicted v, the
     prediction's angles in the slack-pinned gauge)."""
     buses, lines, gens = _prepare_stacked(bus, branch, gen, base, not cfg.true_shunts)
@@ -128,10 +130,10 @@ def _fused_fn(steps, cfg: GNSConfig, method: str, graph, topo, slack_idx: int,
     va_w[:, topo.pvpq] = theta.to(va0.dtype)[:, topo.pvpq]
     if solver == "fdpf":
         packed, syncs = _fdpf_core(topo, bus, branch, base, p_sched, q_sched, vm_w, va_w,
-                                   has_status, "XB", tol, max_iter)
+                                   has_status, "XB", tol, max_iter, group)
     else:
         packed, syncs = _nr_core(topo, bus, branch, base, p_sched, q_sched, vm_w, va_w,
-                                 has_status, tol, max_iter)
+                                 has_status, tol, max_iter, group)
     return packed, syncs, v, theta
 
 
@@ -147,9 +149,10 @@ def _pad_rows(arr: np.ndarray, target: int) -> np.ndarray:
 def _hybrid_solve_fused(
     model: GNS, cfg: GNSConfig, cases: List[Dict], tol: float, max_iter: int,
     chunk_size: int, method: str = "auto", return_pred: bool = False,
-    compact_after: int = 0, solver: str = "nr",
+    compact_after: int = 0, solver: str = "nr", mesh=None,
 ) -> Dict[str, np.ndarray]:
     device = next(model.parameters()).device
+    group = dp_group(mesh)
     with torch.no_grad():
         steps = step_params(model, cfg)
     s = len(cases)
@@ -178,13 +181,16 @@ def _hybrid_solve_fused(
         slack_idx = int(np.flatnonzero(bus[0, :, 1].astype(int) == 3)[0])
         topo = _topology(f, t, n, ns.pvpq, ns.pq, device)
         graph = _forward_graph(bus, branch, gen, device)
-        tensors = _on(device, bus, branch, gen, base, ns.p_sched, ns.q_sched, ns.vm0, ns.va0)
+        # under a mesh: this rank's rows of the chunk, padded to a dp
+        # multiple, and the whole (padded) chunk's results gathered back
+        local = shard_chunk(mesh, (bus, branch, gen, base, ns.p_sched, ns.q_sched, ns.vm0,
+                                   ns.va0), target)
         with torch.no_grad():
             packed, chunk_syncs, v, theta = _fused_fn(
-                steps, cfg, method, graph, topo, slack_idx, *tensors,
-                has_status=has_status, tol=tol, max_iter=k1, solver=solver,
+                steps, cfg, method, graph, topo, slack_idx, *_on(device, *local),
+                has_status=has_status, tol=tol, max_iter=k1, solver=solver, group=group,
             )
-        packed = packed.cpu().numpy()
+        packed = gather_rows(mesh, packed, target).cpu().numpy()
         syncs += chunk_syncs + 1
         it_chunk = int(packed[0, 2 * n + 1])
         # stragglers continue in a compact power-of-2 sub-batch (no
@@ -197,8 +203,8 @@ def _hybrid_solve_fused(
         its.append(it_chunk + extra)
         syncs += extra_syncs
         if return_pred:
-            pv.append(v[:k].cpu().numpy())
-            pth.append(theta[:k].cpu().numpy())
+            pv.append(gather_rows(mesh, v, k).cpu().numpy())
+            pth.append(gather_rows(mesh, theta, k).cpu().numpy())
             syncs += 2
     res = unpack_results(packs, its, tol, syncs)
     if return_pred:
@@ -254,18 +260,23 @@ def hybrid_solve(
     in, so the hybrid is never less robust than plain NR; "fallback_grids"
     reports how many needed it.
 
-    mesh: not ported (only None).
+    mesh: a DeviceMesh with a "dp" axis (parallel/solver_dp.py): the fused
+    path's chunks, their forward and exact loop, are sharded over it; in
+    the two-step pipeline the solve is (the prediction runs whole on every
+    rank, as gns_tpu's does); the flat fallback is sharded too. Every rank
+    returns the whole result.
     """
-    check_no_mesh(mesh)
     if solver not in ("nr", "fdpf"):
         raise ValueError(f"solver must be nr|fdpf, got {solver!r}")
     device = next(model.parameters()).device
     f32_matmuls()
-    compact_after = resolve_compact_after(compact_after, device=device)
+    dp_group(mesh)
+    compact_after = agree(mesh, resolve_compact_after(compact_after, device=device), device)
     if fused and predictor is None:
         out = _hybrid_solve_fused(
             model, cfg, cases, tol, max_iter, chunk_size,
             return_pred=return_prediction, compact_after=compact_after, solver=solver,
+            mesh=mesh,
         )
     else:
         if predictor is None:
@@ -274,14 +285,14 @@ def hybrid_solve(
         pred = predictor.predict(cases)
         solve = solve_batched_fdpf if solver == "fdpf" else solve_batched
         out = solve(cases, tol=tol, max_iter=max_iter, chunk_size=chunk_size,
-                    warm_start=(pred["v"], pred["theta"]), device=device)
+                    warm_start=(pred["v"], pred["theta"]), mesh=mesh, device=device)
         if return_prediction:
             out["gns_v"] = pred["v"]
             out["gns_theta_deg"] = np.rad2deg(pred["theta"]).astype(np.float32)
     if fallback_flat and not out["converged"].all():
         bad = np.flatnonzero(~out["converged"])
         flat = solve_batched([cases[i] for i in bad], tol=tol, max_iter=max_iter,
-                             chunk_size=chunk_size, device=device)
+                             chunk_size=chunk_size, mesh=mesh, device=device)
         splice_fallback(out, bad, flat)
     else:
         out["fallback_grids"] = 0

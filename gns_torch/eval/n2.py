@@ -46,11 +46,11 @@ from gns_torch.eval.nr_batched import (
     _on,
     _topology,
     build_nr_small_stacked,
-    check_no_mesh,
     f32_matmuls,
     stack_cases,
 )
 from gns_torch.models.gns import GNS, gns_forward, step_params
+from gns_torch.parallel.solver_dp import dp_group, dp_size, gather_rows, shard_chunk
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 from gns_torch.utils.prepare import GridBatch, prepare_case
@@ -159,14 +159,16 @@ def n2_branch_loading(case: Dict, pairs: np.ndarray, v: np.ndarray,
 
 
 def _n2_core(topo, bus, branch, base, p_sched, q_sched, vm0, va0, pairs,
-             method: str, tol: float, max_iter: int):
+             method: str, tol: float, max_iter: int, group=None):
     """One chunk of device-built variants, solved: bus (N, Cb) / branch
     (E, Cc) / base () / p_sched, q_sched (N,) of the base case, the initial
     iterate vm0 / va0 ((N,) flat or (S, N) warm), pairs (S, 2) int64, all
     on one device. The (S, E, Cc) branch stack is a materialised copy whose
     status column (col 10, the N-1 variant semantics) is zeroed at each
     pair's two rows; the other inputs are broadcast views, which the
-    solvers only read. Returns (packed (S, 2N+4) tensor, host syncs)."""
+    solvers only read. group: a sharded chunk's dp group (the loop's exit
+    test is all-reduced over it). Returns (packed (S, 2N+4) tensor, host
+    syncs)."""
     s = pairs.shape[0]
     n = bus.shape[0]
     branch_s = branch.repeat(s, 1, 1)
@@ -177,9 +179,9 @@ def _n2_core(topo, bus, branch, base, p_sched, q_sched, vm0, va0, pairs,
     vm_s, va_s = vm0.expand(s, n), va0.expand(s, n)
     if method == "fdpf":
         return _fdpf_core(topo, bus_s, branch_s, base_s, p_s, q_s, vm_s, va_s,
-                          True, "XB", tol, max_iter)
+                          True, "XB", tol, max_iter, group)
     return _nr_core(topo, bus_s, branch_s, base_s, p_s, q_s, vm_s, va_s,
-                    True, tol, max_iter)
+                    True, tol, max_iter, group)
 
 
 def screen_n2(
@@ -216,11 +218,15 @@ def screen_n2(
     "iterations_per_grid", "mismatch", "worst", "method",
     "iterations_per_chunk", "host_syncs"}.
 
-    mesh: not ported (only None). device: "cuda" (default) or "cpu".
+    mesh: a DeviceMesh with a "dp" axis (parallel/solver_dp.py): each
+    chunk (padded to a dp multiple) is split over it by rows, its loop's
+    exit test all-reduced over dp and its packed result all-gathered, so
+    every rank returns the whole screen. device: "cuda" (default) or
+    "cpu"; under a mesh, this rank's device.
     """
-    check_no_mesh(mesh)
     dev = resolve_device(device)
     f32_matmuls()
+    group = dp_group(mesh)
     if pairs is None:
         pairs = n2_pairs(case)
     pairs = np.asarray(pairs, np.int32)
@@ -255,13 +261,15 @@ def screen_n2(
             va0 = np.broadcast_to(ns.va0[0], (target, n)).copy()
             vm0[:, ns.pq] = wv[:, ns.pq]
             va0[:, ns.pvpq] = wth[:, ns.pvpq]
+            vm0, va0 = shard_chunk(mesh, (vm0, va0), target)
         else:
             vm0, va0 = ns.vm0[0], ns.va0[0]
+        (chunk,) = shard_chunk(mesh, (chunk,), target)
         packed, chunk_syncs = _n2_core(
             topo, *base_args, *_on(dev, vm0, va0),
-            torch.as_tensor(chunk.astype(np.int64), device=dev), method, tol, budget,
+            torch.as_tensor(chunk.astype(np.int64), device=dev), method, tol, budget, group,
         )
-        pending.append((packed, k))
+        pending.append((gather_rows(mesh, packed, k), k))
         syncs += chunk_syncs
 
     vms, vas, convs, itgs, fms, its = [], [], [], [], [], []
@@ -390,10 +398,13 @@ def screen_n2_ranked(
     "v_violations"/"flow_violations" (verified subset; NaN/0 elsewhere), "pred_v",
     "pred_theta", "worst", "n_solves", "host_syncs"}.
 
-    mesh: not ported (only None). device: "cuda" (default) or "cpu".
+    mesh: a DeviceMesh with a "dp" axis: the verify solves (screen_n2) are
+    sharded over it; the ranking forwards run whole on every rank, as
+    gns_tpu's do. device: "cuda" (default) or "cpu"; under a mesh, this
+    rank's device.
     """
-    check_no_mesh(mesh)
     dev = resolve_device(device)
+    dp_size(mesh)
     f32_matmuls()
     if score not in ("depth", "rms"):
         raise ValueError(f"score must be depth|rms, got {score!r}")
@@ -462,7 +473,7 @@ def screen_n2_ranked(
         sub = screen_n2(
             case, pairs[verified_idx], tol=tol, max_iter=max_iter,
             fdpf_max_iter=fdpf_max_iter, chunk_size=chunk_size,
-            method=method, v_limits=v_limits, device=dev,
+            method=method, v_limits=v_limits, mesh=mesh, device=dev,
             warm_start=(pv[verified_idx], pth[verified_idx]),
         )
         syncs += sub["host_syncs"]

@@ -58,15 +58,8 @@ import numpy as np
 import torch
 
 from gns_torch.ops.segment import SegmentIndex, segment_sum
+from gns_torch.parallel.solver_dp import agree, all_converged, dp_group, gather_rows, shard_chunk
 from gns_torch.utils.device import resolve_device
-
-def check_no_mesh(mesh) -> None:
-    """The solvers take gns_tpu's `mesh=` argument, and only None."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported: gns_torch's solvers run on one device; the "
-            "parallel layer (parallel/solver_dp.py) is ROADMAP §1 item 6"
-        )
 
 
 def lu_factor(mat):
@@ -426,14 +419,16 @@ def _jacobian(gmat, bmat, vm, a1, a2, p, q, pvpq, pq):
 
 
 def _nr_solve(gmat, bmat, p_sched, q_sched, vm0, va0, pvpq, pq,
-              tol: float = 3e-5, max_iter: int = 20):
+              tol: float = 3e-5, max_iter: int = 20, group=None):
     """Batched full-Newton polar power flow, real arithmetic + LU solve.
 
     Returns (vm, va, conv, iters, iters_per_grid, mismatch, host_syncs):
     iters_per_grid is the iteration at which each grid first met the gate
     (== iters for stragglers); mismatch is each grid's final max |f|
     (p.u.), which separates tol-converged grids from stall-accepted ones;
-    host_syncs counts the loop's exit tests read from the device."""
+    host_syncs counts the loop's exit tests read from the device. group:
+    the dp process group of a sharded chunk, over which the exit test is
+    all-reduced (parallel/solver_dp.py all_converged), or None."""
     n_pvpq = pvpq.shape[0]
     stall_cap = _stall_cap(tol)
 
@@ -456,7 +451,7 @@ def _nr_solve(gmat, bmat, p_sched, q_sched, vm0, va0, pvpq, pq,
     it, syncs = 0, 0
     while it < max_iter:
         syncs += 1
-        if bool(conv.all()):
+        if all_converged(conv, group):
             break
         f = f_of(p, q)
         jac = _jacobian(gmat, bmat, vm, a1, a2, p, q, pvpq, pq)
@@ -492,13 +487,14 @@ def _nr_solve(gmat, bmat, p_sched, q_sched, vm0, va0, pvpq, pq,
 
 
 def _nr_core(topo: _Topology, bus, branch, base, p_sched, q_sched, vm0, va0,
-             has_status: bool, tol: float, max_iter: int):
+             has_status: bool, tol: float, max_iter: int, group=None):
     """Assembly + the Newton loop + the packed output of one chunk, all on
-    the chunk's device. Returns (packed (S, 2N+4) tensor, host syncs)."""
+    the chunk's device (this rank's rows under a dp group). Returns
+    (packed (S, 2N+4) tensor, host syncs)."""
     gmat, bmat = _assemble_gb(bus, branch, base, topo.pattern, has_status)
     vm, va, conv, it, itg, fmax, syncs = _nr_solve(
         gmat, bmat, p_sched, q_sched, vm0, va0, topo.pvpq, topo.pq,
-        tol=tol, max_iter=max_iter,
+        tol=tol, max_iter=max_iter, group=group,
     )
     return _pack_solution(vm, va, conv, it, itg, fmax), syncs
 
@@ -574,8 +570,10 @@ def solve_mixed(
     pool to hide its relay's fetch round trips; here each group's Newton
     loop reads its exit test from the device every iteration anyway, and
     the kernels' launch counters are plain integers.
+
+    mesh: a DeviceMesh with a "dp" axis (parallel/solver_dp.py); each
+    group's solve is sharded over it.
     """
-    check_no_mesh(mesh)
     sigs: Dict[bytes, list] = {}
     for i, case in enumerate(cases):
         bus = np.asarray(case["bus"])
@@ -602,14 +600,15 @@ def solve_mixed(
         if method == "nr":
             return solve_batched(
                 [cases[i] for i in idx], tol=tol, max_iter=max_iter,
-                chunk_size=chunk_size, compact_after=compact_after, device=device,
+                chunk_size=chunk_size, compact_after=compact_after, mesh=mesh,
+                device=device,
             )
         from gns_torch.eval.solve import solve_ac
 
         return solve_ac(
             [cases[i] for i in idx], warm_start="flat", method=method,
             tol=tol, max_iter=max_iter, chunk_size=chunk_size,
-            compact_after=compact_after, device=device,
+            compact_after=compact_after, mesh=mesh, device=device,
         )
 
     for idx in sigs.values():
@@ -749,13 +748,19 @@ def solve_batched(
     largest cases), while Newton's quadratic convergence means the accepted
     iterate is the one a 1e-5 gate would accept.
 
-    mesh: gns_tpu shards each chunk over a "dp" mesh axis; not ported
-    (only None). device: "cuda" (default) or "cpu" (the plain path).
+    mesh: a DeviceMesh with a "dp" axis (parallel/solver_dp.py): each
+    chunk is padded to a dp multiple by repeating its last grid, every
+    rank solves its block of rows with the loop's exit test all-reduced
+    over dp, and the packed result is all-gathered and trimmed, so every
+    rank returns the whole result, equal to the single-process run's. The
+    compaction sub-batch re-solve (compact_after) runs unsharded on every
+    rank: it is by construction a small straggler set. device: "cuda"
+    (default) or "cpu" (the plain path); under a mesh, this rank's device.
     """
-    check_no_mesh(mesh)
     dev = resolve_device(device)
     f32_matmuls()
-    compact_after = resolve_compact_after(compact_after, device=dev)
+    group = dp_group(mesh)
+    compact_after = agree(mesh, resolve_compact_after(compact_after, device=dev), dev)
     k1 = compact_after if 0 < compact_after < max_iter else max_iter
     packs, its, syncs = [], [], 0
     for lo in range(0, len(cases), chunk_size):
@@ -766,11 +771,10 @@ def solve_batched(
         t = branch[0, :, 1].astype(np.int64) - 1
         has_status = branch.shape[2] > 10
         topo = _topology(f, t, bus.shape[1], ns.pvpq, ns.pq, dev)
-        packed, chunk_syncs = _nr_core(
-            topo, *_on(dev, bus, branch, base, ns.p_sched, ns.q_sched, vm0, va0),
-            has_status, tol, k1,
-        )
-        packed = packed.cpu().numpy()
+        k = bus.shape[0]
+        local = shard_chunk(mesh, (bus, branch, base, ns.p_sched, ns.q_sched, vm0, va0), k)
+        packed, chunk_syncs = _nr_core(topo, *_on(dev, *local), has_status, tol, k1, group)
+        packed = gather_rows(mesh, packed, k).cpu().numpy()
         syncs += chunk_syncs + 1
         it_chunk = int(packed[0, 2 * bus.shape[1] + 1])
         extra, extra_syncs = _compact_stragglers(

@@ -39,6 +39,7 @@ import numpy as np
 
 from gns_torch.eval import nr_batched
 from gns_torch.models.gns import GNS
+from gns_torch.parallel.solver_dp import agree, dp_group
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 
@@ -119,13 +120,17 @@ def solve_ac(
     fallback_flat: any grid the warm arm fails is re-solved from the flat
     start and spliced in (reported via "fallback_grids").
 
-    mesh: not ported (only None). device: "cuda" (default) or "cpu".
+    mesh: a DeviceMesh with a "dp" axis (parallel/solver_dp.py): every arm
+    and the fallback shard their chunks over it; the warm-start policy and
+    compact_after are resolved on the first dp rank and shared, so every
+    rank runs the same arms. Fixed points are the single-process run's.
+    device: "cuda" (default) or "cpu"; under a mesh, this rank's device.
 
     Returns the solve_batched result schema plus "warm_start" (the resolved
     arm) and "compact_after" (the resolved exit point).
     """
-    nr_batched.check_no_mesh(mesh)
     dev = resolve_device(device)
+    dp_group(mesh)
     if method == "auto":
         method = "fdpf"
     if method not in ("nr", "fdpf"):
@@ -133,24 +138,26 @@ def solve_ac(
     if warm_start == "auto":
         if prev is not None:
             warm_start = "prev"
-        elif params is not None and method == "nr" and _gns_warm_pays(cases, dev):
+        elif params is not None and method == "nr" and agree(
+                mesh, _gns_warm_pays(cases, dev), dev):
             warm_start = "gns"
         else:
             warm_start = "flat"
     if warm_start not in ("prev", "gns", "flat"):
         raise ValueError(f"warm_start must be auto|prev|gns|flat, got {warm_start!r}")
-    compact_after = nr_batched.resolve_compact_after(compact_after, device=dev)
+    compact_after = agree(mesh, nr_batched.resolve_compact_after(compact_after, device=dev), dev)
     if method == "fdpf":
         from gns_torch.eval.fdpf import solve_batched_fdpf
 
         def _warm_solve(cs, ws=None):
             return solve_batched_fdpf(cs, tol=tol, max_iter=fdpf_max_iter,
-                                      chunk_size=chunk_size, warm_start=ws, device=dev)
+                                      chunk_size=chunk_size, warm_start=ws, mesh=mesh,
+                                      device=dev)
     else:
         def _warm_solve(cs, ws=None):
             return nr_batched.solve_batched(cs, tol=tol, max_iter=max_iter, chunk_size=chunk_size,
                                             warm_start=ws, compact_after=compact_after,
-                                            device=dev)
+                                            mesh=mesh, device=dev)
 
     if warm_start == "gns":
         if params is None or cfg is None:
@@ -164,7 +171,7 @@ def solve_ac(
             params, cfg, cases, tol=tol,
             max_iter=fdpf_max_iter if method == "fdpf" else max_iter,
             chunk_size=chunk_size, compact_after=compact_after,
-            fallback_flat=fallback_flat, solver=method,
+            fallback_flat=fallback_flat, solver=method, mesh=mesh,
         )
     else:
         ws = None
@@ -182,7 +189,7 @@ def solve_ac(
 
             bad = np.flatnonzero(~out["converged"])
             flat = nr_batched.solve_batched([cases[i] for i in bad], tol=tol, max_iter=max_iter,
-                                            chunk_size=chunk_size, device=dev)
+                                            chunk_size=chunk_size, mesh=mesh, device=dev)
             splice_fallback(out, bad, flat)
         elif "fallback_grids" not in out:
             out["fallback_grids"] = 0

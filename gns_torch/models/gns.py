@@ -34,6 +34,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gns_torch.models.blocks import LearningBlock
+from gns_torch.ops.collectives import all_reduce_sum, copy_to_tp, reduce_from_tp
 from gns_torch.ops.segment import broadcast_col0_segment_sum, gather, segment_sum
 from gns_torch.physics.common import Graph, build_graph, edge_geometry
 from gns_torch.physics.fused import physics_refresh, q2_geometry
@@ -144,7 +145,10 @@ def _fuse(heads: Dict[str, Dict[str, torch.Tensor]], cfg: GNSConfig):
     where deg is the masked in-degree, an extra node feature. Returns
     "phi_hidden" (layers 1-2) in place of "phi_fused" then.
     """
-    lat, hid = cfg.latent_dim, cfg.hidden_dim
+    lat = cfg.latent_dim
+    # the weights' own hidden width: a tensor-parallel rank holds a slice
+    # of each head's hidden units (parallel/tensor_parallel.py)
+    hid = heads[L_HEADS[0]]["w1"].shape[0]
     base = 4 + lat  # node_base width: v, theta, delta_p, delta_q, m
     fold = cfg.resolved_fold_output and cfg.multiple_phi
     fused = {}
@@ -196,13 +200,14 @@ def _fuse(heads: Dict[str, Dict[str, torch.Tensor]], cfg: GNSConfig):
     return fused
 
 
-def step_params(model: GNS, cfg: GNSConfig) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+def step_params(model: GNS, cfg: GNSConfig, ks=None) -> List[Dict[str, Dict[str, torch.Tensor]]]:
     """Per-step weights as the forward consumes them: fused when
     cfg.fused_heads, cast to cfg.compute_dtype. Depends only on the
-    weights, so a server computes it once (serve.py)."""
+    weights, so a server computes it once (serve.py). ks: the steps to
+    take (default all K; a pipeline stage takes its own run)."""
     cdt = _DTYPES[cfg.compute_dtype]
     steps = []
-    for k in range(cfg.K):
+    for k in (range(cfg.K) if ks is None else ks):
         heads = {name: _block(getattr(model, name)[k]) for name, _, _ in head_dims(cfg)}
         if cfg.fused_heads:
             heads = _fuse(heads, cfg)
@@ -210,9 +215,18 @@ def step_params(model: GNS, cfg: GNSConfig) -> List[Dict[str, Dict[str, torch.Te
     return steps
 
 
-def _mlp(p, x, slope: float, hidden_only: bool = False):
-    h = F.leaky_relu(F.linear(x, p["w1"], p["b1"]), slope)
-    h = F.leaky_relu(F.linear(h, p["w2"], p["b2"]), slope)
+def _mlp(p, x, slope: float, hidden_only: bool = False, tp_group=None):
+    """The LearningBlock MLP on per-head (or fused) weights p. Under a
+    tensor-parallel group, w1 / b1 hold this rank's hidden units and w2 the
+    matching input columns: the input is marked replicated (its gradient
+    all-reduced in the backward) and the second layer's partial product is
+    all-reduced before its bias (parallel/tensor_parallel.py)."""
+    if tp_group is None:
+        h = F.leaky_relu(F.linear(x, p["w1"], p["b1"]), slope)
+        h = F.leaky_relu(F.linear(h, p["w2"], p["b2"]), slope)
+    else:
+        h = F.leaky_relu(F.linear(copy_to_tp(x, tp_group), p["w1"], p["b1"]), slope)
+        h = F.leaky_relu(reduce_from_tp(F.linear(h, p["w2"]), tp_group) + p["b2"], slope)
     return h if hidden_only else F.linear(h, p["w4"], p["b4"])
 
 
@@ -221,20 +235,47 @@ def batch_tensors(batch: GridBatch, device) -> GridBatch:
     return GridBatch(*(torch.as_tensor(a, device=device) for a in batch))
 
 
-def gns_forward(
-    steps,
+def gns_machinery(
     cfg: GNSConfig,
     batch: GridBatch,
     graph: Graph,
     dense: bool = False,
     method: str = "auto",
-) -> GNSOutput:
-    """Run K correction steps on a batch of device tensors.
+    edge_group=None,
+    parity_gather: bool = False,
+    tp_group=None,
+):
+    """Factor the K-step loop into (init_carry, step, finalize, discounts)
+    for one batch, as gns_tpu/models/gns.py gns_machinery does.
 
-    steps: step_params(model, cfg). graph: build_graph of the same batch.
-    dense: the batch is unpadded (GridBatch.is_dense on host data); the
-    masks are then ignored, which is exact since x * 1 == x.
+    `gns_forward` runs them in one loop; the pipeline executor
+    (parallel/pipeline.py) runs contiguous runs of steps in different
+    processes, passing the carry between stages. The carry is (v, theta,
+    m, delta_p, delta_q, total_loss); `step(p, disc, *carry)` advances one
+    correction step with that step's weights p (an entry of step_params)
+    and discount disc (discounts[k], gamma^(K-k)); `finalize(carry)`
+    applies the v >= 0 clamp and computes last_loss (main.py:199-202).
+
+    edge_group: the process group over which the batch's LINES are
+    partitioned (parallel/edge_partition.py), or None. Bus and generator
+    state is replicated over it; each rank holds its own slice of lines
+    and the Graph of that slice (bus ids global). Every edge -> bus
+    aggregation is then a local partial sum followed by an all-reduce over
+    the group (ops/collectives.py all_reduce_sum), at gns_tpu's psum sites.
+    Requires reference_parity=False, as gns_tpu's edge_axis does: quirk Q2
+    reads per-line arrays at bus ids, which a line slice does not hold.
+    parity_gather=True lifts that for parallel/sharding.py's layout (the
+    counterpart of XLA's partitioned gathers): Q2's per-line arrays are
+    all-gathered over the group before they are read (the Graph's
+    src_rows / dst_rows must then index the whole line set).
+
+    tp_group: the tensor-parallel group (parallel/tensor_parallel.py): the
+    step weights hold this rank's hidden units; each MLP's second layer is
+    a partial sum all-reduced over the group (Megatron's "g") and its
+    input is marked replicated (Megatron's "f").
     """
+    if edge_group is not None and cfg.reference_parity and not parity_gather:
+        raise ValueError("edge-partitioned execution requires reference_parity=False")
     if cfg.reference_parity and (
         cfg.qg_gen_only or cfg.dispatch != "lambda" or cfg.slack_anchor
         or cfg.v_anchor or cfg.true_shunts or cfg.admittance_inputs
@@ -244,13 +285,14 @@ def gns_forward(
             "v_anchor / true_shunts / admittance_inputs are paper-mode "
             "options: set reference_parity=False (utils/config.py)"
         )
-    if len(steps) != cfg.K:
-        raise ValueError(f"{len(steps)} step weights for K={cfg.K}")
     cdt = _DTYPES[cfg.compute_dtype]
     slope = cfg.leaky_relu_slope
 
+    def psum(x):
+        return all_reduce_sum(x, edge_group)
+
     def mlp(p, x, keep_dtype=False, hidden_only=False):
-        out = _mlp(p, x.to(cdt), slope, hidden_only)
+        out = _mlp(p, x.to(cdt), slope, hidden_only, tp_group)
         return out if keep_dtype else out.float()
 
     buses, lines, gens = batch.buses, batch.lines, batch.generators
@@ -326,11 +368,11 @@ def gns_forward(
     deg_col = None
     if cfg.resolved_fold_output and cfg.multiple_phi and cfg.fused_heads:
         deg_lm = lm if lm is not None else lines.new_ones(lines.shape[:2])
-        deg_col = segment_sum(deg_lm, graph.dst, method=method)[..., None]
+        deg_col = psum(segment_sum(deg_lm, graph.dst, method=method))[..., None]
 
     # step-invariant edge geometry and quirk-Q2 gathers
     geom = edge_geometry(lines)
-    q2 = q2_geometry(geom, graph, method) if cfg.reference_parity else None
+    q2 = q2_geometry(geom, graph, method, edge_group) if cfg.reference_parity else None
 
     def residual_sums(dp, dq):
         sq = dp * dp + dq * dq
@@ -341,15 +383,14 @@ def gns_forward(
     def single_phi_sum(p, edge_in):
         phi_out = mlp(p, edge_in)
         if cfg.reference_parity:
-            return broadcast_col0_segment_sum(
+            return psum(broadcast_col0_segment_sum(
                 line_masked(phi_out), graph.dst, latent, method=method
-            )
+            ))
         # paper-correct: the scalar message broadcast across latent
-        agg = segment_sum(line_masked(phi_out)[..., 0], graph.dst, method=method)
+        agg = psum(segment_sum(line_masked(phi_out)[..., 0], graph.dst, method=method))
         return agg[..., None].expand(s, n, latent)
 
-    def step(k, v, theta, m, delta_p, delta_q, total_loss):
-        p = steps[k]
+    def step(p, disc, v, theta, m, delta_p, delta_q, total_loss):
         edge_in = torch.cat([gather(m, graph.dst, method=method), line_feats], dim=-1)
         node_base = torch.cat(
             [v[..., None], theta[..., None], delta_p[..., None], delta_q[..., None], m],
@@ -360,11 +401,11 @@ def gns_forward(
                 # aggregate-then-project: aggregate the (E, 3H) hidden
                 # activation; deg_col carries phi's output bias
                 h2 = mlp(p["phi_hidden"], edge_in, keep_dtype=True, hidden_only=True)
-                agg = segment_sum(line_masked(h2), graph.dst, method=method)
+                agg = psum(segment_sum(line_masked(h2), graph.dst, method=method))
                 node_in = torch.cat([node_base, agg, deg_col], dim=-1)
             elif cfg.multiple_phi:
                 phi_out = mlp(p["phi_fused"], edge_in, keep_dtype=True)
-                agg = segment_sum(line_masked(phi_out), graph.dst, method=method)
+                agg = psum(segment_sum(line_masked(phi_out), graph.dst, method=method))
                 node_in = torch.cat([node_base, agg], dim=-1)
             else:
                 node_in = torch.cat([node_base, single_phi_sum(p["phi"], edge_in)], dim=-1)
@@ -374,7 +415,7 @@ def gns_forward(
             if cfg.multiple_phi:
                 def agg_phi(name):
                     phi_out = mlp(p[name], edge_in, keep_dtype=True)
-                    return segment_sum(line_masked(phi_out), graph.dst, method=method)
+                    return psum(segment_sum(line_masked(phi_out), graph.dst, method=method))
 
                 in_v = torch.cat([node_base, agg_phi("phi_v")], dim=-1)
                 in_theta = torch.cat([node_base, agg_phi("phi_theta")], dim=-1)
@@ -397,7 +438,7 @@ def gns_forward(
             bus_mask=bm, line_mask=lm, gen_mask=gm, method=method,
             qg_gen_only=cfg.qg_gen_only, dispatch=cfg.dispatch,
             gen_bus_mask=gen_bus_mask, slack_mask=slack_mask,
-            geom=geom, q2=q2,
+            geom=geom, q2=q2, edge_group=edge_group, parity_gather=parity_gather,
         )
         step_loss = residual_sums(delta_p, delta_q)
         if anchor_mask is not None:
@@ -405,23 +446,61 @@ def gns_forward(
         if v_anchor_mask is not None:
             dv = v - 1.0
             step_loss = step_loss + cfg.v_anchor * (v_anchor_mask * dv * dv).sum(-1) / n_real
-        return v, theta, m, delta_p, delta_q, total_loss + discounts[k] * step_loss
+        return v, theta, m, delta_p, delta_q, total_loss + disc * step_loss
 
-    # cfg.resolved_remat: each step keeps only its inputs for the backward
-    # and recomputes its activations there, as gns_tpu wraps its scan body
-    # in jax.checkpoint (no randomness, so no generator state to keep)
-    remat = cfg.resolved_remat and torch.is_grad_enabled()
-    carry = (v, theta, m, delta_p, delta_q, buses.new_zeros((s,)))
-    for k in range(cfg.K):
+    init = (v, theta, m, delta_p, delta_q, buses.new_zeros((s,)))
+
+    def finalize(carry) -> GNSOutput:
+        v, theta, m, delta_p, delta_q, total_loss = carry
+        last_loss = residual_sums(delta_p, delta_q)
+        v = torch.clamp_min(v, 0.0)  # clamp (main.py:201)
+        return GNSOutput(v, theta, total_loss, last_loss, delta_p, delta_q)
+
+    return init, step, finalize, discounts
+
+
+def run_steps(step, carry, steps, discounts, remat: bool):
+    """Advance `carry` through step(p, disc, *carry) for each (p, disc) of
+    zip(steps, discounts). remat: each step keeps only its inputs for the
+    backward and recomputes its activations there, as gns_tpu wraps its
+    scan body in jax.checkpoint (no randomness, so no generator state to
+    keep)."""
+    for p, disc in zip(steps, discounts):
         if remat:
-            carry = checkpoint(step, k, *carry, use_reentrant=False, preserve_rng_state=False)
+            carry = checkpoint(step, p, disc, *carry, use_reentrant=False,
+                               preserve_rng_state=False)
         else:
-            carry = step(k, *carry)
-    v, theta, m, delta_p, delta_q, total_loss = carry
+            carry = step(p, disc, *carry)
+    return carry
 
-    last_loss = residual_sums(delta_p, delta_q)
-    v = torch.clamp_min(v, 0.0)  # clamp (main.py:201)
-    return GNSOutput(v, theta, total_loss, last_loss, delta_p, delta_q)
+
+def gns_forward(
+    steps,
+    cfg: GNSConfig,
+    batch: GridBatch,
+    graph: Graph,
+    dense: bool = False,
+    method: str = "auto",
+    edge_group=None,
+    parity_gather: bool = False,
+    tp_group=None,
+) -> GNSOutput:
+    """Run K correction steps on a batch of device tensors.
+
+    steps: step_params(model, cfg). graph: build_graph of the same batch.
+    dense: the batch is unpadded (GridBatch.is_dense on host data); the
+    masks are then ignored, which is exact since x * 1 == x.
+    edge_group / parity_gather / tp_group: see gns_machinery (the
+    parallel layer's partitions); None for the single-process forward.
+    """
+    if len(steps) != cfg.K:
+        raise ValueError(f"{len(steps)} step weights for K={cfg.K}")
+    init, step, finalize, discounts = gns_machinery(
+        cfg, batch, graph, dense=dense, method=method, edge_group=edge_group,
+        parity_gather=parity_gather, tp_group=tp_group,
+    )
+    remat = cfg.resolved_remat and torch.is_grad_enabled()
+    return finalize(run_steps(step, init, steps, discounts, remat))
 
 
 def gns_forward_batch(

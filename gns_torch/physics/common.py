@@ -33,17 +33,20 @@ class Graph(NamedTuple):
     dst_rows: SegmentIndex
 
 
-def build_graph(buses, lines, gens, topo=None, device="cpu") -> Graph:
+def build_graph(buses, lines, gens, topo=None, device="cpu", line_rows=None) -> Graph:
     """Index sets of a batch, from host (numpy) arrays buses (S, N, 6),
     lines (S, E, 7) and gens (S, G, 7). topo: the batch's shared
-    GridTopology, or None for per-sample indices (a mixed-size request)."""
+    GridTopology, or None for per-sample indices (a mixed-size request).
+    line_rows: the row count Q2's gathers index (default E); a rank that
+    holds a slice of the lines passes the whole line count."""
     if topo is not None:
         src, dst, gen = topo.src, topo.dst, topo.gen_idx
     else:
         src = np.asarray(lines[..., LINE["f_bus"]]).astype(np.int32) - 1
         dst = np.asarray(lines[..., LINE["t_bus"]]).astype(np.int32) - 1
         gen = np.asarray(gens[..., GEN["bus_i"]]).astype(np.int32) - 1
-    n, e = buses.shape[-2], lines.shape[-2]
+    n = buses.shape[-2]
+    e = lines.shape[-2] if line_rows is None else int(line_rows)
     return Graph(
         src=SegmentIndex(src, n, device),
         dst=SegmentIndex(dst, n, device),

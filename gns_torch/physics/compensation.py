@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from gns_torch.ops.collectives import all_reduce_sum
 from gns_torch.ops.segment import gather, segment_sum
 from gns_torch.physics.common import EdgeGeom, Graph, branch_flows, edge_geometry
 from gns_torch.utils.schema import BUS, GEN
@@ -53,6 +54,7 @@ def global_active_compensation(
     method: str = "auto",
     qg_gen_only: bool = False,
     dispatch: str = "lambda",
+    edge_group=None,
 ):
     """The unfused compensation of gns_tpu/physics/compensation.py on a
     batch: (Pg_new (S, G), qg_new (S, N)) for the iterate (v, theta) (S, N).
@@ -65,7 +67,13 @@ def global_active_compensation(
     (the to-side reactive message uses sin, main.py:70-72); False uses
     textbook branch flows. physics/fused.py computes the same in one pass;
     this form is the oracle it is held against.
+
+    edge_group: the process group the lines are partitioned over (paper
+    mode only, as gns_tpu's edge_axis): the Joule sum and the reactive
+    flow sums are local partials all-reduced over it.
     """
+    if edge_group is not None and reference_parity:
+        raise ValueError("edge-partitioned execution requires reference_parity=False")
     if reference_parity and (qg_gen_only or dispatch != "lambda"):
         raise ValueError(
             "qg_gen_only / dispatch='setpoint_slack' are paper-mode options "
@@ -89,7 +97,7 @@ def global_active_compensation(
         p_joule = (msg * lm).sum(-1)
     else:
         p_f, _, p_t, _ = branch_flows(v, theta, geom, graph, method)
-        p_joule = ((p_f + p_t) * lm).sum(-1)
+        p_joule = all_reduce_sum(((p_f + p_t) * lm).sum(-1), edge_group)
 
     v2 = v * v
     pd = buses[..., BUS["Pd"]]
@@ -124,8 +132,8 @@ def global_active_compensation(
         qg_new = qg_start - aggr_from - aggr_to
     else:
         _, q_f, _, q_t = branch_flows(v, theta, geom, graph, method)
-        q_at_bus = (segment_sum(q_f * lm, graph.src, method=method)
-                    + segment_sum(q_t * lm, graph.dst, method=method))
+        q_at_bus = all_reduce_sum(segment_sum(q_f * lm, graph.src, method=method)
+                                  + segment_sum(q_t * lm, graph.dst, method=method), edge_group)
         qg_new = qg_start + q_at_bus
 
     if qg_gen_only:

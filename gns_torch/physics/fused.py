@@ -14,6 +14,11 @@ Two modes, as in the JAX package:
     explicit Q8 delta_q form whose float noise matches the reference.
   * reference_parity=False uses textbook branch flows, with the paper-mode
     conventions qg_gen_only and dispatch="setpoint_slack".
+
+edge_group (parallel/edge_partition.py): the lines are partitioned over
+this process group, bus and generator state replicated; the Joule sum and
+the paired mismatch sums are local partials all-reduced over it, at
+gns_tpu's psum sites (gns_tpu/physics/fused.py:210, 220-221, 238-239).
 """
 
 from __future__ import annotations
@@ -22,18 +27,23 @@ from typing import Optional, Tuple
 
 import torch
 
+from gns_torch.ops.collectives import all_gather_rows, all_reduce_sum
 from gns_torch.ops.segment import gather, segment_sum
 from gns_torch.physics.common import EdgeGeom, Graph, branch_flows, edge_geometry
 from gns_torch.physics.compensation import _lambda_dispatch
 from gns_torch.utils.schema import BUS, BUS_TYPE_SLACK, GEN
 
 
-def q2_geometry(geom: EdgeGeom, graph: Graph, method: str = "auto"
+def q2_geometry(geom: EdgeGeom, graph: Graph, method: str = "auto", line_group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quirk Q2's step-invariant gathers: (y, tau, shift, b_chg) of line
     src[e] and of line dst[e] (bus ids used as line indices), each
-    (S, E, 4). The model computes them once per forward."""
+    (S, E, 4). The model computes them once per forward. line_group: the
+    group the lines are partitioned over; the per-line array is then
+    all-gathered over it first, since a bus id may name another rank's
+    line (graph.src_rows / dst_rows index the whole line set)."""
     per_line = torch.stack([geom.y, geom.tau, geom.shift, geom.b_chg], dim=-1)
+    per_line = all_gather_rows(per_line, line_group, dim=1)
     return (gather(per_line, graph.src_rows, method=method),
             gather(per_line, graph.dst_rows, method=method))
 
@@ -57,13 +67,21 @@ def physics_refresh(
     slack_mask: Optional[torch.Tensor] = None,
     geom: Optional[EdgeGeom] = None,
     q2: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    edge_group=None,
+    parity_gather: bool = False,
 ):
     """One-pass compensation + imbalance on a batch.
 
     gen_bus_mask / slack_mask (S, N): the step-invariant masks of the
     paper-mode conventions; derived here when None. geom / q2: the
     step-invariant edge geometry and Q2 gathers, computed here when None.
+    edge_group: see the module docstring; it requires
+    reference_parity=False unless parity_gather=True, under which Q2's
+    per-line reads all-gather the per-line arrays over the group
+    (models/gns.py gns_machinery).
     """
+    if edge_group is not None and reference_parity and not parity_gather:
+        raise ValueError("edge-partitioned execution requires reference_parity=False")
     if reference_parity and (qg_gen_only or dispatch != "lambda"):
         raise ValueError(
             "qg_gen_only / dispatch='setpoint_slack' are paper-mode options "
@@ -85,7 +103,7 @@ def physics_refresh(
 
     if reference_parity:
         if q2 is None:
-            q2 = q2_geometry(geom, graph, method)
+            q2 = q2_geometry(geom, graph, method, edge_group)
         y_s, tau_s, sh_s, b_s = q2[0].unbind(-1)
         y_d, tau_d, sh_d, b_d = q2[1].unbind(-1)
         vth = torch.stack([v, theta], dim=-1)
@@ -93,8 +111,9 @@ def physics_refresh(
         at_dst = gather(vth, graph.dst, method=method)
         v_s, v_d = at_src[..., 0], at_dst[..., 0]
         th_sd = at_src[..., 1] - at_dst[..., 1]  # delta (S, E)
-        d_s = gather(th_sd, graph.src_rows, method=method)  # delta[src]
-        dj_d = -gather(th_sd, graph.dst_rows, method=method)  # delta_ji[dst]
+        th_all = all_gather_rows(th_sd, edge_group, dim=1)  # Q2 reads any line
+        d_s = gather(th_all, graph.src_rows, method=method)  # delta[src]
+        dj_d = -gather(th_all, graph.dst_rows, method=method)  # delta_ji[dst]
 
         ang_s = th_sd - d_s - sh_s
         ang_d = -th_sd - dj_d - sh_d
@@ -112,7 +131,7 @@ def physics_refresh(
             + (v_s / tau_s**2) * y_s * sin_ds
             + v_d**2 * y_s * sin_ds
         )
-        p_joule = (msg_joule * lm).sum(-1)
+        p_joule = all_reduce_sum((msg_joule * lm).sum(-1), edge_group)
 
         p_from = vv_s * sin_angs + (v_s / tau_s) ** 2 * y_s * sin_ds
         p_to = vv_d * sin_angd + v_d**2 * y_d * sin_djd
@@ -121,7 +140,7 @@ def physics_refresh(
         from_idx, to_idx = graph.dst, graph.src
     else:
         p_f, q_f, p_t, q_t = branch_flows(v, theta, geom, graph, method)
-        p_joule = ((p_f + p_t) * lm).sum(-1)
+        p_joule = all_reduce_sum(((p_f + p_t) * lm).sum(-1), edge_group)
         p_from, p_to = -p_f, -p_t  # the imbalance subtracts the line draw
         q_from, q_to = -q_f, -q_t
         from_idx, to_idx = graph.src, graph.dst
@@ -129,8 +148,8 @@ def physics_refresh(
     lm_col = line_mask[..., None] if line_mask is not None else 1.0
     from_pair = torch.stack([p_from, q_from], dim=-1) * lm_col
     to_pair = torch.stack([p_to, q_to], dim=-1) * lm_col
-    agg_from = segment_sum(from_pair, from_idx, method=method)
-    agg_to = segment_sum(to_pair, to_idx, method=method)
+    agg_from = all_reduce_sum(segment_sum(from_pair, from_idx, method=method), edge_group)
+    agg_to = all_reduce_sum(segment_sum(to_pair, to_idx, method=method), edge_group)
     p_sum = agg_from[..., 0] + agg_to[..., 0]
     q_sum = agg_from[..., 1] + agg_to[..., 1]
 

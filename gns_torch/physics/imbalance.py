@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from gns_torch.ops.collectives import all_reduce_sum
 from gns_torch.ops.segment import segment_sum
 from gns_torch.physics.common import Graph, branch_flows, edge_geometry
 from gns_torch.physics.compensation import q2_gathers
@@ -37,13 +38,18 @@ def local_power_imbalance(
     gen_mask: Optional[torch.Tensor] = None,
     method: str = "auto",
     zero_slack_dp: bool = False,
+    edge_group=None,
 ):
     """(delta_p (S, N), delta_q (S, N)) for generator outputs pg_k (S, G)
     and per-bus reactive generation qg_k (S, N).
 
     zero_slack_dp: mask delta_p at the slack bus (type 3), NR's convention
     (paper mode; pair with global_active_compensation(dispatch=
-    "setpoint_slack"))."""
+    "setpoint_slack")). edge_group: the process group the lines are
+    partitioned over (paper mode only): the line-flow sums are local
+    partials all-reduced over it."""
+    if edge_group is not None and reference_parity:
+        raise ValueError("edge-partitioned execution requires reference_parity=False")
     geom = edge_geometry(lines)
     lm = line_mask if line_mask is not None else 1.0
 
@@ -83,10 +89,12 @@ def local_power_imbalance(
         delta_q = delta_q_start + q_sum
     else:
         p_f, q_f, p_t, q_t = branch_flows(v, theta, geom, graph, method)
-        delta_p = delta_p_start - (segment_sum(p_f * lm, graph.src, method=method)
-                                   + segment_sum(p_t * lm, graph.dst, method=method))
-        delta_q = delta_q_start - (segment_sum(q_f * lm, graph.src, method=method)
-                                   + segment_sum(q_t * lm, graph.dst, method=method))
+        delta_p = delta_p_start - all_reduce_sum(
+            segment_sum(p_f * lm, graph.src, method=method)
+            + segment_sum(p_t * lm, graph.dst, method=method), edge_group)
+        delta_q = delta_q_start - all_reduce_sum(
+            segment_sum(q_f * lm, graph.src, method=method)
+            + segment_sum(q_t * lm, graph.dst, method=method), edge_group)
 
     if zero_slack_dp:
         if reference_parity:

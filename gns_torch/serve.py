@@ -14,6 +14,12 @@ Usage:
     model, cfg = load_pretrained(300)              # on "cuda"
     out = GNSPredictor(model, cfg).predict(cases)  # list of pypower dicts
     out["v"], out["theta"], out["last_loss"]       # (S, N), (S, N), (S,)
+
+With a DeviceMesh that has a "dp" axis (parallel/solver_dp.py), every rank
+is given the whole request; each batch's rows are split over dp, every
+rank runs the forward (K1 / K2 on its own device) over its block, and v,
+theta and last_loss are all-gathered in row order, so every rank returns
+the whole answer.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 
 from gns_torch.eval.harness import align_slack_angle
 from gns_torch.models.gns import GNS, batch_tensors, gns_forward, step_params
+from gns_torch.ops import collectives
+from gns_torch.parallel.solver_dp import dp_block, dp_group, dp_size
 from gns_torch.physics.common import build_graph
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
@@ -53,9 +61,17 @@ class GNSPredictor:
         batch_size: int = 1024,
         method: str = "auto",
         align_slack: bool = True,
+        mesh=None,
         device="cuda",
     ):
+        """mesh: optional DeviceMesh with a "dp" axis; batch_size must
+        then divide into it. device: this rank's device under a mesh."""
         self.device = resolve_device(device)
+        if mesh is not None and batch_size % dp_size(mesh):
+            raise ValueError(
+                f"batch_size {batch_size} must divide the mesh's dp axis ({dp_size(mesh)})"
+            )
+        self.mesh = mesh
         if cfg.compute_dtype == "float32":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -82,6 +98,15 @@ class GNSPredictor:
             self._compiled[key] = graph
         return graph
 
+    def _gather(self, out):
+        """v, theta and last_loss of every dp rank's rows, in row order:
+        one all-gather of the three packed side by side."""
+        n = out.v.shape[1]
+        packed = torch.cat([out.v, out.theta, out.last_loss[:, None]], dim=1)
+        full = torch.cat(collectives.all_gather_list(packed, dp_group(self.mesh)))
+        return out._replace(v=full[:, :n], theta=full[:, n:2 * n], last_loss=full[:, 2 * n],
+                            total_loss=None, delta_p=None, delta_q=None)
+
     def predict(self, cases: List[Dict]) -> Dict[str, np.ndarray]:
         """Solve a list of pypower-style case dicts.
 
@@ -99,12 +124,18 @@ class GNSPredictor:
             padded = chunk + [chunk[-1]] * (self.batch_size - len(chunk))
             batch = batch_from_cases(padded, paper_shunts=not self.cfg.true_shunts)
             topo = extract_shared_topology(batch)
+            dense = batch.is_dense()
+            if self.mesh is not None:
+                lo, hi = dp_block(self.mesh, self.batch_size)
+                batch = type(batch)(*(a[lo:hi] for a in batch))
             graph = self._graph_for(batch, topo)
             with torch.no_grad():
                 out = gns_forward(
                     self.steps, self.cfg, batch_tensors(batch, self.device), graph,
-                    dense=batch.is_dense(), method=self.method,
+                    dense=dense, method=self.method,
                 )
+            if self.mesh is not None:
+                out = self._gather(out)
             outs.append((out, len(chunk)))
         v = np.concatenate([o.v[:k].cpu().numpy() for o, k in outs])
         theta = np.concatenate([o.theta[:k].cpu().numpy() for o, k in outs])

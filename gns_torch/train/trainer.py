@@ -56,12 +56,18 @@ class GradientTransformation(NamedTuple):
     update: Callable
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                         sq_norm: Optional[Callable] = None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: select(norm < max_norm, g, g / norm *
     max_norm), with no epsilon on the norm (torch's clip_grad_norm_ adds
     1e-6). The select is written as a divisor and a factor that are 1 where
-    the norm is below max_norm, so g / 1 * 1 returns g exactly."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    the norm is below max_norm, so g / 1 * 1 returns g exactly. sq_norm:
+    grads -> the squared global norm, for gradients sharded over processes
+    (parallel/tensor_parallel.py, pipeline.py); None for local ones."""
+    if sq_norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        norm = torch.sqrt(sq_norm(grads))
     below = norm < max_norm
     one = torch.ones_like(norm)
     divisor = torch.where(below, one, norm)
@@ -69,7 +75,7 @@ def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[tor
     return torch._foreach_mul(torch._foreach_div(grads, divisor), factor)
 
 
-def make_optimizer(cfg: GNSConfig) -> GradientTransformation:
+def make_optimizer(cfg: GNSConfig, sq_norm: Optional[Callable] = None) -> GradientTransformation:
     """Adam (lr 1e-3) or Adagrad (lr 1e-2) as gns_tpu builds them with
     optax (reference GNS/main.py:238-243), optionally behind
     clip_by_global_norm(cfg.grad_clip) and with a linear warmup of the step
@@ -85,7 +91,9 @@ def make_optimizer(cfg: GNSConfig) -> GradientTransformation:
       * warmup: optax.linear_schedule(0, lr, warmup_steps) reads the count
         before this update, so the first update's step size is 0 while
         Adam's moments still advance.
-    The step size multiplies the update last, negated.
+    The step size multiplies the update last, negated. sq_norm: the
+    squared global norm of a sharded gradient list, for the clip (see
+    _clip_by_global_norm).
     """
     if cfg.optimizer not in ("adam", "adagrad"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
@@ -105,7 +113,7 @@ def make_optimizer(cfg: GNSConfig) -> GradientTransformation:
     def update(grads, state, params=None):
         g = list(grads)
         if clip > 0:
-            g = _clip_by_global_norm(g, clip)
+            g = _clip_by_global_norm(g, clip, sq_norm)
         count = state["count"]
         count_inc = count + 1
         if adam:

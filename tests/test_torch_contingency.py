@@ -169,9 +169,9 @@ def test_screen_errors(monkeypatch):
     with pytest.raises(ValueError, match="status column"):
         contingency.screen_n1(no_status, device="cpu")
     model, cfg = load_pretrained("14-n1", device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="solver mesh needs a 'dp' axis"):
         contingency.screen_n1(case, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="solver mesh needs a 'dp' axis"):
         contingency.screen_n1_ranked(case, model, cfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="warm"):
         contingency.screen_n1(case, warm="gns", device="cpu")

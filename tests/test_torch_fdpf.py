@@ -91,5 +91,5 @@ def test_fdpf_bad_arguments_raise():
     cases = list(generate_cases(14, 2, seed=0))[1:]
     with pytest.raises(ValueError):
         fdpf.solve_batched_fdpf(cases, alg="ZZ", device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="solver mesh needs a 'dp' axis"):
         fdpf.solve_batched_fdpf(cases, mesh=object(), device="cpu")

@@ -117,5 +117,5 @@ def test_hybrid_argument_errors(sup):
     cases = _feasible(2)
     with pytest.raises(ValueError, match="solver"):
         hybrid.hybrid_solve(model, cfg, cases, solver="qr")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="solver mesh needs a 'dp' axis"):
         hybrid.hybrid_solve(model, cfg, cases, mesh=object())

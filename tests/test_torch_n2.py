@@ -224,9 +224,9 @@ def test_n2_errors(case14, n1_models, monkeypatch):
         n2.n2_islanding_pairs(no_status, n2.n2_pairs(case14))
     with pytest.raises(ValueError, match="status column"):
         n2.screen_n2(no_status, n2.n2_pairs(case14), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="solver mesh needs a 'dp' axis"):
         n2.screen_n2(case14, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="solver mesh needs a 'dp' axis"):
         n2.screen_n2_ranked(case14, model, cfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="method"):
         n2.screen_n2(case14, method="dc", device="cpu")

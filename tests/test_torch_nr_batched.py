@@ -178,8 +178,8 @@ def test_resolve_compact_after_measures_rtt():
 
 def test_warm_start_from_solution_and_mesh(case30, solved):
     """Seeding with the solve's own fixed point converges in at most one
-    iteration to the same solution; the slack keeps its input angle. A
-    mesh is not ported and raises."""
+    iteration to the same solution; the slack keeps its input angle. An
+    object that is not a mesh with a "dp" axis raises the mesh error."""
     flat, _ = solved
     warm = nr.solve_batched(case30, warm_start=(flat["v"], np.deg2rad(flat["theta_deg"])),
                             device="cpu")
@@ -189,5 +189,5 @@ def test_warm_start_from_solution_and_mesh(case30, solved):
     for i, c in enumerate(case30):
         slack = int(np.flatnonzero(np.asarray(c["bus"])[:, 1] == 3)[0])
         assert abs(warm["theta_deg"][i, slack] - c["bus"][slack, 8]) < 1e-6
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="solver mesh needs a 'dp' axis"):
         nr.solve_batched(case30, mesh=object(), device="cpu")

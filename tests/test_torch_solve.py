@@ -102,5 +102,5 @@ def test_validation_errors():
     with pytest.raises(ValueError):
         solve.solve_ac(cases, warm_start="prev", device="cpu",
                        prev=(np.ones((2, 14), np.float32), np.zeros((2, 14), np.float32)))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="solver mesh needs a 'dp' axis"):
         solve.solve_ac(cases, mesh=object(), device="cpu")
