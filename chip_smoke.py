@@ -3030,6 +3030,32 @@ def par_collectives(path: str, out: dict, cfgs: dict, stage: int, screen: dict) 
     return {"all_reduce": 1}
 
 
+def pp_stage_launches(cfg, n_stages: int, stage: int, n_micro: int, train: bool,
+                      remat: bool = True) -> dict:
+    """K1 / K2 launches of one pipeline stage (parallel/pipeline.py), from
+    the single-process per-step counts (forward_launches, train_launches).
+    Each microbatch runs gns_machinery on every stage: its once launches
+    (generator init; Q2 geometry or in-degree) and the stage's K/S steps.
+    Training adds, per microbatch, the steps' recompute under remat and
+    their backward, every step's adjoints but m[dst]'s at stage 0's first
+    step (m starts at 0 there; a later stage's m arrives from the carry,
+    which needs its gradient)."""
+    k, k_stage = cfg.K, cfg.K // n_stages
+    fwd, bwd = train_launches(cfg)
+    fwd_next, bwd_next = train_launches(cfg.replace(K=k + 1))
+    want = {}
+    for x in ("K1", "K2"):
+        step = fwd_next[x] - fwd[x]  # a step's forward launches
+        once = fwd[x] - k * step
+        n = once + k_stage * step
+        if train:
+            back = bwd_next[x] - bwd[x]  # a step's adjoints
+            skipped = k * back - bwd[x]  # m[dst]'s at the first step
+            n += k_stage * step * int(remat) + k_stage * back - (skipped if stage == 0 else 0)
+        want[x] = n_micro * n
+    return want
+
+
 def par_hold_leaves(tag: str, got, want) -> float:
     """Gradients leaf by leaf: each within 5e-5 of its own largest entry
     plus 1e-5 of the largest entry of all leaves (the floor for leaves
@@ -3171,6 +3197,14 @@ def phase_parallel(card) -> dict:
     variants = contingency.n1_variants(case118, gen_outages=True)
     screen = {"base_syncs": single["screen base solve"]["out"]["host_syncs"],
               "groups": len(contingency._by_signature(variants, range(len(variants))))}
+    # the pipeline's expected launches come from the per-step counts,
+    # held here to the single-process 300-deep runs of this phase
+    deep_fwd, deep_bwd = train_launches(cfgs["deep"])
+    for name, want in (("forward deep", deep_fwd),
+                       ("train deep", {x: deep_fwd[x] + deep_bwd[x] for x in ("K1", "K2")})):
+        got = {x: single[name]["launches"][x] for x in ("K1", "K2")}
+        log(f"[parallel] single-process {name}: K1/K2 launches {got}, expected {want}")
+        check(got == want, f"single-process {name}: launches {got} != {want}")
     # every world runs at once, beside this script's single-process runs
     on_card = sum(n for _, n in PAR_WORLDS.values()) + 1
     par_launches = {}
@@ -3187,8 +3221,10 @@ def phase_parallel(card) -> dict:
             ref_key = par_reference(path)
             ref = single[ref_key]
             if "pp2" in path:
-                ok = launches["K1"] > 0 and launches["K2"] > 0
-                want_l = "> 0 each (a stage's own steps)"
+                want_pp = pp_stage_launches(cfgs["deep"], 2, stage, S_TRAIN // PAR_MICRO,
+                                            train=path.startswith("train/"))
+                ok = launches == want_pp
+                want_l = f"{want_pp} (stage {stage}'s steps, pp_stage_launches)"
             else:
                 ok = launches == {k: ref["launches"][k] for k in ("K1", "K2")}
                 want_l = f"{ {k: ref['launches'][k] for k in ('K1', 'K2')} } (the single-process run's)"

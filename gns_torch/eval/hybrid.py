@@ -53,7 +53,9 @@ from gns_torch.eval.nr_batched import (
     unpack_results,
 )
 from gns_torch.models.gns import GNS, gns_forward, step_params
-from gns_torch.parallel.solver_dp import agree, dp_group, gather_rows, shard_chunk
+from gns_torch.parallel.solver_dp import (
+    agree, dp_group, gather_rows, pad_rows, padded_rows, shard_chunk,
+)
 from gns_torch.physics.common import build_graph
 from gns_torch.serve import GNSPredictor
 from gns_torch.utils.config import GNSConfig
@@ -137,15 +139,6 @@ def _fused_fn(steps, cfg: GNSConfig, method: str, graph, topo, slack_idx: int,
     return packed, syncs, v, theta
 
 
-def _pad_rows(arr: np.ndarray, target: int) -> np.ndarray:
-    """Pad the leading axis to `target` rows by repeating the last row (a
-    duplicate grid solves identically; the results are trimmed)."""
-    s = arr.shape[0]
-    if s == target:
-        return arr
-    return np.concatenate([arr, np.repeat(arr[-1:], target - s, axis=0)])
-
-
 def _hybrid_solve_fused(
     model: GNS, cfg: GNSConfig, cases: List[Dict], tol: float, max_iter: int,
     chunk_size: int, method: str = "auto", return_pred: bool = False,
@@ -165,9 +158,10 @@ def _hybrid_solve_fused(
         k = len(chunk)
         bus, branch, gen, base = stack_cases(chunk)
         # the last chunk is padded to chunk_size, as gns_tpu does, so
-        # every chunk has one shape
-        target = chunk_size if (k < chunk_size and s > chunk_size) else k
-        bus, branch, gen, base = (_pad_rows(a, target) for a in (bus, branch, gen, base))
+        # every chunk has one shape; under a mesh, on to a dp multiple
+        rows = chunk_size if (k < chunk_size and s > chunk_size) else k
+        target = padded_rows(rows, mesh)
+        bus, branch, gen, base = (pad_rows(a, target) for a in (bus, branch, gen, base))
         if branch.shape[1] < bus.shape[1]:
             raise ValueError(
                 "fused hybrid requires E >= N (reference-parity gathers, "
@@ -181,8 +175,8 @@ def _hybrid_solve_fused(
         slack_idx = int(np.flatnonzero(bus[0, :, 1].astype(int) == 3)[0])
         topo = _topology(f, t, n, ns.pvpq, ns.pq, device)
         graph = _forward_graph(bus, branch, gen, device)
-        # under a mesh: this rank's rows of the chunk, padded to a dp
-        # multiple, and the whole (padded) chunk's results gathered back
+        # under a mesh: this rank's rows of the chunk, and the chunk's
+        # results gathered back and trimmed of the dp padding
         local = shard_chunk(mesh, (bus, branch, gen, base, ns.p_sched, ns.q_sched, ns.vm0,
                                    ns.va0), target)
         with torch.no_grad():
@@ -190,7 +184,7 @@ def _hybrid_solve_fused(
                 steps, cfg, method, graph, topo, slack_idx, *_on(device, *local),
                 has_status=has_status, tol=tol, max_iter=k1, solver=solver, group=group,
             )
-        packed = gather_rows(mesh, packed, target).cpu().numpy()
+        packed = gather_rows(mesh, packed, rows).cpu().numpy()
         syncs += chunk_syncs + 1
         it_chunk = int(packed[0, 2 * n + 1])
         # stragglers continue in a compact power-of-2 sub-batch (no

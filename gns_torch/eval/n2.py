@@ -40,7 +40,7 @@ import torch
 
 from gns_torch.eval.contingency import find_bridges
 from gns_torch.eval.fdpf import _fdpf_core
-from gns_torch.eval.hybrid import _forward_graph, _pad_rows
+from gns_torch.eval.hybrid import _forward_graph
 from gns_torch.eval.nr_batched import (
     _nr_core,
     _on,
@@ -50,7 +50,9 @@ from gns_torch.eval.nr_batched import (
     stack_cases,
 )
 from gns_torch.models.gns import GNS, gns_forward, step_params
-from gns_torch.parallel.solver_dp import dp_group, dp_size, gather_rows, shard_chunk
+from gns_torch.parallel.solver_dp import (
+    dp_group, dp_size, gather_rows, pad_rows, padded_rows, shard_chunk,
+)
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 from gns_torch.utils.prepare import GridBatch, prepare_case
@@ -250,13 +252,14 @@ def screen_n2(
     for lo in range(0, pairs.shape[0], chunk_size):
         chunk = pairs[lo:lo + chunk_size]
         k = chunk.shape[0]
-        target = chunk_size if pairs.shape[0] > chunk_size else k
-        chunk = _pad_rows(chunk, target)
+        # one shape for every chunk, and a dp multiple under a mesh
+        target = padded_rows(chunk_size if pairs.shape[0] > chunk_size else k, mesh)
+        chunk = pad_rows(chunk, target)
         if warm_start is not None:
             # per-pair warm iterates: seed the free unknowns on the host
             # and send the (S, N) arrays
-            wv = _pad_rows(np.asarray(warm_start[0][lo:lo + k], np.float32), target)
-            wth = _pad_rows(np.asarray(warm_start[1][lo:lo + k], np.float32), target)
+            wv = pad_rows(np.asarray(warm_start[0][lo:lo + k], np.float32), target)
+            wth = pad_rows(np.asarray(warm_start[1][lo:lo + k], np.float32), target)
             vm0 = np.broadcast_to(ns.vm0[0], (target, n)).copy()
             va0 = np.broadcast_to(ns.va0[0], (target, n)).copy()
             vm0[:, ns.pq] = wv[:, ns.pq]
@@ -435,7 +438,7 @@ def screen_n2_ranked(
             chunk = pairs[lo:lo + chunk_size]
             k = chunk.shape[0]
             target = chunk_size if p > chunk_size else k
-            chunk = _pad_rows(chunk, target)
+            chunk = pad_rows(chunk, target)
             out = _n2_rank_core(steps, cfg, graph, slack_idx, buses_d, lines_d, gens_d,
                                 torch.as_tensor(chunk.astype(np.int64), device=dev), va_slack_d)
             pend.append((out, lo, k))

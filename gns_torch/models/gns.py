@@ -242,7 +242,6 @@ def gns_machinery(
     dense: bool = False,
     method: str = "auto",
     edge_group=None,
-    parity_gather: bool = False,
     tp_group=None,
 ):
     """Factor the K-step loop into (init_carry, step, finalize, discounts)
@@ -262,20 +261,18 @@ def gns_machinery(
     and the Graph of that slice (bus ids global). Every edge -> bus
     aggregation is then a local partial sum followed by an all-reduce over
     the group (ops/collectives.py all_reduce_sum), at gns_tpu's psum sites.
-    Requires reference_parity=False, as gns_tpu's edge_axis does: quirk Q2
-    reads per-line arrays at bus ids, which a line slice does not hold.
-    parity_gather=True lifts that for parallel/sharding.py's layout (the
-    counterpart of XLA's partitioned gathers): Q2's per-line arrays are
-    all-gathered over the group before they are read (the Graph's
-    src_rows / dst_rows must then index the whole line set).
+    In reference-parity mode quirk Q2 reads per-line arrays at bus ids,
+    which a line slice does not hold, so those arrays are all-gathered
+    over the group before they are read (the counterpart of XLA's
+    partitioned gathers; the Graph's src_rows / dst_rows must then index
+    the whole line set). parallel/edge_partition.py rejects parity mode,
+    as gns_tpu's does; parallel/sharding.py runs it.
 
     tp_group: the tensor-parallel group (parallel/tensor_parallel.py): the
     step weights hold this rank's hidden units; each MLP's second layer is
     a partial sum all-reduced over the group (Megatron's "g") and its
     input is marked replicated (Megatron's "f").
     """
-    if edge_group is not None and cfg.reference_parity and not parity_gather:
-        raise ValueError("edge-partitioned execution requires reference_parity=False")
     if cfg.reference_parity and (
         cfg.qg_gen_only or cfg.dispatch != "lambda" or cfg.slack_anchor
         or cfg.v_anchor or cfg.true_shunts or cfg.admittance_inputs
@@ -438,7 +435,7 @@ def gns_machinery(
             bus_mask=bm, line_mask=lm, gen_mask=gm, method=method,
             qg_gen_only=cfg.qg_gen_only, dispatch=cfg.dispatch,
             gen_bus_mask=gen_bus_mask, slack_mask=slack_mask,
-            geom=geom, q2=q2, edge_group=edge_group, parity_gather=parity_gather,
+            geom=geom, q2=q2, edge_group=edge_group,
         )
         step_loss = residual_sums(delta_p, delta_q)
         if anchor_mask is not None:
@@ -482,7 +479,6 @@ def gns_forward(
     dense: bool = False,
     method: str = "auto",
     edge_group=None,
-    parity_gather: bool = False,
     tp_group=None,
 ) -> GNSOutput:
     """Run K correction steps on a batch of device tensors.
@@ -490,14 +486,14 @@ def gns_forward(
     steps: step_params(model, cfg). graph: build_graph of the same batch.
     dense: the batch is unpadded (GridBatch.is_dense on host data); the
     masks are then ignored, which is exact since x * 1 == x.
-    edge_group / parity_gather / tp_group: see gns_machinery (the
+    edge_group / tp_group: see gns_machinery (the
     parallel layer's partitions); None for the single-process forward.
     """
     if len(steps) != cfg.K:
         raise ValueError(f"{len(steps)} step weights for K={cfg.K}")
     init, step, finalize, discounts = gns_machinery(
         cfg, batch, graph, dense=dense, method=method, edge_group=edge_group,
-        parity_gather=parity_gather, tp_group=tp_group,
+        tp_group=tp_group,
     )
     remat = cfg.resolved_remat and torch.is_grad_enabled()
     return finalize(run_steps(step, init, steps, discounts, remat))

@@ -41,7 +41,8 @@ from torch.utils.checkpoint import checkpoint
 
 from gns_torch.models.gns import GNSOutput, batch_tensors, gns_machinery, run_steps, step_params
 from gns_torch.ops import collectives
-from gns_torch.parallel.sharding import axis_coord, axis_group, host_batch, mesh_device
+from gns_torch.parallel.sharding import axis_coord, axis_group, host_batch
+from gns_torch.parallel.solver_dp import mesh_device
 from gns_torch.physics.common import build_graph
 from gns_torch.train.trainer import TrainState, make_optimizer
 from gns_torch.utils.config import GNSConfig

@@ -17,7 +17,7 @@ block (`shard_batch`) and the collectives are written out:
     docstring states the gradient rule used here too). Reference-parity
     mode also runs here, as it does under XLA's partitioned gathers: quirk
     Q2 reads per-line arrays at bus ids, so those arrays are all-gathered
-    over gp before they are read (parity_gather).
+    over gp before they are read (models/gns.py gns_machinery).
   * the loss is the mean over the global batch: each rank's objective is
     its rows' total_loss sum over (global rows * gp size), and the
     gradients (with the two metrics riding along) are summed by ONE
@@ -45,6 +45,7 @@ import torch.distributed as dist
 
 from gns_torch.models.gns import GNSOutput, batch_tensors, gns_forward, step_params
 from gns_torch.ops import collectives
+from gns_torch.parallel.solver_dp import mesh_device
 from gns_torch.physics.common import build_graph
 from gns_torch.train.trainer import TrainState, _state_tensors, _update_core, make_optimizer
 from gns_torch.utils.config import GNSConfig
@@ -102,13 +103,6 @@ def axis_group(mesh, spec):
                 mine = group
         _GROUPS[key] = (mesh, mine)  # the mesh is kept so its id is not reused
     return _GROUPS[key][1]
-
-
-def mesh_device(mesh) -> torch.device:
-    """This rank's device: its current CUDA device on a "cuda" mesh."""
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
 
 
 def batch_sharding(mesh, dp="dp", gp: Optional[str] = "gp") -> GridBatch:
@@ -208,7 +202,7 @@ class _Local:
 
     def forward(self, steps, tensors, graph, dense):
         return gns_forward(steps, self.cfg, tensors, graph, dense=dense, method=self.method,
-                           edge_group=self.gp_group, parity_gather=self.cfg.reference_parity)
+                           edge_group=self.gp_group)
 
 
 def make_sharded_train_step(

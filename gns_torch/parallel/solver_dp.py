@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from gns_torch.ops import collectives
+from gns_torch.utils.device import resolve_device
 
 
 def solver_mesh(n_devices: Optional[int] = None, device_type: str = "cuda"):
@@ -108,21 +109,43 @@ def dp_block(mesh, s: int):
     return r * (s // m), (r + 1) * (s // m)
 
 
-def put_dp(mesh, arr, device="cpu") -> torch.Tensor:
+def mesh_device(mesh) -> torch.device:
+    """This rank's device: its current CUDA device on a "cuda" mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _device(mesh, device):
+    """`device` if given, else the mesh's device on this rank (the card
+    without a mesh, as every entry point of the port)."""
+    if device is not None:
+        return resolve_device(device)
+    return resolve_device() if mesh is None else mesh_device(mesh)
+
+
+def put_dp(mesh, arr, device=None) -> torch.Tensor:
     """This rank's block of rows of a batch-leading array, as a tensor on
-    `device` (the whole array without a mesh)."""
+    `device` (default: the mesh's device; the whole array without a
+    mesh)."""
     lo, hi = dp_block(mesh, np.shape(arr)[0])
-    return torch.as_tensor(np.asarray(arr)[lo:hi], device=device)
+    return torch.as_tensor(np.asarray(arr)[lo:hi], device=_device(mesh, device))
 
 
-def put_repl(mesh, tree, device="cpu"):
+def put_repl(mesh, tree, device=None):
     """Replicated inputs (index arrays, weights): every rank already holds
-    the whole value, so this only moves array leaves onto `device`."""
-    if isinstance(tree, dict):
-        return {k: put_repl(mesh, v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(put_repl(mesh, v, device) for v in tree)
-    return torch.as_tensor(tree, device=device)
+    the whole value, so this only moves array leaves onto `device`
+    (default: the mesh's device)."""
+    device = _device(mesh, device)
+
+    def put(t):
+        if isinstance(t, dict):
+            return {k: put(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(put(v) for v in t)
+        return torch.as_tensor(t, device=device)
+
+    return put(tree)
 
 
 def shard_chunk(mesh, arrays, k: int):

@@ -40,7 +40,8 @@ from torch import nn
 
 from gns_torch.models.gns import GNS, gns_forward, step_params
 from gns_torch.ops import collectives
-from gns_torch.parallel.sharding import _Local, axis_coord, axis_group, mesh_device
+from gns_torch.parallel.sharding import _Local, axis_coord, axis_group
+from gns_torch.parallel.solver_dp import mesh_device
 from gns_torch.train.trainer import TrainState, _update_core, make_optimizer
 from gns_torch.utils.config import GNSConfig
 

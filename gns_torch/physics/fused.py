@@ -68,20 +68,16 @@ def physics_refresh(
     geom: Optional[EdgeGeom] = None,
     q2: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     edge_group=None,
-    parity_gather: bool = False,
 ):
     """One-pass compensation + imbalance on a batch.
 
     gen_bus_mask / slack_mask (S, N): the step-invariant masks of the
     paper-mode conventions; derived here when None. geom / q2: the
     step-invariant edge geometry and Q2 gathers, computed here when None.
-    edge_group: see the module docstring; it requires
-    reference_parity=False unless parity_gather=True, under which Q2's
+    edge_group: see the module docstring; in reference-parity mode Q2's
     per-line reads all-gather the per-line arrays over the group
     (models/gns.py gns_machinery).
     """
-    if edge_group is not None and reference_parity and not parity_gather:
-        raise ValueError("edge-partitioned execution requires reference_parity=False")
     if reference_parity and (qg_gen_only or dispatch != "lambda"):
         raise ValueError(
             "qg_gen_only / dispatch='setpoint_slack' are paper-mode options "

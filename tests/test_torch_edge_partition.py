@@ -12,7 +12,12 @@ step's loss rtol 2e-5 and post-Adam parameters rtol 5e-2 / atol 2e-4
 (:103-114); gradients leaf by leaf against single-process autograd at
 atol 5e-5 of each leaf's largest entry (:147), with
 tests/test_torch_parallel.py's floor for the exactly-zero leaves. Against
-gns_tpu: the cross-package rtol / atol 2e-4 (tests/test_torch_model.py).
+gns_tpu: the cross-package rtol / atol 2e-4 (tests/test_torch_model.py)
+on the forward and the step's loss; gns_tpu's
+make_edge_partitioned_train_step on the same dp x gp = 2 x 2 mesh, one
+step of optax.sgd(1.0) (minus the gradient), against the port's recorded
+gradients at tests/test_torch_train.py's cross-package gradient bound
+with the same floor.
 """
 
 import numpy as np
@@ -20,9 +25,11 @@ import pytest
 import torch
 
 import jax
+import optax
 
 from gns_tpu.models.gns import init_gns_params
 from gns_tpu.parallel.edge_partition import make_edge_partitioned_forward as j_ep_forward
+from gns_tpu.parallel.edge_partition import make_edge_partitioned_train_step as j_ep_train_step
 from gns_tpu.parallel.mesh import make_mesh as j_make_mesh
 from gns_tpu.utils.prepare import GridBatch as JGridBatch
 from gns_torch.models.convert import module_from_jax_params
@@ -32,7 +39,7 @@ from gns_torch.train.trainer import TrainState, loss_and_grads, make_optimizer, 
 from gns_torch.utils.augment import generate_cases
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
-from torch_parallel_ranks import hold_leaves, run_world
+from torch_parallel_ranks import gns_tpu_step, hold_gns_tpu, hold_leaves, run_world
 
 torch.set_num_threads(2)
 
@@ -135,6 +142,22 @@ def test_edge_partitioned_gradients_match(ranks, single_step):
                                rtol=2e-5)
     # forward 4 per K step, the backward's sums of each, the gradients' one
     assert ranks[0]["step_coll"] == {"all_reduce": 8 * CFG.K + 1}
+
+
+def test_edge_partitioned_gradients_match_gns_tpu(ranks, inputs):
+    """The port's edge-partitioned step and gns_tpu's on the same mesh
+    shape, weights and batch: gradients leaf by leaf, and the losses."""
+    mesh = j_make_mesh(dp=2, gp=2, devices=jax.devices()[:4])
+    params = inputs["params"]["paper"]
+    step = j_ep_train_step(CFG, mesh, optimizer=optax.sgd(1.0), method="onehot")
+    delta, metrics = gns_tpu_step(step, params, JGridBatch(*inputs["batch"][:4]),
+                                  optax.sgd(1.0))
+    names = [n for n, _ in module_from_jax_params(params, CFG, device="cpu").named_parameters()]
+    for r in ranks:
+        hold_gns_tpu(dict(zip(names, r["grads"])), jax.tree.map(np.negative, delta), CFG)
+    np.testing.assert_allclose(float(ranks[0]["metrics"]["loss"]), metrics["loss"], rtol=2e-4)
+    np.testing.assert_allclose(float(ranks[0]["metrics"]["last_loss"]), metrics["last_loss"],
+                               rtol=2e-4)
 
 
 def test_edge_partitioned_train_step_matches(ranks, single_step):

@@ -16,8 +16,13 @@ step's L_theta output bias has a gradient of float noise, 1e-8 to 1e-6
 against entries up to 0.6). A gradient off by a factor gp on any leaf
 above 2e-5 of the largest fails. Against gns_tpu's sharded
 run on 4 of the simulated devices: tests/test_torch_model.py's
-cross-package bound, rtol / atol 2e-4. Each path's collectives are held
-to the count its code gives.
+cross-package bound, rtol / atol 2e-4, on the forward and the step's
+loss; gns_tpu's make_sharded_train_step on the same three meshes, one
+step of optax.sgd(1.0) from the same weights, whose change to each leaf
+is minus its gradient, against the port's recorded gradients at
+tests/test_torch_train.py's cross-package gradient bound (2e-4 of each
+leaf's largest entry) with the floor above. Each path's collectives are
+held to the count its code gives.
 """
 
 import numpy as np
@@ -25,12 +30,16 @@ import pytest
 import torch
 
 import jax
+import optax
 
 from gns_tpu.models.gns import gns_forward_batch as j_forward_batch
 from gns_tpu.models.gns import init_gns_params
+from gns_tpu.parallel.mesh import make_hybrid_mesh as j_make_hybrid_mesh
 from gns_tpu.parallel.mesh import make_mesh as j_make_mesh
+from gns_tpu.parallel.sharding import make_sharded_train_step as j_sharded_train_step
 from gns_tpu.parallel.sharding import replicate as j_replicate
 from gns_tpu.parallel.sharding import shard_batch as j_shard_batch
+from gns_tpu.utils.prepare import GridBatch as JGridBatch
 from gns_torch.models.convert import module_from_jax_params
 from gns_torch.models.gns import batch_tensors, gns_forward_batch
 from gns_torch.parallel import mesh as mesh_mod
@@ -41,7 +50,7 @@ from gns_torch.train.trainer import (TrainState, loss_and_grads, make_optimizer,
 from gns_torch.utils.augment import generate_cases
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
-from torch_parallel_ranks import TRAIN_MESHES, hold_leaves, run_world
+from torch_parallel_ranks import TRAIN_MESHES, gns_tpu_step, hold_gns_tpu, hold_leaves, run_world
 
 torch.set_num_threads(2)
 
@@ -99,6 +108,33 @@ def jax_sharded(inputs):
         params = j_replicate(inputs["params"][mode], mesh)
         out[mode] = jax.jit(lambda p, b, cfg=cfg: j_forward_batch(p, cfg, b, method="onehot"))(
             params, j_shard_batch(inputs["batch"], mesh))
+    return out
+
+
+def _j_mesh(name):
+    """gns_tpu's counterpart of torch_parallel_ranks._train_mesh on 4 of
+    the simulated devices, with its batch axes."""
+    devices = jax.devices()[:4]
+    if name == "dcn2_dp1_gp2":
+        return j_make_hybrid_mesh(dcn=2, dp=1, gp=2, devices=devices), ("dcn", "dp")
+    dp, gp = TRAIN_MESHES[name]
+    return j_make_mesh(dp=dp, gp=gp, devices=devices), "dp"
+
+
+@pytest.fixture(scope="module")
+def jax_steps(inputs):
+    """gns_tpu's sharded train step on each mesh: one optax.sgd(1.0) step,
+    so the change to each leaf is minus its gradient."""
+    out = {}
+    batch = JGridBatch(*inputs["batch"])
+    for name in TRAIN_MESHES:
+        mesh, dp = _j_mesh(name)
+        for mode, cfg in CFGS.items():
+            step = j_sharded_train_step(cfg, mesh, optimizer=optax.sgd(1.0), method="onehot",
+                                        dp=dp)
+            out[(name, mode)] = gns_tpu_step(
+                lambda st, b: step(st, j_shard_batch(b, mesh, dp=dp)), inputs["params"][mode],
+                batch, optax.sgd(1.0), place=lambda st: j_replicate(st, mesh))
     return out
 
 
@@ -168,6 +204,21 @@ def test_sharded_step_gradients_leaf_by_leaf(ranks, single, mesh, mode):
     np.testing.assert_allclose(float(metrics["loss"]), loss, rtol=2e-5)
     np.testing.assert_allclose(float(metrics["last_loss"]), last, rtol=2e-5)
     assert ranks[0][f"step_coll/{mesh}/{mode}"] == _collectives(CFGS[mode], GP[mesh], True)
+
+
+@pytest.mark.parametrize("mesh,mode", CASES)
+def test_sharded_step_matches_gns_tpu(ranks, inputs, jax_steps, mesh, mode):
+    """The port's sharded step and gns_tpu's on the same mesh shape, the
+    same weights and batch: gradients leaf by leaf, and the losses."""
+    delta, metrics = jax_steps[(mesh, mode)]
+    minus_grad = jax.tree.map(np.negative, delta)
+    names = [n for n, _ in module_from_jax_params(inputs["params"][mode], CFGS[mode],
+                                                  device="cpu").named_parameters()]
+    for r in ranks:
+        hold_gns_tpu(dict(zip(names, r[f"grads/{mesh}/{mode}"])), minus_grad, CFGS[mode])
+    got = ranks[0][f"metrics/{mesh}/{mode}"]
+    np.testing.assert_allclose(float(got["loss"]), metrics["loss"], rtol=2e-4)
+    np.testing.assert_allclose(float(got["last_loss"]), metrics["last_loss"], rtol=2e-4)
 
 
 @pytest.mark.parametrize("mesh,mode", CASES)

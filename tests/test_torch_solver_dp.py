@@ -160,9 +160,44 @@ def test_padded_rows(ranks):
         solver_dp.dp_size(object())
     # without a mesh: the whole array, on the device asked for
     arr = np.arange(6.0).reshape(3, 2)
-    np.testing.assert_array_equal(solver_dp.put_dp(None, arr).numpy(), arr)
-    tree = solver_dp.put_repl(None, {"a": arr, "b": [arr[0]]})
+    np.testing.assert_array_equal(solver_dp.put_dp(None, arr, device="cpu").numpy(), arr)
+    tree = solver_dp.put_repl(None, {"a": arr, "b": [arr[0]]}, device="cpu")
     assert torch.is_tensor(tree["a"]) and torch.is_tensor(tree["b"][0])
+
+
+class _Mesh:
+    """The part of a DeviceMesh that put_dp / put_repl read: a 2-rank "dp"
+    axis of `device_type`, seen from dp rank 1."""
+
+    mesh_dim_names = ("dp",)
+
+    def __init__(self, device_type):
+        self.device_type = device_type
+
+    def size(self, dim=None):
+        return 2
+
+    def get_local_rank(self, name):
+        return 1
+
+
+def test_put_dp_places_on_the_mesh_device(monkeypatch):
+    """Without a device argument the rows go to the mesh's device: the
+    current card on a "cuda" mesh (never the CPU), the card without a
+    mesh."""
+    arr = np.arange(8.0).reshape(4, 2)
+    got = solver_dp.put_dp(_Mesh("meta"), arr)
+    assert got.device.type == "meta" and got.shape == (2, 2)
+    assert solver_dp.put_repl(_Mesh("meta"), {"a": arr})["a"].device.type == "meta"
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert solver_dp.mesh_device(_Mesh("cuda")) == torch.device("cuda", 0)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            solver_dp.put_dp(_Mesh("cuda"), arr)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            solver_dp.put_dp(None, arr)
+    np.testing.assert_array_equal(solver_dp.put_dp(_Mesh("cuda"), arr, device="cpu").numpy(),
+                                  arr[2:])
 
 
 def test_exit_test_is_one_all_reduce_per_iteration(ranks):

@@ -14,7 +14,14 @@ atol 2e-5 (:62-73, :127-143); the bf16 + fold lowering rtol 1e-4 / atol
 1e-5 (:163-166). A clipped step (grad_clip=1.0, Adagrad, whose first
 update depends on the gradient's size, unlike Adam's) is held at the
 gradients' bound on the updated parameters. Against gns_tpu: the
-cross-package rtol / atol 2e-4 (tests/test_torch_model.py).
+cross-package rtol / atol 2e-4 (tests/test_torch_model.py) on forwards
+and losses; gns_tpu's make_tp_train_step and make_pipelined_train_step
+on the same meshes, weights and batch, one step of optax.sgd(1.0) (minus
+the gradient) against the port's recorded gradients, and one clipped
+Adagrad step (gns_tpu's make_optimizer) against the port's change to each
+leaf, both at tests/test_torch_train.py's cross-package gradient bound
+(2e-4 of each leaf's largest entry) with tests/test_torch_parallel.py's
+floor for the exactly-zero leaves.
 """
 
 import numpy as np
@@ -22,15 +29,19 @@ import pytest
 import torch
 
 import jax
+import optax
 
 from gns_tpu.models.gns import gns_forward_batch as j_forward_batch
 from gns_tpu.models.gns import init_gns_params
 from gns_tpu.parallel.mesh import make_mesh as j_make_mesh
 from gns_tpu.parallel.pipeline import make_pipelined_forward as j_pp_forward
+from gns_tpu.parallel.pipeline import make_pipelined_train_step as j_pp_train_step
 from gns_tpu.parallel.sharding import shard_batch as j_shard_batch
+from gns_tpu.parallel.tensor_parallel import make_tp_train_step as j_tp_train_step
 from gns_tpu.parallel.tensor_parallel import shard_params_tp as j_shard_params_tp
+from gns_tpu.train.trainer import make_optimizer as j_make_optimizer
 from gns_tpu.utils.prepare import GridBatch as JGridBatch
-from gns_torch.models.convert import module_from_jax_params
+from gns_torch.models.convert import module_from_jax_params, state_dict_from_params
 from gns_torch.models.gns import batch_tensors, gns_forward_batch
 from gns_torch.parallel.tensor_parallel import tp_param_shardings
 from gns_torch.physics.common import build_graph
@@ -38,7 +49,7 @@ from gns_torch.train.trainer import TrainState, loss_and_grads, make_optimizer, 
 from gns_torch.utils.augment import generate_cases
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
-from torch_parallel_ranks import run_world
+from torch_parallel_ranks import gns_tpu_step, hold_gns_tpu, run_world
 
 torch.set_num_threads(2)
 
@@ -90,6 +101,46 @@ def single(inputs):
         prod_fwd = gns_forward_batch(prod, PROD, batch, topo=topo, dense=batch.is_dense())
     return dict(fwd=fwd, prod=prod_fwd, step=_step(CFG, inputs["params"], batch),
                 clip=_step(CLIP, inputs["params"], batch), tp_dims=tp_param_shardings(model))
+
+
+def _j_tp_mesh():
+    return j_make_mesh(dp=2, gp=2, devices=jax.devices()[:4], axis_names=("dp", "tp"))
+
+
+def _j_pp_mesh(stages):
+    return j_make_mesh(dp=stages, gp=1, devices=jax.devices()[:stages],
+                       axis_names=("pp", "unused"))
+
+
+# the pipelined cases held against gns_tpu's step: both remat settings,
+# 2 and 4 stages (each costs gns_tpu a compile of some 10-15 s here)
+PP_VS_JAX = [(2, 2, True), (2, 4, False), (4, 2, True)]
+
+
+@pytest.fixture(scope="module")
+def jax_steps(inputs):
+    """gns_tpu's TP and pipelined train steps from the same weights, one
+    optax.sgd(1.0) step each: (minus the change to each leaf, i.e. the
+    step's gradient, metrics). "tp_clip" / "pp_clip": the change gns_tpu's
+    clipped Adagrad (make_optimizer(CLIP)) makes from the TP and the
+    2-stage pipelined gradients."""
+    params, batch = inputs["params"], JGridBatch(*inputs["batch"])
+    mesh = _j_tp_mesh()
+    step = j_tp_train_step(CFG, mesh, optimizer=optax.sgd(1.0), method="onehot")
+    out = {"tp": gns_tpu_step(
+        lambda st, b: step(st, j_shard_batch(b, mesh, gp=None)), params, batch, optax.sgd(1.0),
+        place=lambda st: st._replace(params=j_shard_params_tp(st.params, mesh)))}
+    for stages, micro, remat in PP_VS_JAX:
+        step = j_pp_train_step(CFG, _j_pp_mesh(stages), optimizer=optax.sgd(1.0),
+                               microbatch=micro, remat=remat)
+        out[_key((stages, micro, remat))] = gns_tpu_step(step, params, batch, optax.sgd(1.0))
+    out = {k: (jax.tree.map(np.negative, delta), m) for k, (delta, m) in out.items()}
+    opt = j_make_optimizer(CLIP)
+    for key, src in (("tp_clip", "tp"), ("pp_clip", "2/2/True")):
+        grads = out[src][0]
+        updates, _ = opt.update(grads, opt.init(params), params)
+        out[key] = (jax.tree.map(np.asarray, updates), out[src][1])
+    return out
 
 
 def _tp_slice(dim, value, tp_index):
@@ -145,6 +196,26 @@ def test_tp_train_step_gradients(ranks, single):
     assert ranks[0]["tp_init_step"] == 0
 
 
+def test_tp_train_step_matches_gns_tpu(ranks, inputs, single, jax_steps):
+    """The port's TP step and gns_tpu's on a (dp, tp) = (2, 2) mesh from the
+    same weights: each rank's gradient slices, then each rank's change to
+    its slices under the clipped Adagrad step, and the losses."""
+    params = inputs["params"]
+    tp_names = ranks[0]["tp_names"]
+    grads = jax_steps["tp"][0]
+    for rank, r in enumerate(ranks):
+        def cut(name, value, rank=rank):
+            return _tp_slice(single["tp_dims"][name], value, rank % 2)
+
+        hold_gns_tpu(dict(zip(tp_names, r["tp_grads"])), grads, CFG, cut)
+        start = state_dict_from_params(params, CLIP)
+        moved = {n: p - cut(n, start[n]) for n, p in r["tp_clip_params"].items()}
+        hold_gns_tpu(moved, jax_steps["tp_clip"][0], CLIP, cut)
+    for key in ("tp_metrics", "tp_clip_metrics"):
+        np.testing.assert_allclose(float(ranks[0][key]["loss"]), jax_steps["tp"][1]["loss"],
+                                   rtol=2e-4)
+
+
 def test_tp_clipped_step(ranks, single):
     """grad_clip=1.0 by the true global norm: the sharded leaves' squares
     all-reduced over tp, each replicated leaf counted once."""
@@ -195,6 +266,34 @@ def test_pipeline_train_step_matches(ranks, single, case):
     # stage 0: a carry out and its gradient back per microbatch, the metrics
     assert ranks[0][f"pp_step_coll/{_key(case)}"] == {"send": n_micro, "recv": n_micro,
                                                       "broadcast": 1}
+
+
+@pytest.mark.parametrize("case", PP_VS_JAX, ids=_key)
+def test_pipeline_train_step_matches_gns_tpu(ranks, single, jax_steps, case):
+    """The port's pipelined step and gns_tpu's on the same stage count,
+    microbatch and remat from the same weights: every stage's gradients,
+    and the losses."""
+    grads, metrics = jax_steps[_key(case)]
+    names = single["step"]["names"]
+    for r in ranks:
+        got = {names[i]: g for i, g in r[f"pp_grads/{_key(case)}"].items()}
+        hold_gns_tpu(got, grads, CFG)
+        got = r[f"pp_metrics/{_key(case)}"]
+        np.testing.assert_allclose(float(got["loss"]), metrics["loss"], rtol=2e-4)
+        np.testing.assert_allclose(float(got["last_loss"]), metrics["last_loss"], rtol=2e-4)
+
+
+def test_pipeline_clipped_step_matches_gns_tpu(ranks, inputs, jax_steps):
+    """A clipped Adagrad step over 2 stages, gathered: the change to each
+    leaf against the one gns_tpu's optimizer makes from its pipelined
+    gradients."""
+    start = state_dict_from_params(inputs["params"], CLIP)
+    delta, metrics = jax_steps["pp_clip"]
+    for r in ranks:
+        moved = {n: p - start[n] for n, p in r["pp_clip_params"].items()}
+        hold_gns_tpu(moved, delta, CLIP)
+        np.testing.assert_allclose(float(r["pp_clip_metrics"]["loss"]), metrics["loss"],
+                                   rtol=2e-4)
 
 
 def test_pipeline_clipped_step(ranks, single):

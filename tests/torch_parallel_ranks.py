@@ -117,6 +117,42 @@ def hold_leaves(got, want):
         assert err <= bound, f"leaf {i}: {err:.3e} > {bound:.3e}"
 
 
+def gns_tpu_step(step, params, batch, optimizer, place=lambda tree: tree):
+    """One gns_tpu train step from `params` (a numpy tree) with `optimizer`
+    (an optax transformation), in the parent process: (the change it made
+    to each leaf, as a numpy tree, and its metrics). place: commits the
+    TrainState to the step's mesh layout. With optax.sgd(1.0) the change is
+    minus the step's gradient."""
+    import jax
+    import jax.numpy as jnp
+
+    from gns_tpu.train.trainer import TrainState
+
+    p0 = jax.tree.map(jnp.asarray, params)
+    state = place(TrainState(p0, jax.jit(optimizer.init)(p0), jnp.zeros((), jnp.int32)))
+    new, metrics = step(state, batch)
+    delta = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b), new.params, params)
+    return delta, {k: float(v) for k, v in metrics.items()}
+
+
+def hold_gns_tpu(got: dict, want_tree, cfg, cut=lambda name, value: value):
+    """The port's arrays by parameter name (gradients, or a step's change
+    to each leaf) against gns_tpu's tree of the same, carried to the
+    port's names by models/convert.py: tests/test_torch_train.py's
+    cross-package gradient bound, 2e-4 of each leaf's largest entry, with
+    hold_leaves' floor (1e-5 of the largest entry of all leaves) for the
+    leaves whose exact value is 0. cut(name, value): the part of gns_tpu's
+    whole leaf this rank holds (a tensor-parallel slice)."""
+    from gns_torch.models.convert import state_dict_from_params
+
+    want = state_dict_from_params(want_tree, cfg)
+    floor = 1e-5 * max(np.abs(w).max() for w in want.values())
+    for name, a in got.items():
+        b = cut(name, want[name])
+        err, bound = np.abs(a - b).max(), 2e-4 * np.abs(b).max() + floor
+        assert err <= bound, f"{name}: {err:.3e} > {bound:.3e}"
+
+
 def _module(params, cfg):
     from gns_torch.models.convert import module_from_jax_params
 
