@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gns_torch's serving, training, evaluation, solver and screening
-paths on one NVIDIA GPU (an H100) and check them.
+"""Drive gns_torch's serving, training, evaluation, solver, screening,
+parallel and dataset paths on one NVIDIA GPU (an H100) and check them.
 
     python3 chip_smoke.py
 
@@ -167,17 +167,45 @@ Phases, each printing its own lines; any failure exits non-zero:
      bit-equal to its twin, and its collectives equal to what the code
      gives (`par_collectives`). Walls are second runs of W processes
      sharing the one card, not scaling figures.
+ 15. data: the dataset path (gns_torch/utils) at full width, under
+     build/data_phase/: (a) the host packer gns_torch/csrc/gridpack.cpp
+     built at first use (compiler, version, flags, seconds); (b) `python
+     -m gns_torch.utils --case 300 --num 1023 --seed 0 --scale 0.5
+     --feasible-only` as a user runs it, while this process generates the
+     same grids: the npz bit-equal to prepare_case over them, the pickles
+     loading (load_all_grids) to the npz's batch (load_prepared), the CLI's
+     host seconds; (c) pack_batch of the 1024 case dicts bit-equal to
+     _stack_to_batch, csr_by_dst equal to its numpy path, the host ms of
+     each (median and range of 5); (d) `python -m gns_torch.train` from the
+     data set (K4 L20 H10, batch 256, 2 epochs), its logged losses and
+     checkpoint equal to train() in this process on load_prepared's grids,
+     whose launches are the CUDA-graph capture's (warm-up and captured
+     step at train_launches' counts; the replays call no wrapper); (e)
+     `python -m gns_torch.eval` with that checkpoint on the data set's last
+     64 pickles (no fallback; the grids it reads equal the generated ones)
+     and with the shipped checkpoint, its accuracy metrics equal to
+     evaluate() in this process (launches: serving's per forward); (f) the
+     physics refresh's lowerings at bench.py's problem: "degree" on config
+     A, _STACK_GATHER, _STACK_AGG and both on config B, each one step's K1
+     / K2 launches against refresh_launches, every distinct launch
+     bit-equal to its twin, outputs and gradients against the card's run
+     with the switches off (bit-equal for "degree") and the port's CPU run
+     with the same setting, a replayed step's ms with and without the
+     setting (a b b a), and the epoch captured with the switches off,
+     called with a stacking switch on, capturing anew (its launches).
 Then one JSON line with every kernel's numbers (K1 / K2 with each rank's
-launches per phase-14 path under "parallel_launches"), and last the
-{"ok": true, "device": ...} line.
+launches per phase-14 path under "parallel_launches" and the data phase's
+under "data_launches"), and last the {"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import csv
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3326,6 +3354,429 @@ def par_hold(world, rank, path, got, want, single) -> None:
         f"{len(got['grads'])} gradient leaves within the leaf bound, worst at {share:.3f} of it")
 
 
+# Data phase (15): the dataset CLI at full width, as phase 10's grids:
+# feasible case300 grids at scale 0.5 (case300 leaves the AC-solvable
+# region at full augmentation), 1023 augmentations and the base case.
+DATA_NUM = 1023
+DATA_SCALE = 0.5
+DATA_EPOCHS = 2
+DATA_EVAL = 64  # held-out pickles evaluated: the last 64 of the data set
+DATA_REPLAY = 10  # steps per replayed epoch when the refresh's options are timed
+PACK_REPS = 5
+PREDICT_PACKING_MS = 85.96  # predict's packing of 1024 requests on the H100's host (PERF.md section 5)
+# the shipped case300 checkpoint's v MSE in the eval phase (a) on the H100 (PERF.md),
+# on generate_cases' 64 grids, not the data set's
+PRETRAINED_V_MSE = 0.010343
+
+
+def data_dir() -> str:
+    """The data phase's directory, under the checkout's build/ (ignored by
+    git), emptied first."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "data_phase")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def ms_spread(fn, reps: int = PACK_REPS) -> list:
+    """Host ms of `reps` calls of fn, one reading each."""
+    readings = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        readings.append((time.perf_counter() - t0) * 1e3)
+    return readings
+
+
+def ms_text(readings) -> str:
+    return (f"{statistics.median(readings):.3f} ms (range {min(readings):.3f} to "
+            f"{max(readings):.3f}, n={len(readings)})")
+
+
+def refresh_options() -> dict:
+    """The refresh's lowerings at bench.py's problem: (config, method,
+    _STACK_GATHER, _STACK_AGG) by name; "degree" on config A (parity), the
+    stacking switches on config B (paper)."""
+    cfgs = train_configs()
+    return {"degree": (cfgs["A"], "degree", False, False),
+            "stack_gather": (cfgs["B"], "auto", True, False),
+            "stack_agg": (cfgs["B"], "auto", False, True),
+            "stack_both": (cfgs["B"], "auto", True, True)}
+
+
+def refresh_launches(cfg, stack_gather: bool, stack_agg: bool):
+    """train_launches with the refresh's stacking switches (paper mode;
+    physics/fused.py): _STACK_GATHER makes the two (v, theta) gathers of
+    each step one K2 (forward K2 - K, their adjoints backward K1 - K);
+    _STACK_AGG makes the two edge sums and the generator sum of each step
+    one K1 (forward K1 - 2K, backward K2 - 2K). "degree" launches as
+    "auto" does."""
+    fwd, bwd = train_launches(cfg)
+    k = cfg.K
+    if not cfg.reference_parity:
+        if stack_gather:
+            fwd["K2"] -= k
+            bwd["K1"] -= k
+        if stack_agg:
+            fwd["K1"] -= 2 * k
+            bwd["K2"] -= 2 * k
+    return fwd, bwd
+
+
+def set_stacking(gather_on: bool, agg_on: bool) -> None:
+    from gns_torch.physics import fused
+
+    fused._STACK_GATHER, fused._STACK_AGG = gather_on, agg_on
+
+
+def refresh_step(kern, seg, cfg, method, batch, topo, device):
+    """One update step's forward and backward (loss_and_grads) on `device`
+    from init_train_state(0, cfg), with the switches as they are now: the
+    forward's outputs, the gradients, and on the card the K1 / K2 launches
+    (forward and backward apart) and their recordings."""
+    from gns_torch.models.gns import batch_tensors, gns_forward, step_params
+    from gns_torch.physics.common import build_graph
+    from gns_torch.train.trainer import init_train_state
+
+    state = init_train_state(0, cfg, device=device)
+    graph = build_graph(batch.buses, batch.lines, batch.generators, topo, device)
+    bt = batch_tensors(batch, device)
+    params = list(state.model.parameters())
+    rec_f, rec_b = PathRecorder(kern, seg), PathRecorder(kern, seg)
+    reset_counts()
+    with NoPlainTwins(kern):
+        with rec_f:
+            out = gns_forward(step_params(state.model, cfg), cfg, bt, graph, dense=True,
+                              method=method)
+            loss = out.total_loss.mean()
+            sync(device)
+        fwd = counts()
+        with rec_b:
+            grads = torch.autograd.grad(loss, params)
+            sync(device)
+    bwd = {k: v - fwd[k] for k, v in counts().items()}
+    outs = {k: getattr(out, k).detach().float().cpu().numpy()
+            for k in ("v", "theta", "total_loss", "last_loss")}
+    names = [n for n, _ in state.model.named_parameters()]
+    return outs, dict(zip(names, (g.cpu() for g in grads))), fwd, bwd, {**rec_f.inputs, **rec_b.inputs}
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def hold_refresh(tag, label, cfg, got, want, exact: bool) -> float:
+    """got against want, (outputs, gradients) each: bit for bit (exact), or
+    outputs within the bounds of the config's dtype (float32: serving's rtol
+    / atol 2e-4; bfloat16: BF16_CARD_VS_CPU and the total loss as
+    last_loss) and every gradient leaf within TRAIN_GRAD. Returns the
+    largest share of TRAIN_GRAD's bound a leaf used."""
+    (outs, grads), (w_outs, w_grads) = got, want
+    if exact:
+        same = all(np.array_equal(outs[k], w_outs[k]) for k in outs) and all(
+            torch.equal(grads[k], w_grads[k]) for k in grads)
+        log(f"[data] (f) {tag} {label}: outputs and {len(grads)} gradient leaves "
+            f"{'bit-equal' if same else 'DIFFER'}")
+        check(same, f"{tag}: {label} not bit-equal")
+        return 0.0
+    if cfg.compute_dtype == "float32":
+        bounds = {k: (2e-4, 2e-4, None) for k in outs}
+    else:
+        b16 = {name: (0.0, atol, p999) for name, atol, p999 in BF16_CARD_VS_CPU}
+        bounds = {**b16, "total_loss": b16["last_loss"]}
+    for key, (rtol, atol, p999) in bounds.items():
+        agree("data", f"(f) {tag} {label}", outs[key], w_outs[key].astype(np.float64), rtol, atol,
+              key, p999)
+    rel, atol = TRAIN_GRAD["A" if cfg.compute_dtype == "float32" else "B"]
+    worst = (0.0, "")
+    for name, g in grads.items():
+        w = w_grads[name]
+        share = (g - w).abs().max().item() / (rel * w.abs().max().item() + atol)
+        worst = max(worst, (share, name))
+    log(f"[data] (f) {tag} {label}: gradients, {len(grads)} leaves, the nearest to its bound "
+        f"({rel:g} x max |want| + {atol:g}) {worst[1]} at {worst[0]:.3f} of it")
+    check(worst[0] <= 1.0, f"{tag}: {label} gradients outside the bound")
+    return worst[0]
+
+
+def replay_ms(kern, cfg, method, topo, bt, switches, reps: int = DATA_REPLAY):
+    """A make_epoch_step of `reps` copies of the batch under the given
+    switches, captured at its first call. Returns the launches while
+    capturing, a closure timing one more epoch under those switches in
+    CUDA-event ms per step, and a closure running one epoch under other
+    switches that returns its launches (a capture of its own, since the
+    captured step is keyed by the switches)."""
+    from gns_torch.train.trainer import init_train_state, make_epoch_step
+    from gns_torch.utils.prepare import GridBatch
+
+    state = init_train_state(0, cfg, device="cuda")
+    epoch = make_epoch_step(cfg, method=method, topo=topo, dense=True)
+    xs = GridBatch(*(a.unsqueeze(0).expand((reps,) + tuple(a.shape)) for a in bt))
+    set_stacking(*switches)
+    reset_counts()
+    with NoPlainTwins(kern):
+        epoch(state, xs)
+        torch.cuda.synchronize()
+    captured = counts()
+
+    def timed():
+        set_stacking(*switches)  # the capture's key: a replay under other switches would recapture
+        return steps_ms(lambda: epoch(state, xs), reps=1)[1] / reps
+
+    def under(other):
+        set_stacking(*other)
+        reset_counts()
+        with NoPlainTwins(kern):
+            epoch(state, xs)
+            torch.cuda.synchronize()
+        return counts()
+
+    return captured, timed, under
+
+
+def phase_data(kern, seg, card) -> dict:
+    """The dataset path on the card (module docstring, phase 15). Returns
+    the K1 / K2 counts of its in-process runs for the kernels line."""
+    from gns_torch.eval.harness import evaluate, load_eval_cases
+    from gns_torch.train.checkpoint import checkpoint_name, load_checkpoint
+    from gns_torch.train.trainer import CAPTURE_WARMUP, train
+    from gns_torch.utils import native
+    from gns_torch.utils.augment import generate_cases
+    from gns_torch.utils.prepare import (_stack_to_batch, extract_shared_topology,
+                                         load_all_grids, load_prepared, prepare_case)
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the CLIs run: PyTorch's default
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = data_dir()
+    out = {}
+
+    # (a) build the packer
+    info = native.build_packer()
+    version = subprocess.run([info["compiler"], "--version"], capture_output=True, text=True,
+                     timeout=60).stdout.splitlines()[:1]
+    log(f"[data] (a) packer gns_torch/csrc/gridpack.cpp: {info['compiler']} "
+        f"({version[0] if version else '?'}), flags {' '.join(info['flags'])}, "
+        f"{info['seconds']:.2f} s -> {os.path.relpath(info['path'], here)}")
+
+    # (b) generate through the CLI, and in this process meanwhile
+    cli = [sys.executable, "-m", "gns_torch.utils", "--case", str(CASE), "--num", str(DATA_NUM),
+           "--seed", "0", "--scale", str(DATA_SCALE), "--feasible-only", "--data-dir", tmp]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        cases = list(generate_cases(CASE, DATA_NUM, seed=0, scale=DATA_SCALE, feasible_only=True))
+        t_own = time.perf_counter() - t0
+        text, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t_cli = time.perf_counter() - t0
+    for line in text.splitlines():
+        log(f"[data] (b) cli: {line}")
+    check(proc.returncode == 0, f"python -m gns_torch.utils failed (exit {proc.returncode})")
+    log(f"[data] (b) {' '.join(cli[1:])}: {t_cli:.2f} s host wall ({DATA_NUM + 1} grids, pickles "
+        f"and npz); this process's generate_cases of the same grids meanwhile {t_own:.2f} s")
+    case_dir = os.path.join(tmp, f"case{CASE}")
+    triples = [prepare_case(c) for c in cases]
+    with np.load(os.path.join(case_dir, f"prepared_case{CASE}.npz")) as z:
+        npz = {k: z[k] for k in z.files}
+    same = (sorted(npz) == ["buses", "generators", "lines", "scale", "seed"]
+            and npz["seed"].dtype == np.int64 and int(npz["seed"]) == 0
+            and npz["scale"].dtype == np.float64 and float(npz["scale"]) == DATA_SCALE)
+    for i, key in enumerate(("buses", "lines", "generators")):
+        want = np.stack([t[i] for t in triples])
+        same = same and npz[key].dtype == np.float32 and np.array_equal(npz[key], want)
+    log(f"[data] (b) npz {tuple(npz['buses'].shape)} buses, {tuple(npz['lines'].shape)} lines, "
+        f"{tuple(npz['generators'].shape)} generators, seed / scale: "
+        f"{'bit-equal' if same else 'DIFFER'} to prepare_case over this process's generate_cases")
+    check(same, "the CLI's npz differs from prepare_case over generate_cases")
+    t0 = time.perf_counter()
+    from_pickles = load_all_grids(CASE, DATA_NUM, data_dir=tmp)
+    from_npz = load_prepared(CASE, DATA_NUM, data_dir=tmp)
+    same = all(np.array_equal(a, b) and a.dtype == b.dtype for a, b in zip(from_pickles, from_npz))
+    log(f"[data] (b) load_all_grids (the {DATA_NUM} pickles) against load_prepared (the npz): "
+        f"{'equal' if same else 'DIFFER'}, {time.perf_counter() - t0:.2f} s")
+    check(same, "the pickles and the npz load to different batches")
+    del npz, from_pickles
+
+    # (c) the packers on the 1024 case dicts
+    want = _stack_to_batch(triples)
+    packed = native.pack_batch(cases)
+    diff = [name for name, a, b in zip(want._fields, want, packed)
+            if not (a.dtype == b.dtype and np.array_equal(a, b))]
+    log(f"[data] (c) pack_batch of {len(cases)} case dicts against _stack_to_batch(prepare_case "
+        f"...): {'bit-equal in every field' if not diff else 'DIFFER in ' + ', '.join(diff)}")
+    check(not diff, f"pack_batch differs from the numpy packer in {diff}")
+    n_bus = want.buses.shape[1]
+    csr = native.csr_by_dst(want.lines[0], n_bus)
+    csr_np = native.csr_by_dst_numpy(want.lines[0], n_bus)
+    same = all(np.array_equal(a, b) for a, b in zip(csr, csr_np))
+    log(f"[data] (c) csr_by_dst on the case{CASE} topology ({want.lines.shape[1]} lines): "
+        f"{'equal' if same else 'DIFFERS'} to its numpy path")
+    check(same, "csr_by_dst differs from its numpy path")
+    native_ms = ms_spread(lambda: native.pack_batch(cases))
+    numpy_ms = ms_spread(lambda: _stack_to_batch([prepare_case(c) for c in cases]))
+    csr_ms = ms_spread(lambda: native.csr_by_dst(want.lines[0], n_bus))
+    csr_np_ms = ms_spread(lambda: native.csr_by_dst_numpy(want.lines[0], n_bus))
+    log(f"[data] (c) host ms, {len(cases)} case300 dicts: pack_batch {ms_text(native_ms)}, "
+        f"prepare_case + _stack_to_batch {ms_text(numpy_ms)} (predict's packing of 1024 requests "
+        f"read {PREDICT_PACKING_MS} ms, PERF.md section 5; a reading only); csr_by_dst "
+        f"{ms_text(csr_ms)}, its numpy path {ms_text(csr_np_ms)} (card: {card})")
+    out["pack"] = dict(native_ms=statistics.median(native_ms), numpy_ms=statistics.median(numpy_ms))
+    del want, packed, triples
+
+    # (d) train from the data set: the CLI, then the same run in this process
+    cfg = train_configs()["A"].replace(epochs=DATA_EPOCHS, nr_samples=DATA_NUM + 1)
+    name = checkpoint_name(cfg)
+    t0 = time.perf_counter()
+    run_child(["-m", "gns_torch.train", "--case", str(CASE), "--data-dir", tmp,
+               "--nr-samples", str(DATA_NUM + 1), "--batch-size", str(S_TRAIN),
+               "--epochs", str(DATA_EPOCHS), "--K", str(cfg.K), "--latent", str(cfg.latent_dim),
+               "--hidden", str(cfg.hidden_dim), "--out-dir", os.path.join(tmp, "models"),
+               "--runs-dir", os.path.join(tmp, "runs")], "train CLI", timeout=600, module=True)
+    log(f"[data] (d) python -m gns_torch.train: {time.perf_counter() - t0:.2f} s host wall")
+    with open(os.path.join(tmp, "runs", f"{name}.csv")) as f:
+        cli_losses = [float(row["final_loss"]) for row in csv.DictReader(f)]
+    data = load_prepared(CASE, DATA_NUM + 1, data_dir=tmp)
+    check(extract_shared_topology(data) is not None and data.is_dense(),
+          "the data set must be dense grids of one topology (the CUDA-graph epoch)")
+    reset_counts()
+    with NoPlainTwins(kern):
+        best, history = train(cfg, data, device="cuda")
+        torch.cuda.synchronize()
+    got = counts()
+    fwd, bwd = train_launches(cfg)
+    per_step = {k: fwd[k] + bwd[k] for k in fwd}
+    want_counts = {**{k: (CAPTURE_WARMUP + 1) * v for k, v in per_step.items()}, "K3": 0, "K4": 0}
+    steps = DATA_EPOCHS * (data.batch_size // S_TRAIN)
+    losses = [row["final_loss"] for row in history]
+    log(f"[data] (d) train() in this process on load_prepared's {data.batch_size} grids: "
+        f"{len(history)} epochs, {steps} steps; launches {got} (expected {want_counts}: "
+        f"{CAPTURE_WARMUP} warm-up steps and the capture of train_launches' {per_step} a step; "
+        f"the {steps} steps replay the graph and call no wrapper)")
+    check(got == want_counts, f"the data set's training launches {got} != {want_counts}")
+    log(f"[data] (d) epoch losses: CLI {cli_losses}, this process {losses}")
+    check(cli_losses == losses and all(np.isfinite(losses)),
+          "the CLI's logged losses differ from the in-process run's")
+    cli_state = load_checkpoint(os.path.join(tmp, "models", f"{name}.pt"), cfg, device="cpu")
+    same = all(torch.equal(a, b) for a, b in zip(cli_state.model.parameters(),
+                                                 best.model.parameters()))
+    log(f"[data] (d) the CLI's checkpoint against this process's best state: "
+        f"{'bit-equal' if same else 'DIFFERS'}")
+    check(same, "the CLI's checkpoint differs from the in-process training's")
+    out["train"] = dict(launches=got, per_step=per_step, steps=steps, losses=losses)
+    del data, best, cli_state
+
+    # (e) evaluate from the data set: the CLI with the checkpoint and with
+    # the shipped one, then the same in this process. --plot "" turns the
+    # CLI's per-bus plot off: the card's machine has no matplotlib.
+    total = DATA_NUM + 1
+    held = cases[total - DATA_EVAL:]
+    eval_cli = {}
+    for tag, ckpt in (("trained", os.path.join(tmp, "models", f"{name}.pt")),
+                      ("pretrained", "pretrained")):
+        t0 = time.perf_counter()
+        jpath = os.path.join(tmp, f"eval_{tag}.json")
+        run_child(["-m", "gns_torch.eval", "--case", str(CASE), "--checkpoint", ckpt,
+                   "--data-dir", tmp, "--total-grids", str(total), "--samples", str(DATA_EVAL),
+                   "--plot", "", "--json-out", jpath],
+                  f"eval CLI ({tag})", timeout=600, module=True)
+        with open(jpath) as f:
+            eval_cli[tag] = json.load(f)
+        m = eval_cli[tag]
+        log(f"[data] (e) python -m gns_torch.eval --checkpoint {tag}: {time.perf_counter() - t0:.2f} s "
+            f"host wall; v MSE {m['v_mse']:.6g}, theta MSE {m['theta_mse']:.6g}"
+            + (f" (the eval phase's record {PRETRAINED_V_MSE} is on other grids: not comparable)"
+               if tag == "pretrained" else ""))
+        check("fallback_from_base_case" not in m, f"the eval CLI ({tag}) fell back to generated grids")
+        check(np.isfinite(m["v_mse"]) and np.isfinite(m["theta_mse"]), f"eval CLI ({tag}): non-finite MSE")
+    read = load_eval_cases(CASE, DATA_EVAL, data_dir=tmp, total_grids=total)
+    same = len(read) == len(held) and all(
+        all(np.array_equal(np.asarray(r[k]), np.asarray(c[k])) for k in c) for r, c in zip(read, held))
+    log(f"[data] (e) the {len(read)} held-out pickles the eval CLI reads (indices "
+        f"{total - DATA_EVAL}..{total - 1}): {'equal' if same else 'DIFFER'} to the generated grids")
+    check(same, "the eval pickles differ from the generated grids")
+    model = load_checkpoint(os.path.join(tmp, "models", f"{name}.pt"), cfg, device="cuda").model
+    reset_counts()
+    with NoPlainTwins(kern):
+        metrics = evaluate(model, cfg, read, plot_path=None, verbose=False)
+        torch.cuda.synchronize()
+    got = counts()
+    per = forward_launches(cfg)
+    forwards = len(read) + 1  # run_gns: one warm-up forward, then each grid
+    want_counts = {"K1": forwards * per["K1"], "K2": forwards * per["K2"], "K3": 0, "K4": 0}
+    keys = [k for k in metrics if not k.startswith("time") and k != "plot"]
+    diff = [k for k in keys if metrics[k] != eval_cli["trained"][k]]
+    log(f"[data] (e) evaluate() in this process: launches {got} (expected {want_counts}); "
+        f"{len(keys)} accuracy metrics {'equal' if not diff else 'DIFFER in ' + ', '.join(diff)} "
+        f"to the CLI's (v MSE {metrics['v_mse']:.6g}, theta MSE {metrics['theta_mse']:.6g}); "
+        f"NR converged on {100 * metrics['nr_converged_frac']:.0f}%")
+    check(got == want_counts, f"the data set's eval launches {got} != {want_counts}")
+    check(not diff, f"the eval CLI's metrics differ from evaluate() in this process: {diff}")
+    out["eval"] = dict(launches=got, forwards=forwards, v_mse=metrics["v_mse"],
+                       theta_mse=metrics["theta_mse"],
+                       pretrained_v_mse=eval_cli["pretrained"]["v_mse"])
+    del model, cases, held, read
+
+    # (f) the refresh's lowerings at bench.py's problem
+    batch, topo, bt, _ = train_problem()
+    base = {}  # config tag -> (outputs, gradients) on the card, switches off
+    out["refresh"] = {}
+    try:
+        for tag, (cfg, method, g_on, a_on) in refresh_options().items():
+            cfg_tag = "A" if cfg.reference_parity else "B"
+            if cfg_tag not in base:
+                set_stacking(False, False)
+                outs, grads, *_ = refresh_step(kern, seg, cfg, "auto", batch, topo, "cuda")
+                base[cfg_tag] = (outs, grads)
+            set_stacking(g_on, a_on)
+            outs, grads, fwd, bwd, rec = refresh_step(kern, seg, cfg, method, batch, topo, "cuda")
+            want_f, want_b = refresh_launches(cfg, g_on, a_on)
+            want_f.update(K3=0, K4=0)
+            want_b.update(K3=0, K4=0)
+            log(f"[data] (f) {tag} (config {cfg_tag}, method {method!r}, _STACK_GATHER {g_on}, "
+                f"_STACK_AGG {a_on}): one step's launches forward {fwd} (predicted {want_f}), "
+                f"backward {bwd} (predicted {want_b})")
+            check(fwd == want_f and bwd == want_b, f"{tag}: launches {fwd} / {bwd}")
+            held_n = hold_recorded(kern, rec, f"data {tag}", quiet=True)
+            log(f"[data] (f) {tag}: all {held_n} distinct K1 / K2 launches bit-equal to their twins")
+            del rec
+            hold_refresh(tag, "card vs the card's run with the switches off", cfg, (outs, grads),
+                         base[cfg_tag], exact=method == "degree")
+            cpu_outs, cpu_grads, *_ = refresh_step(kern, seg, cfg, method, batch, topo, "cpu")
+            share = hold_refresh(tag, "card vs the port's CPU run with the same setting", cfg,
+                                 (outs, grads), (cpu_outs, cpu_grads), exact=False)
+            # one replayed step with the setting and without, a b b a
+            off_cap, off, off_under = replay_ms(kern, cfg, "auto", topo, bt, (False, False))
+            on_cap, on, _ = replay_ms(kern, cfg, method, topo, bt, (g_on, a_on))
+            want_cap = {k: (CAPTURE_WARMUP + 1) * (want_f[k] + want_b[k]) for k in want_f}
+            check(on_cap == want_cap, f"{tag}: launches while capturing {on_cap} != {want_cap}")
+            r_off, r_on = abba(off, on)
+            log(f"[data] (f) {tag}: replayed step (CUDA events, {DATA_REPLAY} steps an epoch) "
+                f"{ms_text(r_on)} with the setting, {ms_text(r_off)} without; slower: "
+                f"{behind(r_on, r_off)} (launches while capturing {on_cap}, without {off_cap}; "
+                f"card: {card})")
+            if method != "degree":
+                # the epoch captured with the switches off, called with the
+                # setting: it must capture anew, never replay the other graph
+                flipped = off_under((g_on, a_on))
+                log(f"[data] (f) {tag}: the epoch captured with the switches off, called with "
+                    f"the setting: launches {flipped} (a capture of the setting: {want_cap})")
+                check(flipped == want_cap, f"{tag}: a captured step served another setting")
+            out["refresh"][tag] = dict(forward=fwd, backward=bwd, grad_share=share,
+                                       replay_ms=statistics.median(r_on),
+                                       replay_ms_off=statistics.median(r_off))
+    finally:
+        set_stacking(False, False)
+    log(f"[data] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def run_child(args, what: str, timeout: int, module: bool = False):
     """Run this script (or, with module=True, `python -m ...`) in a process
     of its own from the checkout's root, log its output, fail on a non-zero
@@ -3434,6 +3885,7 @@ def main() -> int:
     phase_bench(train, card)
     screens = phase_screen(kern, seg, card)
     parallel = phase_parallel(card)
+    data = phase_data(kern, seg, card)
     kernels = []
     meta = {
         "K1": ("segment_sum_warp / segment_sum_narrow", "gns_torch/csrc/segment.cu", "gns_tpu/ops/pallas_segment.py:29"),
@@ -3466,6 +3918,15 @@ def main() -> int:
             kernels[-1]["screen_launches"] = {name: c[k] for name, c in screens.items()}
             # the parallel phase: each rank's launches per path ("world/rank/path")
             kernels[-1]["parallel_launches"] = {name: c[k] for name, c in parallel.items()}
+            # the data phase: train() from the generated data set (its capture:
+            # warm-up steps and the captured step; the replays call no
+            # wrapper), evaluate() on its held-out pickles, and one step of
+            # each of the refresh's lowerings (forward + backward)
+            kernels[-1]["data_launches"] = dict(
+                train_capture=data["train"]["launches"][k], train_per_step=data["train"]["per_step"][k],
+                eval=data["eval"]["launches"][k],
+                refresh_step={tag: r["forward"][k] + r["backward"][k]
+                              for tag, r in data["refresh"].items()})
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ package imports torch and never jax or gns_tpu.
 
 Subpackages
 -----------
-utils     schema, config, case tables, grid preparation, augmentation
+utils     schema, config, case tables, grid preparation, augmentation and
+          dataset generation (`python -m gns_torch.utils`), the host packer
 ops       segment-sum / gather: the dispatch point, the CUDA kernels K1 / K2
           (csrc/segment.cu) and their plain PyTorch twins; the fused edge
           stage K3 (fused.py, csrc/fused_edge.cu) and the whole-forward
@@ -27,4 +28,4 @@ Entry points run on "cuda" unless the caller passes device="cpu".
 __version__ = "0.1.0"
 
 from gns_torch.utils.config import GNSConfig  # noqa: F401,E402
-from gns_torch.utils.schema import BUS, GEN, LINE  # noqa: F401,E402
+from gns_torch.utils.schema import BUS, GEN, LINE, get_BLG  # noqa: F401,E402

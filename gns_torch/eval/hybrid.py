@@ -57,6 +57,7 @@ from gns_torch.parallel.solver_dp import (
     agree, dp_group, gather_rows, pad_rows, padded_rows, shard_chunk,
 )
 from gns_torch.physics.common import build_graph
+from gns_torch.physics.fused import stack_switches
 from gns_torch.serve import GNSPredictor
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch, GridTopology
@@ -100,7 +101,7 @@ def _forward_graph(bus, branch, gen, device):
         gen_idx=gen[0, :, 0].astype(np.int32) - 1,
     )
     key = (bus.shape[1], branch.shape[1], topo.src.tobytes(), topo.dst.tobytes(),
-           topo.gen_idx.tobytes(), str(device))
+           topo.gen_idx.tobytes(), str(device), stack_switches())
     graph = _FUSED_CACHE.get(key)
     if graph is None:
         graph = build_graph(bus[:1], branch[:1], gen[:1], topo, device)

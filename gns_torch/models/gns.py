@@ -284,6 +284,11 @@ def gns_machinery(
         )
     cdt = _DTYPES[cfg.compute_dtype]
     slope = cfg.leaky_relu_slope
+    # "degree" names a lowering of the physics refresh (physics/fused.py);
+    # every other sum and gather of the forward runs as "auto"
+    refresh_method = method
+    if method == "degree":
+        method = "auto"
 
     def psum(x):
         return all_reduce_sum(x, edge_group)
@@ -432,7 +437,7 @@ def gns_machinery(
         _, _, delta_p, delta_q = physics_refresh(
             v, theta, buses, lines, gens, graph,
             reference_parity=cfg.reference_parity,
-            bus_mask=bm, line_mask=lm, gen_mask=gm, method=method,
+            bus_mask=bm, line_mask=lm, gen_mask=gm, method=refresh_method,
             qg_gen_only=cfg.qg_gen_only, dispatch=cfg.dispatch,
             gen_bus_mask=gen_bus_mask, slack_mask=slack_mask,
             geom=geom, q2=q2, edge_group=edge_group,

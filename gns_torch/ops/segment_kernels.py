@@ -6,7 +6,9 @@ which TPU kernels they replace, what bounds them and how. This module
 builds each source of SOURCES (segment.cu here, fused_edge.cu for K3 in
 ops/fused.py, megakernel.cu for K4 in ops/megakernel.py) with nvcc at
 first use, into build/torch_kernels/ under the checkout keyed by the
-source's and flags' hash, loads the library with ctypes, and wraps K1/K2:
+source's and flags' hash (build_libraries, which also builds the host
+packer of utils/native.py there), loads the library with ctypes, and
+wraps K1/K2:
 
   segment_sum_cuda(data, order, indptr, n)  K1: (S, E, D) f32/bf16 -> (S, n, D) f32
   gather_cuda(data, ids, masked=False)      K2: (S, R, D) -> (S, E, D), same dtype
@@ -82,26 +84,31 @@ def _flags(name: str):
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
-def _library_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode()).hexdigest()[:16]
+def _library_path(name: str, source: str | None = None, key: str | None = None) -> str:
+    """The library of a source under BUILD_DIR, keyed by the hash of the
+    source and `key` (default: the source's nvcc flags)."""
+    source = SOURCES[name] if source is None else source
+    key = " ".join(_flags(name)) if key is None else key
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + key.encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"libgns_{name}_{digest}.so")
 
 
-def build_kernels(names=None) -> dict:
-    """Compile each named source (default: all of SOURCES) unless its
-    library, keyed by the hash of the source and the flags, exists. One
-    nvcc per source, all started together.
+def build_libraries(jobs: dict) -> dict:
+    """Compile each library of `jobs`, {name: (path, command)}, unless its
+    path exists: command(out) is the argv that compiles the source into
+    `out`, called only for a build. All builds start together; each writes
+    a temporary file of its own, moved onto the path when it is done, so
+    processes that build the same library at once never read half of one.
 
-    Returns {name: {"path", "seconds", "log"}}: nvcc's output (ptxas's
-    register and spill report) is kept beside the library, so a library
-    that was already built comes with its build's log and 0.0 seconds.
+    Returns {name: {"path", "seconds", "log"}}: the compiler's output is
+    kept beside the library, so a library that was already built comes
+    with its build's log and 0.0 seconds. Raises RuntimeError, with the
+    compiler's output, if a build fails or its compiler cannot be run.
     """
-    names = list(SOURCES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    info, running = {}, {}
-    for name in names:
-        path = _library_path(name)
+    info, running, failed = {}, {}, []
+    for name, (path, command) in jobs.items():
         if os.path.exists(path):
             log = ""
             if os.path.exists(f"{path}.log"):
@@ -110,17 +117,20 @@ def build_kernels(names=None) -> dict:
             info[name] = {"path": path, "seconds": 0.0, "log": log}
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.Popen(
-            [_nvcc(), *_flags(name), "-o", tmp, SOURCES[name]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running[name] = (proc, path, tmp, time.perf_counter())
-    failed = []
-    for name, (proc, path, tmp, t0) in running.items():
+        argv = command(tmp)
+        try:
+            proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+        except OSError as exc:
+            failed.append(f"cannot run {argv[0]} to build {name}: {exc}")
+            continue
+        running[name] = (proc, path, tmp, argv, time.perf_counter())
+    for name, (proc, path, tmp, argv, t0) in running.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) on {SOURCES[name]}:\n{log}")
+            failed.append(f"{os.path.basename(argv[0])} failed ({proc.returncode}) building "
+                          f"{name}: {' '.join(argv)}\n{log}")
             continue
         with open(f"{tmp}.log", "w") as f:
             f.write(log)
@@ -130,6 +140,20 @@ def build_kernels(names=None) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     return info
+
+
+def build_kernels(names=None) -> dict:
+    """Compile each named CUDA source (default: all of SOURCES) with nvcc
+    unless its library, keyed by the hash of the source and the flags,
+    exists; one nvcc per source, all started together (build_libraries).
+    The log kept beside a library is nvcc's, ptxas's register and spill
+    report included."""
+    names = list(SOURCES) if names is None else list(names)
+    return build_libraries({
+        name: (_library_path(name),
+               lambda out, name=name: [_nvcc(), *_flags(name), "-o", out, SOURCES[name]])
+        for name in names
+    })
 
 
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float

@@ -47,6 +47,7 @@ from gns_torch.models.gns import GNSOutput, batch_tensors, gns_forward, step_par
 from gns_torch.ops import collectives
 from gns_torch.parallel.solver_dp import mesh_device
 from gns_torch.physics.common import build_graph
+from gns_torch.physics.fused import stack_switches
 from gns_torch.train.trainer import TrainState, _state_tensors, _update_core, make_optimizer
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch, GridTopology
@@ -191,7 +192,7 @@ class _Local:
             step = e_all // size
             part = slice(idx * step, (idx + 1) * step)
             topo = GridTopology(topo.src[part], topo.dst[part], topo.gen_idx)
-        key = (local.buses.shape, local.lines.shape, local.generators.shape)
+        key = (local.buses.shape, local.lines.shape, local.generators.shape, stack_switches())
         graph = self.graphs.get(key) if topo is not None else None
         if graph is None:
             graph = build_graph(local.buses, local.lines, local.generators, topo, self.device,

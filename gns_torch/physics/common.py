@@ -8,13 +8,13 @@ gens (S, G, 7). Graph indices come as a `Graph` of SegmentIndex objects
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from gns_torch.ops.segment import SegmentIndex, gather
-from gns_torch.utils.schema import GEN, LINE
+from gns_torch.ops.segment import SegmentIndex, gather, segment_sum
+from gns_torch.utils.schema import BUS, GEN, LINE
 
 
 class Graph(NamedTuple):
@@ -24,6 +24,11 @@ class Graph(NamedTuple):
     bus -> edge gathers). src_rows/dst_rows are the same bus ids as
     indices into the E rows of per-line arrays: the reference's quirk Q2
     gathers (physics/fused.py), valid because batches keep E >= N.
+
+    src_dst ([src; dst], 2E ids) and src_dst_gen ([src; dst; gen], 2E + G
+    ids) index the paper-mode refresh's stacked gather and stacked
+    aggregation (physics/fused.py _STACK_GATHER, _STACK_AGG); each is built
+    only while its switch is on, else None.
     """
 
     src: SegmentIndex
@@ -31,6 +36,8 @@ class Graph(NamedTuple):
     gen: SegmentIndex
     src_rows: SegmentIndex
     dst_rows: SegmentIndex
+    src_dst: Optional[SegmentIndex] = None
+    src_dst_gen: Optional[SegmentIndex] = None
 
 
 def build_graph(buses, lines, gens, topo=None, device="cpu", line_rows=None) -> Graph:
@@ -38,7 +45,12 @@ def build_graph(buses, lines, gens, topo=None, device="cpu", line_rows=None) -> 
     lines (S, E, 7) and gens (S, G, 7). topo: the batch's shared
     GridTopology, or None for per-sample indices (a mixed-size request).
     line_rows: the row count Q2's gathers index (default E); a rank that
-    holds a slice of the lines passes the whole line count."""
+    holds a slice of the lines passes the whole line count. The stacked
+    indexes are built when physics/fused.py's switches are on at this call
+    (a cache of Graphs keys them by fused.stack_switches())."""
+    from gns_torch.physics.fused import stack_switches  # fused imports this module
+
+    stack_gather, stack_agg = stack_switches()
     if topo is not None:
         src, dst, gen = topo.src, topo.dst, topo.gen_idx
     else:
@@ -53,6 +65,10 @@ def build_graph(buses, lines, gens, topo=None, device="cpu", line_rows=None) -> 
         gen=SegmentIndex(gen, n, device),
         src_rows=SegmentIndex(src, e, device),
         dst_rows=SegmentIndex(dst, e, device),
+        src_dst=SegmentIndex(np.concatenate([src, dst], axis=-1), n, device)
+        if stack_gather else None,
+        src_dst_gen=SegmentIndex(np.concatenate([src, dst, gen], axis=-1), n, device)
+        if stack_agg else None,
     )
 
 
@@ -81,12 +97,24 @@ def edge_geometry(lines: torch.Tensor) -> EdgeGeom:
     )
 
 
-def branch_flows(v, theta, geom: EdgeGeom, graph: Graph, method: str = "auto"):
+def ones_mask(n, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """An all-ones mask: n is a length (one grid) or an (S, n) shape (a
+    batch)."""
+    return torch.ones(n, dtype=dtype, device=device)
+
+
+def branch_flows(v, theta, geom: EdgeGeom, graph: Graph, method: str = "auto",
+                 at_src=None, at_dst=None):
     """Textbook AC branch flows (paper mode): per-line (p_f, q_f, p_t, q_t),
-    the power flowing into the line at its from- and to-side."""
-    vth = torch.stack([v, theta], dim=-1)
-    at_src = gather(vth, graph.src, method=method)
-    at_dst = gather(vth, graph.dst, method=method)
+    the power flowing into the line at its from- and to-side.
+
+    at_src / at_dst: the (S, E, 2) [v, theta] rows at the from- and to-bus,
+    when the caller gathered them already (the stacked gather of
+    physics/fused.py); gathered here when None."""
+    if at_src is None or at_dst is None:
+        vth = torch.stack([v, theta], dim=-1)
+        at_src = gather(vth, graph.src, method=method)
+        at_dst = gather(vth, graph.dst, method=method)
     vf = at_src[..., 0] / geom.tau
     vt = at_dst[..., 0]
     th = at_src[..., 1] - at_dst[..., 1] - geom.shift
@@ -98,3 +126,21 @@ def branch_flows(v, theta, geom: EdgeGeom, graph: Graph, method: str = "auto"):
     p_t = vt * vt * g - vf * vt * (g * c - b * s)
     q_t = -vt * vt * (b + bc2) + vf * vt * (g * s + b * c)
     return p_f, q_f, p_t, q_t
+
+
+def bus_injections(v, buses, gens, pg, qg_bus, gen_mask: Optional[torch.Tensor],
+                   graph: Optional[Graph] = None, method: str = "auto"):
+    """(P_inj, Q_inj) per bus, each (S, N), from per-generator active power
+    pg (S, G) and per-bus reactive generation qg_bus (S, N)
+    (gns_tpu/physics/common.py:93). graph: the batch's Graph; without one
+    the generator buses are read from gens' bus column on the host."""
+    index = graph.gen if graph is not None else SegmentIndex(
+        gens[..., GEN["bus_i"]].detach().cpu().numpy().astype(np.int32) - 1,
+        buses.shape[-2], buses.device)
+    if gen_mask is not None:
+        pg = pg * gen_mask
+    pg_bus = segment_sum(pg, index, method=method)
+    v2 = v * v
+    p_inj = pg_bus - buses[..., BUS["Pd"]] - buses[..., BUS["Gs"]] * v2
+    q_inj = qg_bus - buses[..., BUS["Qd"]] + buses[..., BUS["Bs"]] * v2
+    return p_inj, q_inj

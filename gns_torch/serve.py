@@ -34,6 +34,7 @@ from gns_torch.models.gns import GNS, batch_tensors, gns_forward, step_params
 from gns_torch.ops import collectives
 from gns_torch.parallel.solver_dp import dp_block, dp_group, dp_size
 from gns_torch.physics.common import build_graph
+from gns_torch.physics.fused import stack_switches
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
@@ -91,7 +92,7 @@ class GNSPredictor:
         if topo is None:
             return build_graph(batch.buses, batch.lines, batch.generators, None, self.device)
         key = (batch.buses.shape, batch.lines.shape, batch.generators.shape,
-               topo.src.tobytes(), topo.dst.tobytes(), topo.gen_idx.tobytes())
+               topo.src.tobytes(), topo.dst.tobytes(), topo.gen_idx.tobytes(), stack_switches())
         graph = self._compiled.get(key)
         if graph is None:
             graph = build_graph(batch.buses, batch.lines, batch.generators, topo, self.device)

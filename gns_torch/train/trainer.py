@@ -36,6 +36,7 @@ import torch
 
 from gns_torch.models.gns import GNS, batch_tensors, gns_forward, step_params
 from gns_torch.physics.common import build_graph
+from gns_torch.physics.fused import stack_switches
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch, extract_shared_topology
 
@@ -234,8 +235,9 @@ def _host(a) -> np.ndarray:
 
 class _Graphs:
     """The index sets (physics/common.py Graph) of a batch on a device: one
-    per device for a shared topology, else built anew from each batch's
-    own line and generator ids (host data)."""
+    per device, shape and setting of the refresh's stacking switches
+    (physics/fused.py stack_switches) for a shared topology, else built
+    anew from each batch's own line and generator ids (host data)."""
 
     def __init__(self, topo):
         self.topo = topo
@@ -245,7 +247,7 @@ class _Graphs:
         if self.topo is None:
             return build_graph(_host(batch.buses), _host(batch.lines), _host(batch.generators),
                                None, device)
-        key = (str(device), batch.buses.shape[-2], batch.lines.shape[-2])
+        key = (str(device), batch.buses.shape[-2], batch.lines.shape[-2], stack_switches())
         if key not in self.cache:
             self.cache[key] = build_graph(batch.buses, batch.lines, batch.generators, self.topo,
                                           device)
@@ -365,9 +367,11 @@ def _epoch_fn(core, topo) -> Callable:
         device = _device(state)
         n = batches.buses.shape[0]
         if device.type != "cuda" or topo is None:
-            if topo is None and per_batch.get("of") is not batches:
+            if topo is None and (per_batch.get("of") is not batches
+                                 or per_batch["stack"] != stack_switches()):
                 per_batch.clear()
                 per_batch["of"] = batches  # held, so it is not freed and its id reused
+                per_batch["stack"] = stack_switches()
                 per_batch["graphs"] = [graphs(GridBatch(*(a[i] for a in batches)), device)
                                        for i in range(n)]
             losses, lasts = [], []
@@ -381,8 +385,10 @@ def _epoch_fn(core, topo) -> Callable:
         xs = _on(batches, device)
         flat = (*xs, *extra)
         sample = tuple(a[0] for a in flat)
+        # a captured step replays the refresh it was captured with: keyed
+        # by the stacking switches, as its Graph is
         key = (tuple(t.data_ptr() for t in _state_tensors(state)),
-               tuple((a.shape, a.dtype) for a in sample))
+               tuple((a.shape, a.dtype) for a in sample), stack_switches())
         if key not in captured:
             captured.clear()  # a graph holds its state's tensors and its memory pool
             captured[key] = _capture(core, state, graphs(GridBatch(*sample[:_NB]), device), sample)

@@ -9,17 +9,23 @@ GNS/augment_grids.py:25-54), every draw elementwise U[a, b]:
     theta_shift overwritten with U[-0.2, 0.2] degrees
   * gen vg scaled by U[0.95, 1.05]; Pg ~ U(Pmin + 0.25 span, 0.75 span)
   * bus Pd scaled by U[0.5, 1.5] and rebalanced to sum(Pg); Qd by U[0.5, 1.5]
+
+`generate_dataset` writes such a data set to disk (`python -m
+gns_torch.utils`), in the layout gns_tpu's writes.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Iterator
+import os
+import pickle
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
 from gns_torch.eval.newton_raphson import newton_raphson_pf
 from gns_torch.utils import cases as case_tables
+from gns_torch.utils.prepare import DEFAULT_DATA_DIR, prepare_case
 
 RANGES = {
     "r": (0.9, 1.1),
@@ -105,3 +111,54 @@ def generate_cases(
                 f"{max_tries_per_case} tries: the perturbation ranges are "
                 f"too violent for this case"
             )
+
+
+def generate_dataset(
+    case_nr: int,
+    num_augmentations: int = 10000,
+    seed: int = 0,
+    data_dir: Optional[str] = None,
+    write_pickles: bool = True,
+    write_npz: bool = True,
+    scale: float = 1.0,
+    feasible_only: bool = False,
+) -> str:
+    """Write the base case and `num_augmentations` perturbed cases of
+    generate_cases to {data_dir}/case{nr}/ and return that directory
+    (gns_tpu/utils/augment.py generate_dataset, the same files bit for bit).
+
+    Pickles keep the reference's layout, `augmented_case{nr}_{i}.pkl`
+    (GNS/augment_grids.py:57-61): the NR oracle of `python -m
+    gns_torch.eval` reads the raw case dicts from them. `prepared_case{nr}.npz`
+    holds the prepared float32 tensors of every grid (buses, lines,
+    generators) with the seed and the scale, one file that
+    utils/prepare.py load_prepared reads at training start. The grids
+    stream into preallocated arrays, so a data set costs its final buffer
+    once.
+    """
+    out_dir = os.path.join(data_dir or DEFAULT_DATA_DIR, f"case{case_nr}")
+    os.makedirs(out_dir, exist_ok=True)
+    buses_all = lines_all = gens_all = None
+    for i, case in enumerate(generate_cases(
+            case_nr, num_augmentations, seed, scale=scale, feasible_only=feasible_only)):
+        if write_pickles:
+            with open(os.path.join(out_dir, f"augmented_case{case_nr}_{i}.pkl"), "wb") as f:
+                pickle.dump(case, f)
+        if write_npz:
+            b, l, g = prepare_case(case)
+            if buses_all is None:
+                n = num_augmentations + 1
+                buses_all = np.empty((n,) + b.shape, np.float32)
+                lines_all = np.empty((n,) + l.shape, np.float32)
+                gens_all = np.empty((n,) + g.shape, np.float32)
+            buses_all[i], lines_all[i], gens_all[i] = b, l, g
+    if write_npz:
+        np.savez_compressed(
+            os.path.join(out_dir, f"prepared_case{case_nr}.npz"),
+            buses=buses_all,
+            lines=lines_all,
+            generators=gens_all,
+            seed=np.int64(seed),
+            scale=np.float64(scale),
+        )
+    return out_dir

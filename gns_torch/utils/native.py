@@ -1,0 +1,213 @@
+"""ctypes bindings for the host data-loader, gns_torch/csrc/gridpack.cpp
+(the port of gns_tpu/utils/native.py).
+
+The C++ packer performs prepare_case's transform and the bucket padding of
+_stack_to_batch (utils/prepare.py), multithreaded across grids, and the
+CSR edge sort. prepare.py's numpy path stays the reference: `pack_batch`
+is bit-equal to it (tests/test_torch_native.py).
+
+The library is built at first use with the host C++ compiler ($CXX, else
+c++ or g++) and native/Makefile's flags into build/torch_kernels/, keyed
+by the hash of the source, the compiler and the flags
+(ops/segment_kernels.py build_libraries). The committed
+native/libgridpack.so of the JAX package is never loaded: it was built
+with -march=native on another machine.
+
+  pack_batch(cases, ...)  raises RuntimeError, with the compiler's output,
+                          when the library cannot be built; it never packs
+                          with numpy instead.
+  csr_by_dst(lines, n)    keeps its numpy path when the library cannot be
+                          built, as gns_tpu's does when its library is
+                          missing.
+  HAVE_NATIVE             a host C++ compiler is on the PATH (or named by
+                          $CXX), so the library can be built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from gns_torch.ops import segment_kernels as kern
+from gns_torch.utils.prepare import GridBatch
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "csrc", "gridpack.cpp")
+# native/Makefile's flags. ISO -std=c++17 (not gnu++17) and no -ffast-math
+# keep GCC at -ffp-contract=off: an FMA contraction would round otherwise
+# than numpy, and the packer would stop being bit-equal to prepare_case.
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-shared", "-pthread"]
+
+_libs = {}  # $CXX as set when the library was loaded -> the loaded ctypes.CDLL
+
+
+def compiler() -> Optional[str]:
+    """The host C++ compiler: $CXX, else c++, else g++ (None if none is
+    found). A $CXX that names no program is returned as given, so that the
+    build reports it."""
+    cxx = os.environ.get("CXX")
+    if cxx:
+        return shutil.which(cxx) or cxx
+    return shutil.which("c++") or shutil.which("g++")
+
+
+HAVE_NATIVE = compiler() is not None
+
+
+def build_packer() -> dict:
+    """Build the library unless it exists; returns {"path", "seconds",
+    "log", "compiler", "flags"} (seconds 0.0 for a library already built).
+    Raises RuntimeError, with the compiler's output, if it cannot be
+    built."""
+    cxx = compiler()
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler ($CXX, c++, g++): gns_torch/csrc/gridpack.cpp "
+                           "is built at first use")
+    path = kern._library_path("gridpack", SOURCE, " ".join([cxx, *CXX_FLAGS]))
+    info = kern.build_libraries(
+        {"gridpack": (path, lambda out: [cxx, *CXX_FLAGS, "-o", out, SOURCE])})["gridpack"]
+    info.update(compiler=cxx, flags=list(CXX_FLAGS))
+    return info
+
+
+def _load():
+    """The library, built at first use, with its two C functions typed.
+    Keyed by $CXX as set, so a call finds a loaded library without
+    searching the PATH for the compiler again."""
+    key = os.environ.get("CXX", "")
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(build_packer()["path"])
+    i64, i32, f32, f64 = (
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_double),
+    )
+    lib.gridpack_prepare_batch.restype = ctypes.c_int
+    lib.gridpack_prepare_batch.argtypes = [
+        f64, i64, i64,  # bus_raw, bus_cols, max_nb
+        f64, i64, i64,  # br_raw, br_cols, max_ne
+        f64, i64, i64,  # gen_raw, gen_cols, max_ng
+        ctypes.POINTER(ctypes.c_int64),  # dims
+        f64,  # base_mva
+        i64, ctypes.c_int,  # s, paper_shunts
+        i64, i64, i64,  # pad_n, pad_e, pad_g
+        f32, f32, f32,  # buses, lines, gens
+        f32, f32, f32,  # masks
+        i32,  # n_bus_out
+        ctypes.c_int,  # n_threads
+    ]
+    lib.gridpack_csr_by_dst.restype = ctypes.c_int
+    lib.gridpack_csr_by_dst.argtypes = [f32, i64, i64, i32, i32]
+    _libs[key] = lib
+    return lib
+
+
+def _ptr(a, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def pack_batch(
+    cases: List[dict],
+    pad_sizes: Optional[Tuple[int, int, int]] = None,
+    paper_shunts: bool = True,
+    n_threads: Optional[int] = None,
+) -> GridBatch:
+    """The native equivalent of prepare_case + _stack_to_batch
+    (utils/prepare.py batch_from_cases), bit for bit: a GridBatch of numpy
+    arrays. pad_sizes: (N, E, G) at least the grids' largest; E >= N is
+    enforced. Raises RuntimeError if the library cannot be built."""
+    lib = _load()
+    s = len(cases)
+    dims = np.zeros((s, 3), np.int64)
+    base = np.zeros((s,), np.float64)
+    for i, c in enumerate(cases):
+        dims[i] = (c["bus"].shape[0], c["branch"].shape[0], c["gen"].shape[0])
+        base[i] = c["baseMVA"]
+    max_nb, max_ne, max_ng = dims.max(axis=0)
+
+    # the raw float64 tables staged into contiguous slabs
+    bus_cols = max(c["bus"].shape[1] for c in cases)
+    br_cols = max(c["branch"].shape[1] for c in cases)
+    gen_cols = max(c["gen"].shape[1] for c in cases)
+    bus_raw = np.zeros((s, max_nb, bus_cols), np.float64)
+    br_raw = np.zeros((s, max_ne, br_cols), np.float64)
+    gen_raw = np.zeros((s, max_ng, gen_cols), np.float64)
+    for i, c in enumerate(cases):
+        nb, ne, ng = dims[i]
+        bus_raw[i, :nb, : c["bus"].shape[1]] = c["bus"]
+        br_raw[i, :ne, : c["branch"].shape[1]] = c["branch"]
+        gen_raw[i, :ng, : c["gen"].shape[1]] = c["gen"]
+
+    if pad_sizes is None:
+        pad_n, pad_e, pad_g = int(max_nb), int(max_ne), int(max_ng)
+    else:
+        pad_n, pad_e, pad_g = pad_sizes
+    pad_e = max(pad_e, pad_n)  # E >= N invariant
+
+    buses = np.empty((s, pad_n, 6), np.float32)
+    lines = np.empty((s, pad_e, 7), np.float32)
+    gens = np.empty((s, pad_g, 7), np.float32)
+    bus_mask = np.empty((s, pad_n), np.float32)
+    line_mask = np.empty((s, pad_e), np.float32)
+    gen_mask = np.empty((s, pad_g), np.float32)
+    n_bus = np.empty((s,), np.int32)
+
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 1, 16)
+
+    rc = lib.gridpack_prepare_batch(
+        _ptr(bus_raw, ctypes.c_double), bus_cols, max_nb,
+        _ptr(br_raw, ctypes.c_double), br_cols, max_ne,
+        _ptr(gen_raw, ctypes.c_double), gen_cols, max_ng,
+        _ptr(dims, ctypes.c_int64),
+        _ptr(base, ctypes.c_double),
+        s, int(paper_shunts),
+        pad_n, pad_e, pad_g,
+        _ptr(buses, ctypes.c_float), _ptr(lines, ctypes.c_float),
+        _ptr(gens, ctypes.c_float),
+        _ptr(bus_mask, ctypes.c_float), _ptr(line_mask, ctypes.c_float),
+        _ptr(gen_mask, ctypes.c_float),
+        _ptr(n_bus, ctypes.c_int32),
+        n_threads,
+    )
+    if rc != 0:
+        raise RuntimeError(f"gridpack_prepare_batch failed with code {rc}")
+    return GridBatch(buses, lines, gens, bus_mask, line_mask, gen_mask, n_bus)
+
+
+def csr_by_dst_numpy(lines: np.ndarray, n_bus: int):
+    """csr_by_dst's numpy path (a stable argsort by destination bus)."""
+    dst = np.asarray(lines, np.float32)[:, 1].astype(np.int32) - 1
+    order = np.argsort(dst, kind="stable").astype(np.int32)
+    indptr = np.zeros(n_bus + 1, np.int32)
+    np.add.at(indptr, dst + 1, 1)
+    return order, np.cumsum(indptr, dtype=np.int32)
+
+
+def csr_by_dst(lines: np.ndarray, n_bus: int):
+    """Edge permutation sorted by destination bus (stable) and the CSR
+    indptr. lines: one prepared (E, 7) float32 array. Returns (order (E,)
+    int32, indptr (N + 1,) int32); the numpy path when the library cannot
+    be built."""
+    lines = np.ascontiguousarray(lines, np.float32)
+    try:
+        lib = _load()
+    except RuntimeError:
+        return csr_by_dst_numpy(lines, n_bus)
+    e = lines.shape[0]
+    order = np.empty((e,), np.int32)
+    indptr = np.empty((n_bus + 1,), np.int32)
+    rc = lib.gridpack_csr_by_dst(
+        _ptr(lines, ctypes.c_float), e, n_bus,
+        _ptr(order, ctypes.c_int32), _ptr(indptr, ctypes.c_int32),
+    )
+    if rc != 0:
+        raise RuntimeError(f"gridpack_csr_by_dst failed with code {rc}")
+    return order, indptr

@@ -33,3 +33,10 @@ N_LINE_FEATURES = 5
 BUS_TYPE_PQ = 1
 BUS_TYPE_PV = 2
 BUS_TYPE_SLACK = 3
+
+
+def get_BLG():
+    """The (B, L, G) column-index dicts, as the reference's GNS/utils.py:4-13
+    returns them (gns_tpu/utils/schema.py:40); new code imports BUS / LINE /
+    GEN."""
+    return dict(BUS), dict(LINE), dict(GEN)

@@ -122,3 +122,153 @@ def test_geometry_flows_and_dispatch_match():
                                 torch.from_numpy(gm))
         ref = jax.vmap(j_lambda)(jnp.asarray(p_global), gens, gm)
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+
+
+# ---- the refresh's lowerings: method="degree", _STACK_GATHER, _STACK_AGG --
+
+import gns_tpu.physics.fused as j_fused  # noqa: E402
+import gns_torch.physics.fused as fused  # noqa: E402
+
+# (reference_parity, method, _STACK_GATHER, _STACK_AGG)
+LOWERINGS = {
+    "degree_parity": (True, "degree", False, False),
+    "degree_paper": (False, "degree", False, False),
+    "stack_gather": (False, "auto", True, False),
+    "stack_agg": (False, "auto", False, True),
+    "stack_both": (False, "auto", True, True),
+}
+# Gradients of the loss wrt v and theta: gns_tpu's own bound for its
+# stacked paths against the unstacked one (tests/test_ops.py:161-163); the
+# stacked sum adds each bus's rows in another order.
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def switches(monkeypatch):
+    """Set the stacking switches of both packages; monkeypatch restores them."""
+    def set_(gather_on, agg_on):
+        for mod in (fused, j_fused):
+            monkeypatch.setattr(mod, "_STACK_GATHER", gather_on)
+            monkeypatch.setattr(mod, "_STACK_AGG", agg_on)
+    return set_
+
+
+def _refresh_both(batch, v, theta, parity, method, masks):
+    """(forward, (dL/dv, dL/dtheta)) of the port and of gns_tpu, with the
+    loss gns_tpu's test uses: the sum of squares of qg_new, delta_p and
+    delta_q. gns_tpu gets the shared topology where there is one (its
+    'degree' needs host-known ids)."""
+    kw = dict(reference_parity=parity, qg_gen_only=not parity)
+    topo = None if masks else extract_shared_topology(batch)
+    j_topo = None if topo is None else (topo.src, topo.dst, topo.gen_idx)
+
+    def j_loss(v1, th1, b, l, g, bm, lm, gm):
+        out = j_refresh(v1, th1, b, l, g, method=method if method == "degree" else "scatter",
+                        topo=j_topo, bus_mask=bm if masks else None,
+                        line_mask=lm if masks else None, gen_mask=gm if masks else None, **kw)
+        return sum((x ** 2).sum() for x in out[1:]), out
+
+    def j_one(*a):
+        (_, out), grads = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(*a)
+        return out, grads
+
+    ref, ref_grads = jax.vmap(j_one)(v, theta, batch.buses, batch.lines, batch.generators,
+                                     batch.bus_mask, batch.line_mask, batch.gen_mask)
+    graph = build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu")
+    bt = batch_tensors(batch, "cpu")
+    vt = torch.from_numpy(v).requires_grad_(True)
+    tt = torch.from_numpy(theta).requires_grad_(True)
+    out = physics_refresh(
+        vt, tt, bt.buses, bt.lines, bt.generators, graph, method=method,
+        bus_mask=bt.bus_mask if masks else None, line_mask=bt.line_mask if masks else None,
+        gen_mask=bt.gen_mask if masks else None, **kw)
+    grads = torch.autograd.grad(sum((x ** 2).sum() for x in out[1:]), (vt, tt))
+    return ((out, grads), (ref, ref_grads))
+
+
+@pytest.mark.parametrize("lowering", sorted(LOWERINGS))
+@pytest.mark.parametrize("mixed", [False, True])
+def test_refresh_lowerings_match_gns_tpu(lowering, mixed, switches):
+    """physics_refresh with method="degree" (both modes) and each stacking
+    switch (paper mode) against gns_tpu's refresh with the same setting:
+    forward within TOL, the gradients of the loss wrt v and theta within
+    GRAD_TOL."""
+    parity, method, gather_on, agg_on = LOWERINGS[lowering]
+    switches(gather_on, agg_on)
+    batch = _batch(mixed)
+    v, theta = _state(batch, 7)
+    (out, grads), (ref, ref_grads) = _refresh_both(batch, v, theta, parity, method, masks=mixed)
+    for name, a, b in zip(("pg_new", "qg_new", "delta_p", "delta_q"), out, ref):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), err_msg=name, **TOL)
+    for name, a, b in zip(("v", "theta"), grads, ref_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=f"d/d{name}", **GRAD_TOL)
+
+
+@pytest.mark.parametrize("parity", [True, False])
+def test_refresh_degree_equals_auto(parity):
+    """The port's "degree" runs the same sums and gathers as "auto": its
+    outputs are bit-equal, and stacking stays off under it."""
+    batch = _batch(False)
+    v, theta = _state(batch, 8)
+    bt = batch_tensors(batch, "cpu")
+    graph = build_graph(batch.buses, batch.lines, batch.generators,
+                        extract_shared_topology(batch), "cpu")
+    kw = dict(reference_parity=parity)
+    args = (torch.from_numpy(v), torch.from_numpy(theta), bt.buses, bt.lines, bt.generators,
+            graph)
+    auto = physics_refresh(*args, method="auto", **kw)
+    degree = physics_refresh(*args, method="degree", **kw)
+    for a, b in zip(auto, degree):
+        assert torch.equal(a, b)
+
+
+def test_stack_switch_needs_its_index(switches):
+    """A Graph built while a switch was off has no stacked index: the
+    refresh raises instead of running the other lowering; one built after
+    the switch has it."""
+    batch = _batch(False)
+    v, theta = _state(batch, 9)
+    bt = batch_tensors(batch, "cpu")
+    topo = extract_shared_topology(batch)
+    graph = build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu")
+    assert graph.src_dst is None and graph.src_dst_gen is None
+    args = (torch.from_numpy(v), torch.from_numpy(theta), bt.buses, bt.lines, bt.generators)
+    for flags in ((True, False), (False, True)):
+        switches(*flags)
+        with pytest.raises(ValueError, match="built while it was off"):
+            physics_refresh(*args, graph, reference_parity=False)
+        rebuilt = build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu")
+        assert (rebuilt.src_dst is not None) == flags[0]
+        assert (rebuilt.src_dst_gen is not None) == flags[1]
+        physics_refresh(*args, rebuilt, reference_parity=False)
+        # parity mode and "degree" never stack, so the old Graph serves them
+        physics_refresh(*args, graph, reference_parity=True)
+        physics_refresh(*args, graph, reference_parity=False, method="degree")
+
+
+def test_train_step_rebuilds_after_a_switch_flips(switches):
+    """make_train_step's Graph cache is keyed by the switches: a step
+    taken after _STACK_AGG flips builds its own Graph (with the stacked
+    index) instead of reusing the other setting's, and updates the state as
+    a step built fresh under that setting does."""
+    from gns_torch.train.trainer import init_train_state, make_train_step
+    from gns_torch.utils.config import GNSConfig
+
+    batch = _batch(False)
+    topo = extract_shared_topology(batch)
+    cfg = GNSConfig(case_nr=30, K=2, latent_dim=4, hidden_dim=4, reference_parity=False,
+                    qg_gen_only=True, batch_size=3)
+    switches(False, False)
+    step = make_train_step(cfg, topo=topo, dense=True)
+    state = init_train_state(0, cfg, device="cpu")
+    step(state, batch)
+    switches(False, True)
+    _, m_flipped = step(state, batch)  # reusing the old Graph would raise here
+    switches(False, False)
+    state2 = init_train_state(0, cfg, device="cpu")
+    step(state2, batch)
+    switches(False, True)
+    _, m_fresh = make_train_step(cfg, topo=topo, dense=True)(state2, batch)
+    assert torch.equal(m_flipped["loss"], m_fresh["loss"])
+    for a, b in zip(state.model.parameters(), state2.model.parameters()):
+        assert torch.equal(a, b)
