@@ -7,9 +7,10 @@ parallel and dataset paths on one NVIDIA GPU (an H100) and check them.
 Phases, each printing its own lines; any failure exits non-zero:
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit.
-  2. build: compiles the three CUDA sources of gns_torch/csrc (segment.cu:
-     K1, K2; fused_edge.cu: K3; megakernel.cu: K4) with nvcc for sm_90a,
-     one nvcc each, all started together, timed.
+  2. build: compiles the CUDA sources of gns_torch/csrc (segment.cu: K1,
+     K2; fused_edge.cu: K3 and megakernel.cu: K4, each once per (latent,
+     hidden) width of WIDTHS) with nvcc for sm_90a, one nvcc per library,
+     all started together, timed; ptxas's registers and spills printed.
   3. kernels: K1 (segment-sum) and K2 (gather) against their plain twins on
      random data at the serving path's case300 index sets (S=1024,
      D in {1, 2, 4, 20, 60}, float32 and bfloat16 data), and each kernel's
@@ -48,6 +49,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      L=40, H=10) on the same requests: one K4 launch and no K1/K2, against
      its plain twin on the CPU (K4_DEEP_CARD_VS_CPU) and its float32
      forward (DEEP_VS_F32), its shared bytes per grid and grids per SM.
+ 7b. widths: K3 and K4 at (latent, hidden) = (8, 8) (gns_tpu's K3 test
+     width), (10, 10) (the reference's default) and (33, 24) (an odd
+     latent, hidden over two k-tiles), weights from GNS(cfg, seed=0), K=4:
+     K3 as in phase 6 (forward, backward, hub index; K3_FWD, K3_GRAD), K4
+     on the 1024 requests as in phase 7 (one K4 launch, K4_CARD_VS_CPU, or
+     K4_WIDTH_CARD_VS_CPU beside the eager bfloat16 path's card-vs-CPU
+     reading that justifies it, shared bytes per grid from the library,
+     HMMA in its SASS); each with its build seconds, ptxas registers and
+     spills, blocks per SM, device time against its bound and its plain
+     twin. Then K4 at (64, 32), the widest width it takes: a case300 grid
+     needs more shared memory than a block holds, so the forward raises
+     with the library's byte count and launches nothing.
   8. timing: predict grids/s, forward grids/s, the device's busy and idle
      share of the forward from one profiler trace, each kernel against its
      bound, its plain twin and one PyTorch library call where one computes
@@ -195,7 +208,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      called with a stacking switch on, capturing anew (its launches).
 Then one JSON line with every kernel's numbers (K1 / K2 with each rank's
 launches per phase-14 path under "parallel_launches" and the data phase's
-under "data_launches"), and last the {"ok": true, "device": ...} line.
+under "data_launches"; K3 and K4 an entry per width), and last the
+{"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
@@ -250,6 +264,20 @@ K4_DEEP_CARD_VS_CPU = (
     ("v", 5e-2, 8e-3), ("theta", 6e-3, 3e-3), ("delta_p", 0.45, None),
     ("delta_q", 2.5e-5, None), ("total_loss", 1.5e-3, 1.5e-3), ("last_loss", 1e-3, 6e-4),
 )
+# K4 at the widths of phase 7b, card vs its plain twin on the CPU, where a
+# width cannot meet K4_CARD_VS_CPU: {width: bounds as K4_CARD_VS_CPU}. At
+# (8, 8), with GNS(cfg, seed=0)'s random weights, the NVIDIA H100 80GB HBM3
+# read delta_p 2.137e-01 worst, total_loss 1.211e-01 and 4.801e-02 at
+# p99.9, last_loss 1.085e-01 and 3.993e-02; the port's own eager bfloat16
+# forward, card vs CPU on the same weights, read as much or more (delta_p
+# 4.401e-01, total_loss 1.033e-01 / 4.884e-02, last_loss 1.170e-01 /
+# 4.700e-02): a flipped bf16 rounding carried by the steps, at losses of
+# an untrained model. Those three take about three times K4's reading; v,
+# theta and delta_q keep K4_CARD_VS_CPU's.
+K4_WIDTH_CARD_VS_CPU = {
+    (8, 8): (("v", 7.5e-2, 2e-3), ("theta", 5e-3, 4e-3), ("delta_p", 0.65, None),
+             ("delta_q", 1.5e-5, None), ("total_loss", 0.36, 0.15), ("last_loss", 0.33, 0.12)),
+}
 # 300-deep's bf16 MLPs against its float32 forward, a sanity bound (rtol,
 # atol): on these 1024 grids K4 on the NVIDIA H100 80GB HBM3 differs from
 # the float32 forward by v 0.1017, theta 0.0223 and last_loss 1.35e-3 at
@@ -302,6 +330,15 @@ N2_ORACLE_PAIRS = 64  # converged N-2 pairs, drawn with a seed, held against the
 # held to what that bound lets them move (screen_sev_bound).
 SCREEN_V_RTOL = SCREEN_V_ATOL = 2e-4
 K3_FWD = dict(rtol=1e-5, atol=1e-5)  # exact float32; dot products add in another order
+# The (latent, hidden) widths K3 and K4 are built and held at: the shipped
+# checkpoints' (20, 10) and (40, 10), then gns_tpu's own K3 test width (8,
+# 8), the reference's default (10, 10) and an odd latent with hidden > 16
+# (33, 24), these three from random weights made from a seed (phase 7b).
+WIDTHS = ((20, 10), (40, 10), (8, 8), (10, 10), (33, 24))
+NEW_WIDTHS = WIDTHS[2:]
+# The widest width K3 and K4 take; K4 is built there too, for its grid limit
+# (phase 7b, k4_grid_limit).
+LIMIT_WIDTH = (64, 32)
 K3_GRAD = dict(rtol=2e-4, atol=1e-5)  # tests/test_fused.py:61
 S_TRAIN = 256  # bench.py's batch
 TRAIN_STEPS = 20
@@ -345,6 +382,9 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+SPIN_CYCLES = 20_000  # torch.cuda._sleep's spin that opens and closes a device_us trace
+
+
 def device_us(fn, reps: int = 20, pattern: str = ""):
     """Kernel-only device time of fn: the durations of the device
     activities the profiler traced over `reps` calls (host launch gaps
@@ -360,23 +400,31 @@ def device_us(fn, reps: int = 20, pattern: str = ""):
     # counts when each kind of activity numbers a whole multiple of `reps`;
     # else trace again, up to six times, and fail after six short traces.
     # (After the train phase it has left one activity out of nearly every
-    # trace of the same process, so the train phase's readings are taken in
-    # a process of their own: phase_train_child.)
+    # trace of the same process, so its readings are taken in a process of
+    # its own: phase_train_child.) A short spin kernel opens and closes each
+    # trace, so that an activity left out at either end is one of them;
+    # they are not counted.
     for attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
         kinds = collections.defaultdict(list)
+        spins = 0
         for ev in prof.events():
-            if (ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
-                    and pattern in ev.name):
+            if ev.device_type != DeviceType.CUDA or ev.time_range.end <= ev.time_range.start:
+                continue
+            if "spin_kernel" in ev.name:
+                spins += 1
+            elif pattern in ev.name:
                 kinds[ev.name].append(ev.time_range.end - ev.time_range.start)
         n = sum(map(len, kinds.values()))
         if n and all(len(spans) % reps == 0 for spans in kinds.values()):
             return sum(map(sum, kinds.values())) / reps, n / reps
         log(f"[timing] trace {attempt + 1} of 6 recorded {n} device activities matching "
-            f"{pattern!r} over {reps} calls: not the same number per call")
+            f"{pattern!r} over {reps} calls, {spins} of its 2 spins: not the same number per call")
     fail(f"the profiler did not record every call's device activity ({pattern!r}) in six traces")
 
 
@@ -464,21 +512,50 @@ def phase_device() -> str:
 
 
 def phase_build(kern) -> dict:
-    """Builds every source; returns {name: (library path, ptxas lines)}."""
+    """Builds segment.cu, K3 and K4 at every width of WIDTHS and K4 at
+    LIMIT_WIDTH, one nvcc per library, all started together; returns
+    {library: (path, ptxas lines, seconds, ptxas entries)}, a library keyed
+    "segment" or (name, width)."""
     t0 = time.perf_counter()
-    info = kern.build_kernels()
-    check(set(info) == set(kern.SOURCES), f"built {sorted(info)}, sources {sorted(kern.SOURCES)}")
+    libs = [name for name in kern.SOURCES if name not in kern.WIDTHED]
+    libs += [(name, width) for name in kern.WIDTHED for width in WIDTHS]
+    libs.append(("megakernel", LIMIT_WIDTH))
+    info = kern.build_kernels(libs)
+    check(set(info) == set(libs), f"built {sorted(map(str, info))}, wanted {sorted(map(str, libs))}")
     built = {}
-    for name, one in info.items():
+    for lib, one in info.items():
         log(f"[build] {os.path.relpath(one['path'])} built in {one['seconds']:.2f} s")
         lines = [line.strip() for line in one["log"].splitlines()
                  if "registers" in line or "spill" in line or "entry function" in line
                  or "error" in line.lower()]
         for line in lines:
             log(f"[build]   {line}")
-        built[name] = (one["path"], lines)
-    log(f"[build] {len(info)} sources in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+        built[lib] = (one["path"], lines, one["seconds"], ptxas_entries(one["log"]))
+    log(f"[build] {len(info)} libraries in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     return built
+
+
+def ptxas_entries(log_text: str) -> list:
+    """ptxas's report per entry function of a build log: [(name,
+    registers, spill store bytes, spill load bytes)]."""
+    import re
+
+    out, cur = [], None
+    for line in log_text.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            cur = [hit.group(1), None, None, None]
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if hit:
+            cur[2], cur[3] = int(hit.group(1)), int(hit.group(2))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            cur[1] = int(hit.group(1))
+    return [tuple(e) for e in out]
 
 
 def case300_indices():
@@ -829,13 +906,15 @@ def k3_problem(model, seed: int = 0):
     return m, feats, line_mask, SegmentIndex(topo.dst, n, "cuda"), heads, topo
 
 
-def phase_fused(kern, model, errs, built):
-    """K3 through its public entry point: forward and autograd backward on
-    the card; returns the forward's K3 launch count."""
+def hold_k3(kern, model, errs, tag: str = "fused", seed: int = 0) -> int:
+    """K3 through its public entry point at the model's width: forward and
+    autograd backward on the card, against the plain twin on the CPU and
+    the card (K3_FWD) and the CPU autograd (K3_GRAD), then on a made-up
+    hub index; returns the forward's K3 launch count."""
     from gns_torch.ops import fused
     from gns_torch.ops.segment import SegmentIndex
 
-    m, feats, line_mask, idx, heads, topo = k3_problem(model)
+    m, feats, line_mask, idx, heads, topo = k3_problem(model, seed)
     params = [m, feats, line_mask] + fused._weights(heads)
     for t in params:
         t.requires_grad_(True)
@@ -845,14 +924,14 @@ def phase_fused(kern, model, errs, built):
         torch.cuda.synchronize()
         fwd = counts()
         want = {"K1": 0, "K2": 0, "K3": 1, "K4": 0}
-        log(f"[fused] forward launches {fwd} (expected {want})")
+        log(f"[{tag}] forward launches {fwd} (expected {want})")
         check(fwd == want, f"K3 forward launches {fwd} != {want}")
         sum((o * o).sum() for o in out).backward()
         torch.cuda.synchronize()
     bwd = {k: v - fwd[k] for k, v in counts().items()}
     # the recompute: 1 K2 gather and 3 K1 sums; their adjoints: 3 K2 and 1 K1
     want = {"K1": 4, "K2": 4, "K3": 0, "K4": 0}
-    log(f"[fused] backward launches {bwd} (expected {want}; no plain twin ran on the card)")
+    log(f"[{tag}] backward launches {bwd} (expected {want}; no plain twin ran on the card)")
     check(bwd == want, f"K3 backward launches {bwd} != {want}")
 
     cpu = [t.detach().cpu().requires_grad_(True) for t in params]
@@ -870,7 +949,7 @@ def phase_fused(kern, model, errs, built):
         card_err = (got - card).abs().max().item()
         errs["K3"] = max(errs["K3"], err, card_err)
         ok = torch.allclose(got.cpu(), want_o.detach(), **K3_FWD) and torch.allclose(got, card, **K3_FWD)
-        log(f"[fused] {name} max_abs_err {err:.3e} vs the plain twin on the CPU, {card_err:.3e} "
+        log(f"[{tag}] {name} max_abs_err {err:.3e} vs the plain twin on the CPU, {card_err:.3e} "
             f"on the card (rtol {K3_FWD['rtol']:g} atol {K3_FWD['atol']:g}) {'ok' if ok else 'MISMATCH'}")
         check(ok, f"K3 {name} disagrees with its plain twin")
     labels = ["m", "feats", "line_mask"] + [f"{h}.{n}" for h in fused.PHI_HEADS for n in fused._PARAMS]
@@ -883,9 +962,9 @@ def phase_fused(kern, model, errs, built):
             worst, worst_label = share, label
         ok = torch.allclose(t.grad.cpu(), c.grad, **K3_GRAD)
         if not ok:
-            log(f"[fused] grad {label} uses {share:.3f} of its tolerance MISMATCH")
+            log(f"[{tag}] grad {label} uses {share:.3f} of its tolerance MISMATCH")
         check(ok, f"K3 backward: grad of {label} disagrees with the CPU autograd")
-    log(f"[fused] backward: all {len(labels)} gradients within rtol {K3_GRAD['rtol']:g} "
+    log(f"[{tag}] backward: all {len(labels)} gradients within rtol {K3_GRAD['rtol']:g} "
         f"atol {K3_GRAD['atol']:g} of the plain twin's autograd on the CPU (the worst, "
         f"{worst_label}, uses {worst:.3f} of its tolerance)")
 
@@ -912,15 +991,25 @@ def phase_fused(kern, model, errs, built):
         err = max((g.cpu() - w).abs().max().item(), (g - c).abs().max().item())
         errs["K3"] = max(errs["K3"], err)
         ok = torch.allclose(g.cpu(), w, **K3_FWD) and torch.allclose(g, c, **K3_FWD)
-        log(f"[fused] hub index (70-edge bus, S=64) {name} max_abs_err {err:.3e} "
+        log(f"[{tag}] hub index (70-edge bus, S=64) {name} max_abs_err {err:.3e} "
             f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"K3 {name} on the hub index disagrees with its plain twin")
-
-    spills = [line for line in built["fused_edge"][1] if "spill" in line]
-    log(f"[fused] ptxas: " + " | ".join(built["fused_edge"][1]))
-    check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills),
-          "K3's ptxas report shows spills (or none was printed)")
     return fwd["K3"]
+
+
+def phase_fused(kern, model, errs, built):
+    """K3 at (20, 10) through hold_k3 with the shipped checkpoint's heads;
+    ptxas must report no spill for K3 at (20, 10) or (40, 10). Returns the
+    forward's K3 launch count."""
+    launches = hold_k3(kern, model, errs)
+    for width in ((20, 10), (40, 10)):
+        lines = built[("fused_edge", width)][1]
+        spills = [line for line in lines if "spill" in line]
+        log(f"[fused] ptxas at {width}: " + " | ".join(lines))
+        check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in line
+                                   for line in spills),
+              f"K3's ptxas report at {width} shows spills (or none was printed)")
+    return launches
 
 
 def phase_fused_deep(kern, deep, errs):
@@ -991,7 +1080,7 @@ def phase_megakernel(kern, cases, model, cfg, errs, built, bf16_readings):
     batch = batch_from_cases(cases)
     topo = extract_shared_topology(batch)
     check(topo is not None, "the case300 requests do not share a topology")
-    path, ptxas = built["megakernel"]
+    path, ptxas = built[("megakernel", (20, 10))][:2]
     shared, per_sm = megakernel_occupancy(megakernel_inputs(model, cfg, batch, topo))
     log(f"[megakernel] case300 grid: {shared} bytes of shared memory per grid, "
         f"{per_sm} grids resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
@@ -1086,11 +1175,14 @@ def time_k4(model, cfg, inp) -> dict:
             block[w].numel() for w in ("w1", "w2", "w4"))
     flops = 2 * s * k * (e * macs["edge"] + n * macs["bus"])
     # what K4's tiles multiply, padding included (not the bound): per 16-row
-    # phi tile 3 NH KP + 3 NH + 3 NL mma of 16 x 8 x 16 (27 at L=20), per
-    # work item's 16-bus L tile 3 NH KL + 3 NH + 2 + NL (29 at L=20)
+    # phi tile 3 NH KP + 3 NH KH + 3 NL KH mma of 16 x 8 x 16 (27 at L=20),
+    # per work item's 16-bus L tile 3 NH KL + 3 NH KH + (2 + NL) KH (29)
+    from gns_torch.ops.megakernel import tile_dims
+
     latent = cfg.latent_dim
-    kp, kl, nl = -(-(latent + 5) // 16), -(-(4 + 2 * latent) // 16), -(-latent // 8)
-    per_phi, per_l = 6 * kp + 6 + 3 * nl, 6 * kl + 6 + 2 + nl
+    d = tile_dims(latent, cfg.hidden_dim)
+    per_phi = 3 * d.nh * d.kp + 3 * d.nh * d.kh + 3 * d.nl * d.kh
+    per_l = 3 * d.nh * d.kl + 3 * d.nh * d.kh + (2 + d.nl) * d.kh
     items = inp.items.cpu().numpy()
     phi_tiles = int(sum(-(-int(r1 - r0) // 16) for r0, r1 in items[:, 2:]))
     tile_flops = 2 * s * k * 16 * 8 * 16 * (per_phi * phi_tiles + per_l * len(items))
@@ -1156,6 +1248,158 @@ def phase_megakernel_deep(kern, cases, deep, deep_cfg, errs):
               getattr(f32, key).cpu().numpy(), rtol, atol, key)
 
 
+def ptxas_default(entries) -> tuple:
+    """(registers, spill store bytes, spill load bytes) of a library's
+    default kernel instance: K3's without the clocks (its CLOCKS instance
+    mangles as Lb1E), K4's only one."""
+    default = [e for e in entries if "Lb1E" not in e[0]]
+    check(len(default) == 1, f"ptxas reported {len(default)} default kernel instances: {entries}")
+    return default[0][1:]
+
+
+def phase_widths(kern, cases, built, card, widths) -> dict:
+    """Phase 7b: K3 and K4 at each of `widths`, weights from
+    GNS(cfg, seed=0) (random, the same on the card and the CPU), K=4,
+    multiple phi, reference parity. K3 through hold_k3 (case300 dst
+    index, S=1024: forward and backward, the hub index); K4 through
+    megakernel_forward_batch on the 1024 serving requests: one K4 launch
+    and no K1 / K2, against its plain twin on the CPU (K4_CARD_VS_CPU, or
+    the width's K4_WIDTH_CARD_VS_CPU beside the eager bfloat16 path's
+    card-vs-CPU reading on the same weights, which justifies it),
+    its shared bytes per grid and grids per SM from the library, HMMA in
+    its SASS. Then each timed against its bound and plain twin (time_k3,
+    time_k4), beside its build seconds, ptxas registers and spills and
+    blocks per SM. Last, K4 at LIMIT_WIDTH (k4_grid_limit). Returns
+    {(kernel, width): readings}."""
+    from gns_torch.models.gns import GNS, gns_forward_batch
+    from gns_torch.ops import fused
+    from gns_torch.ops import megakernel as mk
+    from gns_torch.utils.config import GNSConfig
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    batch = batch_from_cases(cases)
+    topo = extract_shared_topology(batch)
+    out = {}
+    for width in widths:
+        latent, hidden = width
+        tag = f"widths L{latent} H{hidden}"
+        log(f"[{tag}] (card: {card})")
+        cfg = GNSConfig(K=4, latent_dim=latent, hidden_dim=hidden, multiple_phi=True,
+                        reference_parity=True)
+        model = GNS(cfg, seed=0, device="cuda")
+
+        errs = {"K3": 0.0}
+        launches = hold_k3(kern, model, errs, tag)
+        shared, per_sm, threads, sms = fused.fused_edge_occupancy(latent, hidden)
+        _, _, seconds, entries = built[("fused_edge", width)]
+        regs, stores, loads = ptxas_default(entries)
+        asked = kern.min_blocks("fused_edge", latent, hidden)
+        log(f"[{tag}] K3: built in {seconds:.2f} s; {asked} blocks per SM asked "
+            f"(__launch_bounds__), {per_sm} resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor); "
+            f"{regs} registers, {stores} / {loads} bytes spill stores / loads; {threads} threads and "
+            f"{shared} bytes of shared memory per block")
+        check(per_sm >= 1, f"K3 at {width} keeps no block resident")
+        m, feats, line_mask, idx, heads, _ = k3_problem(model, seed=1)
+        res = time_k3(m, feats, line_mask, idx, heads)
+        res.update(launches=launches, max_abs_err=errs["K3"], build_s=seconds, registers=regs,
+                   spill_bytes=stores + loads, blocks_per_sm=per_sm, shared_bytes=shared)
+        out[("K3", width)] = res
+        del m, feats, line_mask, idx, heads
+
+        with torch.no_grad():
+            inp = mk.megakernel_inputs(model, cfg, batch, topo)
+        shared, per_sm = mk.megakernel_occupancy(inp)
+        path, _, seconds, entries = built[("megakernel", width)]
+        regs, stores, loads = ptxas_default(entries)
+        log(f"[{tag}] K4: built in {seconds:.2f} s; case300 grid {shared} bytes of shared memory, "
+            f"{per_sm} grids resident per SM, {kern.min_blocks('megakernel', latent, hidden)} "
+            f"asked; {regs} registers, {stores} / {loads} bytes spill stores / loads")
+        check(per_sm >= 1, f"K4 at {width} cannot keep a case300 grid resident ({per_sm})")
+        hmma = sass_hmma(path)
+        if hmma is None:
+            log(f"[{tag}] this toolkit has no cuobjdump: the SASS is not inspected")
+        else:
+            log(f"[{tag}] SASS of {os.path.basename(path)}: {hmma} HMMA instructions")
+            check(hmma > 0, f"K4's SASS at {width} has no HMMA instruction")
+        reset_counts()
+        with NoPlainTwins(kern), torch.no_grad():
+            got = mk.megakernel_forward_batch(model, cfg, batch, topo)
+            torch.cuda.synchronize()
+        c = counts()
+        want = {"K1": 0, "K2": 0, "K3": 0, "K4": 1}
+        log(f"[{tag}] K4 b{S_SERVE} launches {c} (expected {want})")
+        check(c == want, f"K4 launches at {width} {c} != {want}")
+        model_cpu = GNS(cfg, seed=0, device="cpu")
+        with torch.no_grad():
+            ref = mk.megakernel_forward_plain(model_cpu, cfg, batch, topo)
+        log(f"[{tag}] K4's plain twin: total_loss {float(ref.total_loss.min()):.4g} to "
+            f"{float(ref.total_loss.max()):.4g}, last_loss {float(ref.last_loss.min()):.4g} to "
+            f"{float(ref.last_loss.max()):.4g}, |delta_p| up to {float(ref.delta_p.abs().max()):.4g}")
+        eager = None
+        if width in K4_WIDTH_CARD_VS_CPU:
+            # what justifies the width's own bounds: the port's eager
+            # bfloat16 forward (fold on), card against CPU, on the same
+            # weights, deviates as much (BF16_CARD_VS_CPU's reading)
+            bf16 = cfg.replace(compute_dtype="bfloat16")
+            with torch.no_grad():
+                eager = (gns_forward_batch(model, bf16, batch, topo=topo, dense=batch.is_dense()),
+                         gns_forward_batch(model_cpu, bf16, batch, topo=topo,
+                                           dense=batch.is_dense()))
+        err = 0.0
+        for key, atol, p999 in K4_WIDTH_CARD_VS_CPU.get(width, K4_CARD_VS_CPU):
+            a, b = getattr(got, key).cpu().numpy(), getattr(ref, key).numpy()
+            err = max(err, float(np.abs(a.astype(np.float64) - b).max()))
+            if eager is not None:
+                e_err = np.abs(getattr(eager[0], key).cpu().numpy().astype(np.float64)
+                               - getattr(eager[1], key).numpy())
+                log(f"[{tag}] eager bfloat16 forward card vs cpu {key}: {float(e_err.max()):.3e} "
+                    f"worst, {float(np.quantile(e_err, 0.999)):.3e} at p99.9")
+            agree(tag, "K4 card vs plain twin on the cpu", a, b, 0.0, atol, key, p999)
+        res = time_k4(model, cfg, inp)
+        res.update(launches=c["K4"], max_abs_err=err, build_s=seconds, registers=regs,
+                   spill_bytes=stores + loads, grids_per_sm=per_sm, shared_bytes=shared)
+        out[("K4", width)] = res
+        del inp, got, ref, model
+    k4_grid_limit(kern, batch, topo, card)
+    return out
+
+
+def k4_grid_limit(kern, batch, topo, card) -> None:
+    """K4 at LIMIT_WIDTH on the serving batch: the library's bytes for one
+    case300 grid exceed what a block holds, so megakernel_forward_batch
+    raises with that count and nothing is launched, neither K4 nor a plain
+    twin (there is no fallback)."""
+    from gns_torch.models.gns import GNS
+    from gns_torch.ops import megakernel as mk
+    from gns_torch.utils.config import GNSConfig
+
+    latent, hidden = LIMIT_WIDTH
+    tag = f"widths L{latent} H{hidden}"
+    cfg = GNSConfig(K=4, latent_dim=latent, hidden_dim=hidden, multiple_phi=True,
+                    reference_parity=True)
+    model = GNS(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        inp = mk.megakernel_inputs(model, cfg, batch, topo)
+    shared, per_sm = mk.megakernel_occupancy(inp)
+    log(f"[{tag}] K4: a case300 grid needs {shared} bytes of shared memory (the library's "
+        f"Layout), {kern.MAX_SHARED_BYTES} fit a block; {per_sm} grids per SM (card: {card})")
+    check(shared > kern.MAX_SHARED_BYTES and per_sm == 0,
+          f"K4 at {LIMIT_WIDTH}: a case300 grid takes {shared} bytes, {per_sm} per SM")
+    reset_counts()
+    with NoPlainTwins(kern), torch.no_grad():
+        try:
+            mk.megakernel_forward_batch(model, cfg, batch, topo)
+        except ValueError as exc:
+            msg = str(exc)
+        else:
+            fail(f"K4 at {LIMIT_WIDTH} ran a case300 grid of {shared} bytes")
+    torch.cuda.synchronize()
+    c = counts()
+    log(f"[{tag}] megakernel_forward_batch raised: {msg}; launches {c}")
+    check(f"needs {shared} bytes" in msg, f"K4's error at {LIMIT_WIDTH} lacks its byte count")
+    check(not any(c.values()), f"K4 at {LIMIT_WIDTH} launched {c}")
+
+
 def phase_timing_k34(model, cfg, deep, deep_cfg, cases, forward_ms, card, built):
     """K3 and K4 at the main path's shapes, each against its bound and its
     plain twin on the card, and K4 beside the eager forwards; then both at
@@ -1182,7 +1426,7 @@ def phase_timing_k34(model, cfg, deep, deep_cfg, cases, forward_ms, card, built)
     shared, per_sm, threads, sms = fused.fused_edge_occupancy(latent, hidden)
     log(f"[timing] K3 occupancy: {threads} threads and {shared} bytes of shared memory per block, "
         f"{per_sm} blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
-        f"{sms} SMs; ptxas: " + " | ".join(built["fused_edge"][1]))
+        f"{sms} SMs; ptxas: " + " | ".join(built[("fused_edge", (20, 10))][1]))
     with torch.no_grad():
         clocks = torch.zeros((per_sm * sms * threads // 32, len(fused.CLOCK_PHASES)),
                              dtype=torch.int64, device="cuda")
@@ -1277,12 +1521,18 @@ def trace_busy(run, reps: int = 3, what: str = "forward", expect=None):
         return [start.elapsed_time(end) for start, end in marks]
 
     untraced = windows()
-    for attempt in range(6):  # as device_us: a trace that missed activity is traced again
+    # as device_us: a spin kernel, not counted, opens and closes each trace,
+    # and a trace that missed activity is traced again
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
             traced = windows()
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
         spans = sorted(
             (ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
             if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start
+            and "spin_kernel" not in ev.name
         )
         if complete(spans):
             break
@@ -1332,7 +1582,8 @@ def phase_profile(model, cfg, bt, graph, reps: int = 3):
         return getattr(r, "self_device_time_total", None) or getattr(r, "self_cuda_time_total", 0)
 
     rows = sorted(
-        (r for r in prof.key_averages() if r.device_type == DeviceType.CUDA),
+        (r for r in prof.key_averages()
+         if r.device_type == DeviceType.CUDA and "spin_kernel" not in r.key),
         key=lambda r: -dev_us(r),
     )
     total = sum(dev_us(r) for r in rows)
@@ -3873,10 +4124,14 @@ def main() -> int:
     phase_fused_deep(kern, deep, deep_errs)
     launches["K4"] = phase_megakernel(kern, cases, model, cfg, errs, built, bf16_readings)
     phase_megakernel_deep(kern, cases, deep, deep_cfg, deep_errs)
+    t0 = time.perf_counter()
+    widths = phase_widths(kern, cases, built, card, NEW_WIDTHS)
+    log(f"[widths] phase 7b took {time.perf_counter() - t0:.1f} s")
     timing, forward_ms = phase_timing(kern, seg, cases, model, cfg, card)
     timing.update(phase_timing_k34(model, cfg, deep, deep_cfg, cases, forward_ms, card, built))
     for k in ("K3", "K4"):
-        timing[k]["at_L40_H10"].update(max_abs_err=deep_errs[k], launches=1)
+        widths[(k, (40, 10))] = dict(timing[k].pop("at_L40_H10"), max_abs_err=deep_errs[k],
+                                     launches=1)
     del model, cases, deep
     train = phase_train(kern, seg, card)
     phase_train_child(train)
@@ -3901,7 +4156,8 @@ def main() -> int:
                      "K3": "fused_edge_stage forward", "K4": "megakernel_forward_batch"}
     for k, (name, source, replaces) in meta.items():
         kernels.append(dict(
-            name=f"{k} {name}", route="cuda", source=source,
+            name=f"{k} {name}" + (" (L=20, H=10)" if k in ("K3", "K4") else ""),
+            route="cuda", source=source,
             replaces=replaces, launches=launches[k], max_abs_err=errs[k], **timing[k],
             launches_from=launches_from[k],
             train_step_launches={tag: {"forward": r["forward"][k], "backward": r["backward"][k]}
@@ -3927,6 +4183,18 @@ def main() -> int:
                 eval=data["eval"]["launches"][k],
                 refresh_step={tag: r["forward"][k] + r["backward"][k]
                               for tag, r in data["refresh"].items()})
+    # K3 / K4 at the other widths: launches from the one forward of phase
+    # 7b (new widths; K3 forward and backward, K4 on the 1024 requests) or
+    # of phase 6 / 7 (`300-deep`, (40, 10))
+    for (k, (latent, hidden)), res in sorted(widths.items(), key=lambda kv: (kv[0][0], kv[0][1])):
+        name, source, replaces = meta[k]
+        kernels.append(dict(
+            name=f"{k} {name} (L={latent}, H={hidden})", route="cuda", source=source,
+            replaces=replaces, **res,
+            launches_from=("fused_edge_stage forward" if k == "K3" else
+                           "megakernel_forward_batch") + (
+                ", 300-deep" if (latent, hidden) == (40, 10) else ", random weights from a seed"),
+        ))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

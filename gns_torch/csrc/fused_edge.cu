@@ -41,20 +41,30 @@
 //     shared memory. For input i every lane reads the same word of four
 //     (or, for the last two of 10 outputs, two) outputs' weights, and each
 //     word feeds the FMAs of both edges: 8 FMAs per 16-byte load, no FMA on
-//     padding. At (L, H) = (20, 10): 147 registers, 4 warps a block, 3
-//     blocks per SM, no spill. At (40, 10) (the deep checkpoints) a lane
-//     holds 90 inputs and its block 57,408 bytes of shared memory, so the
-//     instance asks for 2 blocks per SM (MinBlocks), which leaves it up to
-//     255 registers.
+//     padding where a layer's last word is 2 wide. At (L, H) = (20, 10):
+//     148 registers (nvcc 12.9), 4 warps a block, 3 blocks per SM, no
+//     spill. At (40,
+//     10) (the deep checkpoints) a lane holds 90 inputs and its block
+//     57,408 bytes of shared memory, so the instance asks for 2 blocks per
+//     SM, which leaves it up to 255 registers.
+//   * One library per width: ops/segment_kernels.py builds this file for
+//     each (L, H) in [1, 64] x [1, 32] a caller needs, with GNS_LATENT,
+//     GNS_HIDDEN and GNS_MIN_BLOCKS (the blocks per SM __launch_bounds__
+//     asks for, segment_kernels.min_blocks: 3 while 2 (L + 5) + 4 H <= 90
+//     and L <= 25, else 2) defined on the command line.
 //   * Shared memory is dynamic (SharedLayout): at L = 40 it is over the 48
 //     KB a block may hold statically.
-//   * Per head, each lane writes its two rows of 20 masked outputs into
-//     the warp's own 64 x 20 staging rows (16-byte stores), then lane i
-//     sums bus b0 + i (and b0 + i + 32): its rows in CSR order from 0.0f in
-//     float32, the order of segment_sum_plain, kept in registers, stored
-//     as five 16-byte words. A run of buses is contiguous in out_h[s], so
-//     the warp's stores cover one contiguous range. A hub bus over several
-//     tiles carries its sums across tiles in shared memory.
+//   * Per head, each lane writes its two rows of masked outputs into the
+//     warp's own 64 staging rows of round4(L) floats (16-byte stores, zeros
+//     past L), then lane i sums bus b0 + i (and b0 + i + 32): its rows in
+//     CSR order from 0.0f in float32, the order of segment_sum_plain, kept
+//     in registers, and stores its L sums into the contiguous (S, N, L)
+//     output in the widest word a row's start allows: 16 bytes where L % 4
+//     == 0, 8 where L is even, else 4. (Not a padded (S, N, round4(L))
+//     output and a copy: that would write the sums twice.) A run of buses
+//     is contiguous in out_h[s], so the warp's stores cover one contiguous
+//     range. A hub bus over several tiles carries its sums across tiles in
+//     shared memory.
 //   * No block barrier after the weights' load: each warp syncs only itself.
 //   * With a `clocks` buffer the launch takes a second instance of the
 //     kernel (CLOCKS = true) whose warps also record their SM cycles
@@ -78,7 +88,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#if !defined(GNS_LATENT) || !defined(GNS_HIDDEN) || !defined(GNS_MIN_BLOCKS)
+#error "built per width: nvcc -DGNS_LATENT=L -DGNS_HIDDEN=H -DGNS_MIN_BLOCKS=B (ops/segment_kernels.py)"
+#endif
+
 namespace {
+
+constexpr int kLatent = GNS_LATENT, kHidden = GNS_HIDDEN;
+static_assert(kLatent >= 1 && kLatent <= 64 && kHidden >= 1 && kHidden <= 32,
+              "K3 takes L in [1, 64], H in [1, 32]");
 
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
@@ -86,11 +104,10 @@ constexpr int kEdges = 2;       // dst-CSR rows per lane
 constexpr int kRows = 32 * kEdges;  // rows per warp tile
 constexpr int kMaxDevices = 64;
 
-// Blocks resident per SM that an instance's __launch_bounds__ asks for:
+// Blocks resident per SM that the kernel's __launch_bounds__ asks for:
 // 3 (at most 170 registers a thread) at L = 20; 2 at L = 40, whose lane
 // holds 90 inputs across the three heads.
-template <int L>
-constexpr int MinBlocks() { return L <= 20 ? 3 : 2; }
+constexpr int kMinBlocks = GNS_MIN_BLOCKS;
 // `clocks` per warp: cycles reading inputs, in the MLPs, summing and
 // storing, and the units run.
 constexpr int kPhases = 4;
@@ -109,11 +126,12 @@ struct Pack {
 };
 
 // A block's dynamic shared memory, in floats: the three heads' weights, each
-// warp's staging rows and hub sums, then each warp's tile row pointers.
+// warp's staging rows (kRows x round4(L)) and hub sums, then each warp's
+// tile row pointers.
 template <int L, int H>
 struct SharedLayout {
   static constexpr int kW = 0, kStage = kW + 3 * Pack<L, H>::kSize;
-  static constexpr int kHub = kStage + kWarps * kRows * L, kPtr = kHub + kWarps * 3 * L;
+  static constexpr int kHub = kStage + kWarps * kRows * round4(L), kPtr = kHub + kWarps * 3 * L;
   static constexpr int kBytes = (kPtr + kWarps * (kRows + 1)) * 4;
   static_assert(kStage % 4 == 0 && kHub % 4 == 0, "16-byte aligned rows");
 };
@@ -190,7 +208,9 @@ __device__ __forceinline__ void hidden(const float* w, const float* b, float (&x
 }
 
 // One head's MLP on the lane's edges (inputs x, masks me); edge e's L
-// outputs times its mask go to row lane + 32 e of buf (16-byte words).
+// outputs times its mask go to row lane + 32 e of buf, whose rows are
+// round4(L) floats (16-byte words, zeros past L). The last word is
+// computed 2 wide where L % 4 <= 2, as in `hidden`.
 template <int L, int H>
 __device__ __forceinline__ void head_mlp(const float* hw, float (&x)[kEdges][L + 5],
                                          const float (&me)[kEdges], float slope, float* buf,
@@ -200,14 +220,25 @@ __device__ __forceinline__ void head_mlp(const float* hw, float (&x)[kEdges][L +
   hidden<P::F, H, P::HP>(hw + P::kW1, hw + P::kB1, x, slope, h1);
   hidden<H, H, P::HP>(hw + P::kW2, hw + P::kB2, h1, slope, h2);
 #pragma unroll
-  for (int g = 0; g < L / 4; ++g) {
-    layer<H, P::LP, 4>(hw + P::kW4, hw + P::kB4, h2, 4 * g, acc);
+  for (int g = 0; g < P::LP / 4; ++g) {
+    constexpr int kTail = L % 4 == 0 ? 4 : (L % 4 <= 2 ? 2 : 4);
+    if (4 * g + 4 <= L) layer<H, P::LP, 4>(hw + P::kW4, hw + P::kB4, h2, 4 * g, acc);
+    else layer<H, P::LP, kTail>(hw + P::kW4, hw + P::kB4, h2, 4 * g, acc);
 #pragma unroll
-    for (int e = 0; e < kEdges; ++e)
-      reinterpret_cast<float4*>(buf + (lane + 32 * e) * L)[g] =
-          make_float4(acc[e][0] * me[e], acc[e][1] * me[e], acc[e][2] * me[e], acc[e][3] * me[e]);
+    for (int e = 0; e < kEdges; ++e) {
+      float o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = 4 * g + k < L ? acc[e][k] * me[e] : 0.0f;
+      reinterpret_cast<float4*>(buf + (lane + 32 * e) * P::LP)[g] = make_float4(o[0], o[1], o[2], o[3]);
+    }
   }
 }
+
+// Floats per word in which a row of L floats is read from m and written to
+// the outputs: a row starts on a 16-byte word where L % 4 == 0 (the base
+// pointers being 16-byte aligned), on an 8-byte word where L is even.
+template <int L>
+__host__ __device__ constexpr int row_word() { return L % 4 == 0 ? 4 : (L % 2 == 0 ? 2 : 1); }
 
 // Inputs for dst-CSR row j of sample s: m[s, bus] then feats[s, e];
 // returns the mask.
@@ -220,11 +251,17 @@ __device__ __forceinline__ float load_edge(const float* __restrict__ m,
                                            int E, int j, bool m_vec, float* x) {
   const int e = __ldg(order + j), bus = __ldg(row_bus + j) >> 1;
   const float* mr = m + (s * N + bus) * L;
-  if (m_vec) {
+  if (m_vec && row_word<L>() == 4) {
 #pragma unroll
     for (int q = 0; q < L / 4; ++q) {
       const float4 t = __ldg(reinterpret_cast<const float4*>(mr) + q);
       x[4 * q] = t.x; x[4 * q + 1] = t.y; x[4 * q + 2] = t.z; x[4 * q + 3] = t.w;
+    }
+  } else if (m_vec && row_word<L>() == 2) {
+#pragma unroll
+    for (int q = 0; q < L / 2; ++q) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(mr) + q);
+      x[2 * q] = t.x; x[2 * q + 1] = t.y;
     }
   } else {
 #pragma unroll
@@ -237,17 +274,17 @@ __device__ __forceinline__ float load_edge(const float* __restrict__ m,
 }
 
 template <int L, int H, bool CLOCKS>
-__global__ void __launch_bounds__(kThreads, MinBlocks<L>()) fused_edge_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel(
     const float* __restrict__ m, const float* __restrict__ feats,
     const float* __restrict__ mask, const int* __restrict__ order,
     const int* __restrict__ indptr, const int4* __restrict__ items,
     const int* __restrict__ row_bus, const float* __restrict__ weights,
     float* __restrict__ out0, float* __restrict__ out1, float* __restrict__ out2,
     long long S, int N, int E, int T, float slope, long long* __restrict__ clocks) {
-  static_assert(L % 4 == 0, "outputs are stored as 16-byte words");
   using P = Pack<L, H>;
   using SL = SharedLayout<L, H>;
-  constexpr int G = L / 4;  // 16-byte words of an output row
+  constexpr int G = P::LP / 4;  // 16-byte words of a staging row
+  constexpr int W = row_word<L>();  // floats per word of an output row
   extern __shared__ float4 smem[];
   float* const w = reinterpret_cast<float*>(smem) + SL::kW;
   for (int i = threadIdx.x; i < 3 * P::kSize / 4; i += blockDim.x)
@@ -255,10 +292,10 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<L>()) fused_edge_kernel(
   __syncthreads();
 
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  float* buf = reinterpret_cast<float*>(smem) + SL::kStage + wid * kRows * L;  // (kRows, L)
+  float* buf = reinterpret_cast<float*>(smem) + SL::kStage + wid * kRows * P::LP;  // (kRows, LP)
   float* hub = reinterpret_cast<float*>(smem) + SL::kHub + wid * 3 * L;  // a hub bus's sums
   int* bp = reinterpret_cast<int*>(smem) + SL::kPtr + wid * (kRows + 1);
-  const bool m_vec = (reinterpret_cast<uintptr_t>(m) & 15) == 0;
+  const bool m_vec = (reinterpret_cast<uintptr_t>(m) & (4 * W - 1)) == 0;
   const long long units = S * T, warps = (long long)gridDim.x * kWarps;
   long long spent[kPhases] = {0, 0, 0, 0};  // CLOCKS: SM cycles per phase, and units
   for (long long u = (long long)blockIdx.x * kWarps + wid; u < units; u += warps) {
@@ -298,22 +335,31 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<L>()) fused_edge_kernel(
         // order, from 0.0f at the item's first tile (or from a hub bus's
         // running sums), and stores the row at the item's last tile
         for (int i = lane; i < b1 - b0; i += 32) {
-          float acc[L];
+          float acc[P::LP];
 #pragma unroll
-          for (int l = 0; l < L; ++l) acc[l] = r == r0 ? 0.0f : hub[h * L + l];
+          for (int l = 0; l < P::LP; ++l) acc[l] = r == r0 || l >= L ? 0.0f : hub[h * L + l];
           for (int k = bp[i]; k < bp[i + 1]; ++k) {
 #pragma unroll
             for (int g = 0; g < G; ++g) {
-              const float4 v = reinterpret_cast<const float4*>(buf + k * L)[g];
+              const float4 v = reinterpret_cast<const float4*>(buf + k * P::LP)[g];
               acc[4 * g] += v.x; acc[4 * g + 1] += v.y; acc[4 * g + 2] += v.z; acc[4 * g + 3] += v.w;
             }
           }
           if (t1 == r1) {
-            float4* o = reinterpret_cast<float4*>((h == 0 ? out0 : h == 1 ? out1 : out2) + base +
-                                                  (b0 + i) * L);
+            float* o = (h == 0 ? out0 : h == 1 ? out1 : out2) + base + (b0 + i) * L;
+            if constexpr (W == 4) {
 #pragma unroll
-            for (int g = 0; g < G; ++g)
-              o[g] = make_float4(acc[4 * g], acc[4 * g + 1], acc[4 * g + 2], acc[4 * g + 3]);
+              for (int g = 0; g < L / 4; ++g)
+                reinterpret_cast<float4*>(o)[g] =
+                    make_float4(acc[4 * g], acc[4 * g + 1], acc[4 * g + 2], acc[4 * g + 3]);
+            } else if constexpr (W == 2) {
+#pragma unroll
+              for (int g = 0; g < L / 2; ++g)
+                reinterpret_cast<float2*>(o)[g] = make_float2(acc[2 * g], acc[2 * g + 1]);
+            } else {
+#pragma unroll
+              for (int l = 0; l < L; ++l) o[l] = acc[l];
+            }
           } else {  // a hub item (one bus, lane 0): the next tile goes on
 #pragma unroll
             for (int l = 0; l < L; ++l) hub[h * L + l] = acc[l];
@@ -404,14 +450,11 @@ int occupancy(int* out) {
 
 extern "C" {
 
-// Floats of the three heads' packed weights, or -1 for an unsupported
-// (L, H). Built for the shipped checkpoints' widths, (L, H) = (20, 10) and
-// (40, 10): another width gets its instantiation together with a check of
-// it on the card.
+// Floats of the three heads' packed weights, or -1 for a width this
+// library was not built for (each width is a library of its own).
 int gns_fused_edge_weight_floats(int L, int H) {
-  if (L == 20 && H == 10) return 3 * Pack<20, 10>::kSize;
-  if (L == 40 && H == 10) return 3 * Pack<40, 10>::kSize;
-  return -1;
+  if (L != kLatent || H != kHidden) return -1;
+  return 3 * Pack<kLatent, kHidden>::kSize;
 }
 
 // out: shared bytes per block, blocks resident per SM, threads per block,
@@ -419,9 +462,8 @@ int gns_fused_edge_weight_floats(int L, int H) {
 // `clocks` buffer of out[1] * out[3] * out[2] / 32 warps always suffices.
 // Returns a cudaError_t.
 int gns_fused_edge_occupancy(int L, int H, int* out) {
-  if (L == 20 && H == 10) return occupancy<20, 10>(out);
-  if (L == 40 && H == 10) return occupancy<40, 10>(out);
-  return (int)cudaErrorInvalidValue;
+  if (L != kLatent || H != kHidden) return (int)cudaErrorInvalidValue;
+  return occupancy<kLatent, kHidden>(out);
 }
 
 // m (S, N, L), feats (S, E, 5), mask (S, E); order / indptr (N + 1,) the
@@ -430,23 +472,19 @@ int gns_fused_edge_occupancy(int L, int H, int* out) {
 // (ops/segment.py schedule_items); weights the
 // three heads packed as Pack, on the card; out0..2 (S, N, L), 16-byte
 // aligned; clocks null, or (warps of the grid, kPhases) int64 to receive
-// each warp's cycles per phase. Supported (L, H): (20, 10), (40, 10).
+// each warp's cycles per phase. (L, H) must be the library's width.
 int gns_fused_edge(const float* m, const float* feats, const float* mask, const int* order,
                    const int* indptr, const int* items, const int* row_bus,
                    const float* weights, float* out0, float* out1, float* out2, long long S,
                    int N, int E, int T, int L, int H, float slope, long long* clocks,
                    void* stream) {
+  if (L != kLatent || H != kHidden) return (int)cudaErrorInvalidValue;
   if (S == 0 || N == 0) return 0;
   if (T < 1) return (int)cudaErrorInvalidValue;
-  const int4* it = reinterpret_cast<const int4*>(items);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (L == 20 && H == 10)
-    return launch<20, 10>(m, feats, mask, order, indptr, it, row_bus, weights, out0, out1, out2,
-                          S, N, E, T, slope, clocks, st);
-  if (L == 40 && H == 10)
-    return launch<40, 10>(m, feats, mask, order, indptr, it, row_bus, weights, out0, out1, out2,
-                          S, N, E, T, slope, clocks, st);
-  return (int)cudaErrorInvalidValue;
+  return launch<kLatent, kHidden>(m, feats, mask, order, indptr,
+                                  reinterpret_cast<const int4*>(items), row_bus, weights, out0,
+                                  out1, out2, S, N, E, T, slope, clocks,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

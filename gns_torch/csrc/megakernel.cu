@@ -41,8 +41,9 @@
 // What the design does:
 //   * MLPs on the tensor cores, per head: a warp owns a tile of 16 edges
 //     (phi) or 16 buses (L); rows and K are padded to 16, N to 8; each
-//     head's hidden width is padded to one 16-wide k-tile, so a layer's
-//     accumulators become the next layer's A fragments in registers (bias,
+//     head's hidden width is padded to whole 16-wide k-tiles (one up to H =
+//     16, two up to 32), so a layer's accumulators (n-tiles 2j and 2j + 1)
+//     become k-tile j of the next layer's A fragments in registers (bias,
 //     LeakyReLU and the bf16 rounding applied there). The fused layout's
 //     block-diagonal zeros are never multiplied: phi w2 / w4 and L w2 / w4
 //     run as three per-head blocks, and each L head's first layer reads only
@@ -70,6 +71,14 @@
 //   * the aggregate's 3L columns are spread over a warp's lanes, lane c
 //     summing columns c, c + 32, ... (Dims::NA of them: 2 at L = 20, 4 at
 //     L = 40);
+//   * operands are read from shared memory as column pairs (4-byte bf16
+//     pairs, 8-byte float pairs), so at an odd L the state row's m, the phi
+//     input's m and each aggregate block carry one zero column (Dims::LE),
+//     which the tile plan gives zero weights;
+//   * one library per width: ops/segment_kernels.py builds this file for
+//     each (L, H) in [1, 64] x [1, 32] a caller needs, with GNS_LATENT,
+//     GNS_HIDDEN and GNS_MIN_BLOCKS (grids per SM __launch_bounds__ asks
+//     for: 2 up to L = 20 with H <= 16, else 1) on the command line;
 //   * physics, CSR sums and scalar block reductions in float32, in the
 //     twin's order, deterministic; each line's results are written at its
 //     rows of the dst and src CSRs, so a bus sums a contiguous run.
@@ -86,7 +95,15 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#if !defined(GNS_LATENT) || !defined(GNS_HIDDEN) || !defined(GNS_MIN_BLOCKS)
+#error "built per width: nvcc -DGNS_LATENT=L -DGNS_HIDDEN=H -DGNS_MIN_BLOCKS=B (ops/segment_kernels.py)"
+#endif
+
 namespace {
+
+constexpr int kLatent = GNS_LATENT, kHidden = GNS_HIDDEN;
+static_assert(kLatent >= 1 && kLatent <= 64 && kHidden >= 1 && kHidden <= 32,
+              "K4 takes L in [1, 64], H in [1, 32]");
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -103,31 +120,36 @@ __host__ __device__ constexpr long long upll(long long x, long long m) { return 
 
 // Tile and bias layout of one step's pack (ops/megakernel.py _tile_plan
 // builds the same). A tile is a 16 x 8 (k x n) B operand: 32 lanes x 4 bf16.
+// Every tile a layer multiplies comes KH k-tiles deep where its input is a
+// hidden layer (tile (..., kt) at index (...) * KH + kt).
 template <int L, int H>
 struct Dims {
-  static_assert(H <= 16, "a head's hidden width must fit one k-tile");
-  static_assert(L % 2 == 0, "operands are read as column pairs");
-  static constexpr int NBW = 4 + L;            // a bus's state row: v, theta, dp, dq, m
-  static constexpr int HP = 16;                // a head's hidden width, padded
+  static constexpr int LE = up(L, 2);          // m, and each aggregate block, in column pairs
+  static constexpr int NBW = 4 + LE;           // a bus's state row: v, theta, dp, dq, m
+  static constexpr int HP = up(H, 16);         // a head's hidden width, padded
+  static constexpr int KH = HP / 16;           // k-tiles of a hidden layer, as an input
   static constexpr int NH = HP / 8;            // n-tiles of a hidden layer
   static constexpr int LP = up(L, 8);          // a phi head's output, padded
   static constexpr int NL = LP / 8;
-  static constexpr int PF = L + 5;             // phi input
+  static constexpr int PF = LE + 5;            // phi input: m, then the line features
   static constexpr int KP = up(PF, 16) / 16;   // k-tiles of phi's first layer
-  static constexpr int LI = 4 + 2 * L;         // one L head's input
+  static constexpr int LI = NBW + LE;          // one L head's input: the state row, its aggregate
   static constexpr int KL = up(LI, 16) / 16;   // k-tiles of L's first layer
-  static constexpr int tPW1 = 0, tPW2 = tPW1 + 3 * NH * KP, tPW4 = tPW2 + 3 * NH;
-  static constexpr int tLW1 = tPW4 + 3 * NL, tLW2 = tLW1 + 3 * NH * KL, tLW4 = tLW2 + 3 * NH;
-  static constexpr int kTiles = tLW4 + 2 + NL;  // L_theta, L_v: one n-tile each
+  static constexpr int tPW1 = 0, tPW2 = tPW1 + 3 * NH * KP, tPW4 = tPW2 + 3 * NH * KH;
+  static constexpr int tLW1 = tPW4 + 3 * NL * KH, tLW2 = tLW1 + 3 * NH * KL;
+  static constexpr int tLW4 = tLW2 + 3 * NH * KH;
+  static constexpr int kTiles = tLW4 + (2 + NL) * KH;  // L_theta, L_v: one n-tile each
   static constexpr int bPB1 = 0, bPB2 = bPB1 + 3 * HP, bPB4 = bPB2 + 3 * HP;
   static constexpr int bLB1 = bPB4 + 3 * LP, bLB2 = bLB1 + 3 * HP, bLB4 = bLB2 + 3 * HP;
   static constexpr int kBias = bLB4 + 16 + LP;  // L_theta, L_v: 8 each, then L_m
-  // aggregate columns per lane: lane c sums columns c, c + 32, ... of 3L
-  static constexpr int NA = (3 * L + 31) / 32;
-  // one warp's scratch (floats): a tile's phi outputs (16 x 3L f32), the
+  // a row of the phi outputs and of the aggregate: three blocks of LE
+  static constexpr int AW = 3 * LE;
+  // aggregate columns per lane: lane c sums columns c, c + 32, ... of AW
+  static constexpr int NA = (AW + 31) / 32;
+  // one warp's scratch (floats): a tile's phi outputs (16 x AW f32), the
   // rows' aggregate slots (16 ints), the item's buses' aggregates and a
-  // spare row (17 x 3L bf16)
-  static constexpr int kWarp = kRows * 3 * L + kRows + (kRows + 1) * 3 * L / 2;
+  // spare row (17 x AW bf16)
+  static constexpr int kWarp = kRows * AW + kRows + (kRows + 1) * AW / 2;
   static_assert(kBias % 4 == 0, "biases are copied as float4");
   static_assert(bPB2 % 2 == 0 && bPB4 % 2 == 0 && bLB1 % 2 == 0 && bLB2 % 2 == 0 && HP % 2 == 0,
                 "bias pairs are read as float2");
@@ -215,13 +237,12 @@ struct Topo {
   int n_items;
 };
 
-// Grids resident per SM that an instance's __launch_bounds__ asks for: two
+// Grids resident per SM that the kernel's __launch_bounds__ asks for: two
 // at L = 20 (114,176 bytes per case300 grid), one at L = 40 (193,664).
-template <int L>
-constexpr int MinGrids() { return L <= 20 ? 2 : 1; }
+constexpr int kMinGrids = GNS_MIN_BLOCKS;
 
 template <int L, int H>
-__global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
+__global__ void __launch_bounds__(kThreads, kMinGrids) megakernel(
     const float* __restrict__ buses, const float* __restrict__ lines,
     const float* __restrict__ gens, const float* __restrict__ bus_mask,
     const float* __restrict__ line_mask, const float* __restrict__ gen_mask, Topo tp,
@@ -328,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
     DP(n) = (a1 - PD[n]) - GS[n] * v2;
     DQ(n) = (a2 - QD[n]) + BSH[n] * v2;
 #pragma unroll
-    for (int l = 0; l < L; ++l) M(n, l) = 0.0f;
+    for (int l = 0; l < D::LE; ++l) M(n, l) = 0.0f;  // a zero column past an odd L
   }
   float sums[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // n_real, s_set, s_min, s_max
   for (int n = threadIdx.x; n < N; n += kThreads) sums[0] += BM[n];
@@ -359,15 +380,15 @@ __global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
     // the phi heads over its buses' edges, sums them, then runs the L heads
     // on the same buses and updates their state, with no block barrier.
     {
-      float* stage = U + warp * D::kWarp;  // (16, 3L) f32: a tile's masked phi outputs
-      int* sofs = reinterpret_cast<int*>(stage + kRows * 3 * L);  // (16,): slot of the bus ending at row r, or -1
-      // (16 + 1, 3L): the buses' bf16(agg), then a spare row the scan writes
+      float* stage = U + warp * D::kWarp;  // (16, AW) f32: a tile's masked phi outputs
+      int* sofs = reinterpret_cast<int*>(stage + kRows * D::AW);  // (16,): slot of the bus ending at row r, or -1
+      // (16 + 1, AW): the buses' bf16(agg), then a spare row the scan writes
       // where no bus ends
       __nv_bfloat16* aggw = reinterpret_cast<__nv_bfloat16*>(sofs + kRows);
       for (int it = warp; it < tp.n_items; it += kWarps) {
         const int4 item = tp.items[it];
         const int b0 = item.x, b1 = item.y, r0 = item.z, r1 = item.w;
-        for (int i = lane; i < kRows * 3 * L / 2; i += 32) reinterpret_cast<uint32_t*>(aggw)[i] = 0u;
+        for (int i = lane; i < kRows * D::AW / 2; i += 32) reinterpret_cast<uint32_t*>(aggw)[i] = 0u;
         float acc[D::NA];  // columns lane + 32 j: the bus in progress
 #pragma unroll
         for (int j = 0; j < D::NA; ++j) acc[j] = 0.0f;
@@ -382,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
           const int na = __shfl_sync(0xffffffffu, my_be, g) >> 1;
           const int nb = __shfl_sync(0xffffffffu, my_be, g + 8) >> 1;
           const float lma = va ? LM[ea] : 0.0f, lmb = vb ? LM[eb] : 0.0f;
-          // A: concat(bf16(m[dst]), bf16(line features)), zero-padded
+          // A: concat(bf16(m[dst]), bf16(line features)), zero-padded (m to LE)
           uint32_t x[D::KP][4];
 #pragma unroll
           for (int kt = 0; kt < D::KP; ++kt)
@@ -392,42 +413,48 @@ __global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
               const int n = hi ? nb : na, e = hi ? eb : ea;
               const int c = kt * 16 + (r >> 1) * 8 + 2 * tq;
               uint32_t w = 0u;
-              if (c < L) {
+              if (c < D::LE) {
                 const float2 q = *reinterpret_cast<const float2*>(&M(n, c));
                 w = pack2(q.x, q.y);
-              } else if (c < L + 6) {
-                w = *reinterpret_cast<const uint32_t*>(LF + e * 6 + c - L);
+              } else if (c < D::LE + 6) {
+                w = *reinterpret_cast<const uint32_t*>(LF + e * 6 + c - D::LE);
               }
               x[kt][r] = (hi ? vb : va) ? w : 0u;
             }
-          uint32_t h1[3][4];  // layer 1 (all heads read x), per-head A fragments
+          uint32_t h1[3][D::KH][4];  // layer 1 (all heads read x), per-head A fragments
 #pragma unroll
           for (int nt = 0; nt < 3 * D::NH; ++nt) {
             float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
             for (int kt = 0; kt < D::KP; ++kt) mma(c, x[kt], WT[(D::tPW1 + nt * D::KP + kt) * 32 + lane]);
-            act(h1[nt / D::NH], nt % D::NH, c, BIAS + D::bPB1, nt * 8 + 2 * tq, slope);
+            act(h1[nt / D::NH][nt % D::NH / 2], nt % 2, c, BIAS + D::bPB1, nt * 8 + 2 * tq, slope);
           }
 #pragma unroll
           for (int h = 0; h < 3; ++h) {
-            uint32_t h2[4];
+            uint32_t h2[D::KH][4];
 #pragma unroll
             for (int nt = 0; nt < D::NH; ++nt) {
               float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-              mma(c, h1[h], WT[(D::tPW2 + h * D::NH + nt) * 32 + lane]);
-              act(h2, nt, c, BIAS + D::bPB2 + h * D::HP, nt * 8 + 2 * tq, slope);
+#pragma unroll
+              for (int kt = 0; kt < D::KH; ++kt)
+                mma(c, h1[h][kt], WT[(D::tPW2 + (h * D::NH + nt) * D::KH + kt) * 32 + lane]);
+              act(h2[nt / 2], nt % 2, c, BIAS + D::bPB2 + h * D::HP, nt * 8 + 2 * tq, slope);
             }
             const float* b4 = BIAS + D::bPB4 + h * D::LP;
 #pragma unroll
             for (int nt = 0; nt < D::NL; ++nt) {
               float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-              mma(c, h2, WT[(D::tPW4 + h * D::NL + nt) * 32 + lane]);
+#pragma unroll
+              for (int kt = 0; kt < D::KH; ++kt)
+                mma(c, h2[kt], WT[(D::tPW4 + (h * D::NL + nt) * D::KH + kt) * 32 + lane]);
 #pragma unroll
               for (int j = 0; j < 2; ++j) {
                 const int col = nt * 8 + 2 * tq + j;
-                if (col < L) {  // rows past the tile's end have line mask 0
-                  stage[g * 3 * L + h * L + col] = (c[j] + b4[col]) * lma;
-                  stage[(g + 8) * 3 * L + h * L + col] = (c[2 + j] + b4[col]) * lmb;
+                // rows past the tile's end have line mask 0; a column past
+                // an odd L has zero weights and bias, so it stores 0
+                if (col < D::LE) {
+                  stage[g * D::AW + h * D::LE + col] = (c[j] + b4[col]) * lma;
+                  stage[(g + 8) * D::AW + h * D::LE + col] = (c[2 + j] + b4[col]) * lmb;
                 }
               }
             }
@@ -439,12 +466,12 @@ __global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
             const int slot = sofs[r];
-            const int at = (slot >= 0 ? slot : kRows) * 3 * L;  // else the spare row
+            const int at = (slot >= 0 ? slot : kRows) * D::AW;  // else the spare row
 #pragma unroll
             for (int j = 0; j < D::NA; ++j) {
               const int col = 32 * j + lane;
-              if (32 * (j + 1) <= 3 * L || col < 3 * L) {
-                acc[j] += stage[r * 3 * L + col];
+              if (32 * (j + 1) <= D::AW || col < D::AW) {
+                acc[j] += stage[r * D::AW + col];
                 aggw[at + col] = __float2bfloat16_rn(acc[j]);
                 acc[j] = slot >= 0 ? 0.0f : acc[j];
               }
@@ -486,26 +513,29 @@ __global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
               const int slot = r & 1 ? g + 8 : g;
               x[kt][r] = xs[kt][r];
               if (c >= D::NBW && c < D::LI)  // rows past the item's buses hold zeros
-                x[kt][r] = *reinterpret_cast<const uint32_t*>(aggw + slot * 3 * L + blk * L + c - D::NBW);
+                x[kt][r] = *reinterpret_cast<const uint32_t*>(aggw + slot * D::AW + blk * D::LE + c - D::NBW);
             }
-          uint32_t h1[4], h2[4];
+          uint32_t h1[D::KH][4], h2[D::KH][4];
 #pragma unroll
           for (int nt = 0; nt < D::NH; ++nt) {
             float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
             for (int kt = 0; kt < D::KL; ++kt)
               mma(c, x[kt], WT[(D::tLW1 + (h * D::NH + nt) * D::KL + kt) * 32 + lane]);
-            act(h1, nt, c, BIAS + D::bLB1 + h * D::HP, nt * 8 + 2 * tq, slope);
+            act(h1[nt / 2], nt % 2, c, BIAS + D::bLB1 + h * D::HP, nt * 8 + 2 * tq, slope);
           }
 #pragma unroll
           for (int nt = 0; nt < D::NH; ++nt) {
             float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            mma(c, h1, WT[(D::tLW2 + h * D::NH + nt) * 32 + lane]);
-            act(h2, nt, c, BIAS + D::bLB2 + h * D::HP, nt * 8 + 2 * tq, slope);
+#pragma unroll
+            for (int kt = 0; kt < D::KH; ++kt)
+              mma(c, h1[kt], WT[(D::tLW2 + (h * D::NH + nt) * D::KH + kt) * 32 + lane]);
+            act(h2[nt / 2], nt % 2, c, BIAS + D::bLB2 + h * D::HP, nt * 8 + 2 * tq, slope);
           }
           if (h < 2) {
             float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            mma(c, h2, WT[(D::tLW4 + h) * 32 + lane]);
+#pragma unroll
+            for (int kt = 0; kt < D::KH; ++kt) mma(c, h2[kt], WT[(D::tLW4 + h * D::KH + kt) * 32 + lane]);
             if (h == 0) {
               o0[0] = c[0];
               o0[1] = c[2];
@@ -518,7 +548,9 @@ __global__ void __launch_bounds__(kThreads, MinGrids<L>()) megakernel(
             for (int nt = 0; nt < D::NL; ++nt) {
 #pragma unroll
               for (int q = 0; q < 4; ++q) om[nt][q] = 0.0f;
-              mma(om[nt], h2, WT[(D::tLW4 + 2 + nt) * 32 + lane]);
+#pragma unroll
+              for (int kt = 0; kt < D::KH; ++kt)
+                mma(om[nt], h2[kt], WT[(D::tLW4 + (2 + nt) * D::KH + kt) * 32 + lane]);
             }
           }
         }
@@ -693,35 +725,34 @@ int blocks_per_sm(int N, int E, int G) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// The widths K4 is built for: the shipped checkpoints' (L, H) = (20, 10)
-// and (40, 10). Another width gets its instantiation together with a check
-// of it on the card.
-bool built_for(int L, int H) { return H == 10 && (L == 20 || L == 40); }
+// Whether (L, H) is this library's width (each width is a library of its
+// own).
+bool built_for(int L, int H) { return L == kLatent && H == kHidden; }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of shared memory one grid needs, or -1 for an unsupported (L, H).
+// Bytes of shared memory one grid needs, or -1 for another width.
 long long gns_megakernel_shared_bytes(int N, int E, int G, int L, int H) {
   if (!built_for(L, H)) return -1;
-  return L == 20 ? Layout<20, 10>(N, E, G).total : Layout<40, 10>(N, E, G).total;
+  return Layout<kLatent, kHidden>(N, E, G).total;
 }
 
 // Blocks (grids) the card keeps resident per SM at this grid size, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 if a grid does not fit,
-// -1 for an unsupported (L, H), -(cudaError) if the query fails.
+// -1 for another width, -(cudaError) if the query fails.
 int gns_megakernel_blocks_per_sm(int N, int E, int G, int L, int H) {
   if (!built_for(L, H)) return -1;
-  return L == 20 ? blocks_per_sm<20, 10>(N, E, G) : blocks_per_sm<40, 10>(N, E, G);
+  return blocks_per_sm<kLatent, kHidden>(N, E, G);
 }
 
 // Sizes of one packed step: bf16 tile elements (biases 0) or f32 biases
-// (biases 1); -1 if unsupported.
+// (biases 1); -1 for another width.
 long long gns_megakernel_step_sizes(int L, int H, int biases) {
   if (!built_for(L, H)) return -1;
-  if (L == 20) return biases ? Dims<20, 10>::kBias : Dims<20, 10>::kTiles * 128LL;
-  return biases ? Dims<40, 10>::kBias : Dims<40, 10>::kTiles * 128LL;
+  using D = Dims<kLatent, kHidden>;
+  return biases ? D::kBias : D::kTiles * 128LL;
 }
 
 // buses (S, N, 6), lines (S, E, 7), gens (S, G, 7), masks (S, N) (S, E)
@@ -734,7 +765,8 @@ long long gns_megakernel_step_sizes(int L, int H, int biases) {
 // as ops/megakernel.py pack_step_weights lays them out, 16-byte aligned;
 // disc (K,) the loss discounts. Outputs v, theta, dp, dq (S, N), loss (S, 2);
 // clocks, when not null, (S, 5) int64: each grid's SM cycles per stage
-// (kStages), an instrument for chip_smoke.py; null in serving.
+// (kStages), an instrument for chip_smoke.py; null in serving. (L, H) must
+// be the library's width.
 int gns_megakernel(const float* buses, const float* lines, const float* gens, const float* bm,
                    const float* lm, const float* gm, const int* src, const int* dst,
                    const int* srcq, const int* dstq, const int* dst_order,
@@ -744,17 +776,14 @@ int gns_megakernel(const float* buses, const float* lines, const float* gens, co
                    const void* wpack, const float* bpack, const float* disc, float* v,
                    float* th, float* dp, float* dq, float* loss, long long* clocks, long long S,
                    int N, int E, int G, int K, int L, int H, float slope, void* stream) {
+  if (!built_for(L, H)) return (int)cudaErrorInvalidValue;
   if (S == 0) return 0;
   const Topo tp{src,     dst,        srcq,    dstq,    dst_order,
                 dst_indptr, src_indptr, gen_order, gen_indptr, dst_pos,
                 src_pos, gen_pos,    reinterpret_cast<const int4*>(items), row_bus, n_items};
-  if (!built_for(L, H)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (L == 20)
-    return launch<20, 10>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th, dp, dq,
-                          loss, clocks, S, N, E, G, K, slope, st);
-  return launch<40, 10>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th, dp, dq,
-                        loss, clocks, S, N, E, G, K, slope, st);
+  return launch<kLatent, kHidden>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th,
+                                  dp, dq, loss, clocks, S, N, E, G, K, slope,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

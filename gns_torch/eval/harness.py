@@ -36,6 +36,7 @@ import torch
 
 from gns_torch.eval.newton_raphson import newton_raphson_pf
 from gns_torch.models.gns import GNS, batch_tensors, gns_forward, step_params
+from gns_torch.ops.segment import check_method
 from gns_torch.physics.common import build_graph
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import _stack_to_batch, pickle_path, prepare_case
@@ -156,6 +157,7 @@ def run_gns(model: GNS, cfg: GNSConfig, cases: List[Dict], method: str = "auto",
     (process-wide), as GNSPredictor does: float32 means float32.
     """
     device = next(model.parameters()).device
+    check_method(method, device)
     if cfg.compute_dtype == "float32":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -35,7 +35,13 @@ from torch.utils.checkpoint import checkpoint
 
 from gns_torch.models.blocks import LearningBlock
 from gns_torch.ops.collectives import all_reduce_sum, copy_to_tp, reduce_from_tp
-from gns_torch.ops.segment import broadcast_col0_segment_sum, gather, segment_sum
+from gns_torch.ops.segment import (
+    GATHER_METHODS,
+    broadcast_col0_segment_sum,
+    check_method,
+    gather,
+    segment_sum,
+)
 from gns_torch.physics.common import Graph, build_graph, edge_geometry
 from gns_torch.physics.fused import physics_refresh, q2_geometry
 from gns_torch.utils.config import GNSConfig
@@ -284,11 +290,12 @@ def gns_machinery(
         )
     cdt = _DTYPES[cfg.compute_dtype]
     slope = cfg.leaky_relu_slope
-    # "degree" names a lowering of the physics refresh (physics/fused.py);
-    # every other sum and gather of the forward runs as "auto"
-    refresh_method = method
-    if method == "degree":
-        method = "auto"
+    # gns_tpu's method names (ops/segment.py check_method); "degree" names a
+    # lowering of the physics refresh (physics/fused.py), and every sum and
+    # gather of the forward runs on K1 / K2 on the card, the plain twins on
+    # the CPU
+    check_method(method, batch.buses.device)
+    check_method(cfg.gather_method, names=GATHER_METHODS)
 
     def psum(x):
         return all_reduce_sum(x, edge_group)
@@ -321,7 +328,6 @@ def gns_machinery(
             dim=-1,
         ),
         graph.gen,
-        method=method,
     )
     v, pg_bus, qg_bus = agg0[..., 0], agg0[..., 1], agg0[..., 2]
     v = torch.where(v == 0, torch.ones_like(v), v)
@@ -370,11 +376,11 @@ def gns_machinery(
     deg_col = None
     if cfg.resolved_fold_output and cfg.multiple_phi and cfg.fused_heads:
         deg_lm = lm if lm is not None else lines.new_ones(lines.shape[:2])
-        deg_col = psum(segment_sum(deg_lm, graph.dst, method=method))[..., None]
+        deg_col = psum(segment_sum(deg_lm, graph.dst))[..., None]
 
     # step-invariant edge geometry and quirk-Q2 gathers
     geom = edge_geometry(lines)
-    q2 = q2_geometry(geom, graph, method, edge_group) if cfg.reference_parity else None
+    q2 = q2_geometry(geom, graph, edge_group) if cfg.reference_parity else None
 
     def residual_sums(dp, dq):
         sq = dp * dp + dq * dq
@@ -386,14 +392,14 @@ def gns_machinery(
         phi_out = mlp(p, edge_in)
         if cfg.reference_parity:
             return psum(broadcast_col0_segment_sum(
-                line_masked(phi_out), graph.dst, latent, method=method
+                line_masked(phi_out), graph.dst, latent
             ))
         # paper-correct: the scalar message broadcast across latent
-        agg = psum(segment_sum(line_masked(phi_out)[..., 0], graph.dst, method=method))
+        agg = psum(segment_sum(line_masked(phi_out)[..., 0], graph.dst))
         return agg[..., None].expand(s, n, latent)
 
     def step(p, disc, v, theta, m, delta_p, delta_q, total_loss):
-        edge_in = torch.cat([gather(m, graph.dst, method=method), line_feats], dim=-1)
+        edge_in = torch.cat([gather(m, graph.dst), line_feats], dim=-1)
         node_base = torch.cat(
             [v[..., None], theta[..., None], delta_p[..., None], delta_q[..., None], m],
             dim=-1,
@@ -403,11 +409,11 @@ def gns_machinery(
                 # aggregate-then-project: aggregate the (E, 3H) hidden
                 # activation; deg_col carries phi's output bias
                 h2 = mlp(p["phi_hidden"], edge_in, keep_dtype=True, hidden_only=True)
-                agg = psum(segment_sum(line_masked(h2), graph.dst, method=method))
+                agg = psum(segment_sum(line_masked(h2), graph.dst))
                 node_in = torch.cat([node_base, agg, deg_col], dim=-1)
             elif cfg.multiple_phi:
                 phi_out = mlp(p["phi_fused"], edge_in, keep_dtype=True)
-                agg = psum(segment_sum(line_masked(phi_out), graph.dst, method=method))
+                agg = psum(segment_sum(line_masked(phi_out), graph.dst))
                 node_in = torch.cat([node_base, agg], dim=-1)
             else:
                 node_in = torch.cat([node_base, single_phi_sum(p["phi"], edge_in)], dim=-1)
@@ -417,7 +423,7 @@ def gns_machinery(
             if cfg.multiple_phi:
                 def agg_phi(name):
                     phi_out = mlp(p[name], edge_in, keep_dtype=True)
-                    return psum(segment_sum(line_masked(phi_out), graph.dst, method=method))
+                    return psum(segment_sum(line_masked(phi_out), graph.dst))
 
                 in_v = torch.cat([node_base, agg_phi("phi_v")], dim=-1)
                 in_theta = torch.cat([node_base, agg_phi("phi_theta")], dim=-1)
@@ -437,7 +443,7 @@ def gns_machinery(
         _, _, delta_p, delta_q = physics_refresh(
             v, theta, buses, lines, gens, graph,
             reference_parity=cfg.reference_parity,
-            bus_mask=bm, line_mask=lm, gen_mask=gm, method=refresh_method,
+            bus_mask=bm, line_mask=lm, gen_mask=gm, method=method,
             qg_gen_only=cfg.qg_gen_only, dispatch=cfg.dispatch,
             gen_bus_mask=gen_bus_mask, slack_mask=slack_mask,
             geom=geom, q2=q2, edge_group=edge_group,

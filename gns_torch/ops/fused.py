@@ -18,9 +18,11 @@ SegmentIndex over the dst ids (E,), shared by the batch; heads
 
 On a CUDA tensor the forward is one launch of the kernel in
 gns_torch/csrc/fused_edge.cu (`fused_edge_cuda`), in exact float32: no TF32
-and no bf16 operands. The kernel is built for (L, H) = (20, 10) and (40,
-10), the shipped checkpoints' widths; another width raises. What the kernel reads beside the inputs is laid out
-here, in Python, so the CPU tests reach it:
+and no bf16 operands. The kernel takes every (L, H) in [1, 64] x [1, 32]
+(ops/segment_kernels.py check_width; another width raises): each width is
+a library of its own, built from the source at the first call that needs
+it. What the kernel reads beside the inputs is laid out here, in Python,
+so the CPU tests reach it:
   pack_weights    the 18 weights as one vector, each matrix transposed
                   with its rows padded to 16-byte words (pack_index);
   _schedule       its warps' work items over the dst CSR (ops/segment.py
@@ -156,6 +158,8 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
     if feats.shape != (s, e, 5) or line_mask.shape != (s, e):
         raise ValueError(f"feats {tuple(feats.shape)} / line_mask {tuple(line_mask.shape)} "
                          f"do not match ({s}, {e}, 5) / ({s}, {e})")
+    kern.check_width(latent, hidden)
+    width = (latent, hidden)
     dev = m.get_device()
     shapes = _weight_shapes(latent, hidden)
     if not (len(weights) == len(shapes) and all(
@@ -168,9 +172,10 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
         raise ValueError(f"{len(weights)} weights, want {len(shapes)}")
     for t in (index.ids, index.order, index.indptr):
         kern._check_cuda("index", t, (torch.int32,), 1, m.device)
-    floats = kern.function("gns_fused_edge_weight_floats")(latent, hidden)
+    floats = kern.function("gns_fused_edge_weight_floats", width)(latent, hidden)
     if floats < 0:
-        raise ValueError(f"K3 is not built for latent {latent}, hidden {hidden}")
+        raise RuntimeError(f"K3's library for latent {latent}, hidden {hidden} is built for "
+                           f"another width")
     packed = pack_weights(weights, latent, hidden)
     if packed.numel() != floats:
         raise ValueError(f"packed weights hold {packed.numel()} floats, the kernel reads {floats}")
@@ -184,7 +189,7 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
                              f"got {tuple(clocks.shape)}")
     if any(t.data_ptr() % 16 for t in (packed, items, *outs)):
         raise ValueError("K3's packed weights, work items and outputs must be 16-byte aligned")
-    rc = kern.function("gns_fused_edge")(
+    rc = kern.function("gns_fused_edge", width)(
         m.data_ptr(), feats.data_ptr(), line_mask.data_ptr(), index.order.data_ptr(),
         index.indptr.data_ptr(), items.data_ptr(), row_bus.data_ptr(), packed.data_ptr(),
         *(o.data_ptr() for o in outs), s, n, e, items.shape[0], latent, hidden,
@@ -199,11 +204,13 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
 fused_edge_cuda.launches = 0
 
 
-def fused_edge_occupancy(latent: int = 20, hidden: int = 10) -> Tuple[int, int, int, int]:
+def fused_edge_occupancy(latent: int, hidden: int) -> Tuple[int, int, int, int]:
     """(shared bytes per block, blocks resident per SM, threads per block,
-    SMs) of K3 on the current device, from the kernel library."""
+    SMs) of K3 at this width on the current device, from its library."""
+    kern.check_width(latent, hidden)
     out = (ctypes.c_int * 4)()
-    rc = kern.function("gns_fused_edge_occupancy")(latent, hidden, ctypes.addressof(out))
+    rc = kern.function("gns_fused_edge_occupancy", (latent, hidden))(latent, hidden,
+                                                                     ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"K3 occupancy query failed: cudaError {rc}")
     return tuple(out)

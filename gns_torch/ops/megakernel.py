@@ -7,9 +7,12 @@ physics refresh with the quirk-Q2 gathers and the lambda dispatch), the
 discounted loss and the v clamp, one grid per block
 (gns_torch/csrc/megakernel.cu). Serving only, for multiple_phi +
 reference_parity (every shipped K4/L20/H10 checkpoint, and the K8/L40/H10
-`300-deep`) and a shared topology. The kernel is built for (latent, hidden)
-= (20, 10) and (40, 10); at (40, 10) a case300 grid takes 193,664 bytes of
-shared memory, one grid per SM.
+`300-deep`) and a shared topology. The kernel takes every (latent, hidden)
+in [1, 64] x [1, 32] (ops/segment_kernels.py check_width), each width a
+library of its own built at the first call that needs it, as long as one
+grid fits in a block's shared memory: at (40, 10) a case300 grid takes
+193,664 of the 232,448 bytes, one grid per SM; a grid that does not fit
+raises with its bytes.
 
   megakernel_forward_batch(model, cfg, batch, topo) -> GNSOutput
       on the model's device, from a host (numpy) GridBatch and its shared
@@ -35,8 +38,11 @@ What the kernel reads beside the batch is laid out here, in Python, so the
 CPU tests reach it:
   pack_step_weights   each step's fused weights as per-head, zero-padded
                       16 x 8 bf16 B-operand tiles in mma lane order (the
-                      layout megakernel.cu's Dims describes), and the
-                      biases padded the same way; packed once per model;
+                      layout megakernel.cu's Dims describes: hidden units
+                      padded to whole 16-wide k-tiles, m and each
+                      aggregate block to column pairs), and the biases
+                      padded the same way; packed once per model (the CPU
+                      twin's path packs too, so it takes the same widths);
   schedule_items      (ops/segment.py, at ROWS = 16) the work items of its
                       edge and node stages (runs of at most 16 buses whose
                       lines fill at most 16 dst-CSR rows, or one bus with
@@ -58,6 +64,7 @@ from gns_torch.physics.common import build_graph
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch
 from gns_torch.utils.schema import GEN
+
 
 class MegakernelInputs(NamedTuple):
     """Everything one launch reads, on one device."""
@@ -110,6 +117,35 @@ def _sel(first: int, valid: int, offset: int, width: int) -> List[int]:
     return [first + offset + j if offset + j < valid else -1 for j in range(width)]
 
 
+class TileDims(NamedTuple):
+    """megakernel.cu's Dims<L, H>: the padded widths, tile counts and the
+    first tile and bias of each layer in one step's pack."""
+
+    le: int  # m and each aggregate block, padded to column pairs
+    hp: int  # a head's hidden width, padded to 16-wide k-tiles
+    kh: int  # k-tiles of a hidden layer as an input
+    nh: int  # n-tiles of a hidden layer
+    lp: int  # a phi head's output, padded to 8
+    nl: int
+    kp: int  # k-tiles of phi's first layer (le + 5 inputs)
+    nbw: int  # a bus's state row: v, theta, dp, dq, m (le)
+    kl: int  # k-tiles of an L head's first layer (nbw + le inputs)
+    tiles: Tuple[int, ...]  # first tile of phi w1, w2, w4, L w1, w2, w4; the count
+    biases: Tuple[int, ...]  # first bias of the same; the count
+
+
+def tile_dims(latent: int, hidden: int) -> TileDims:
+    kern.check_width(latent, hidden)
+    le, hp, lp = latent + latent % 2, -(-hidden // 16) * 16, -(-latent // 8) * 8
+    kh, nh, nl = hp // 16, hp // 8, lp // 8
+    nbw = 4 + le
+    kp, kl = -(-(le + 5) // 16), -(-(nbw + le) // 16)
+    counts = [3 * nh * kp, 3 * nh * kh, 3 * nl * kh, 3 * nh * kl, 3 * nh * kh, (2 + nl) * kh]
+    bias = [3 * hp, 3 * hp, 3 * lp, 3 * hp, 3 * hp, 16 + lp]
+    return TileDims(le, hp, kh, nh, lp, nl, kp, nbw, kl, tuple(np.cumsum([0] + counts).tolist()),
+                    tuple(np.cumsum([0] + bias).tolist()))
+
+
 def _tile_plan(latent: int, hidden: int) -> Tuple[np.ndarray, np.ndarray]:
     """Where each slot of one step's pack comes from: (tiles x 128,) indices
     into the flat fused weights (the layers of _fused_shapes, each (out, in)
@@ -118,63 +154,71 @@ def _tile_plan(latent: int, hidden: int) -> Tuple[np.ndarray, np.ndarray]:
 
     A tile is the B operand (16 k x 8 n) of one mma.sync m16n8k16: lane l
     holds (n, k) = (l // 4, 2 (l % 4) + {0, 1, 8, 9}), B[k, n] = W[n, k]. The
-    tiles and biases are in the order megakernel.cu's Dims gives them:
-    phi w1 (n-tile major, k-tile minor; each head's hidden padded to 16),
-    phi w2 and w4 per head, L w1 per head (its own 4 + 2L inputs: v, theta,
-    dp, dq, m and its phi aggregate block, padded to 16k), L w2 per head, L
-    w4 (L_theta, L_v one n-tile each, then L_m)."""
-    if hidden > ROWS:
-        raise ValueError(f"K4 needs hidden <= {ROWS}, got {hidden}")
+    tiles and biases are in the order megakernel.cu's Dims gives them
+    (tile_dims): phi w1 (n-tile major, k-tile minor; each head's hidden
+    padded to whole 16-wide k-tiles; its input m padded to column pairs,
+    then the five line features), phi w2 and w4 per head (n-tile major,
+    k-tile minor over the hidden units), L w1 per head (its own inputs: v,
+    theta, dp, dq, m and its phi aggregate block, each of m and the block
+    padded to column pairs, the whole to 16k), L w2 per head, L w4
+    (L_theta, L_v one n-tile each, then L_m)."""
+    d = tile_dims(latent, hidden)
     lat, hid = latent, hidden
-    lp = -(-lat // 8) * 8
-    pf, li = lat + 5, 4 + 2 * lat
-    kp, kl, nh, nl = -(-pf // 16), -(-li // 16), 2, lp // 8
     shapes = [sh for _, _, sh in _fused_shapes(lat, hid)]
     offs = np.cumsum([0] + [o * i for o, i in shapes])
     lane = np.arange(32)
     nn = np.repeat((lane // 4)[:, None], 4, axis=1)
-    kk = np.stack([2 * (lane % 4) + d for d in (0, 1, 8, 9)], axis=1)
+    kk = np.stack([2 * (lane % 4) + dk for dk in (0, 1, 8, 9)], axis=1)
     tiles = []
 
     def tile(layer, rows, cols):
         r, c = np.asarray(rows)[nn], np.asarray(cols)[kk]
         tiles.append(np.where((r >= 0) & (c >= 0), offs[layer] + r * shapes[layer][1] + c, -1))
 
-    for nt in range(3 * nh):  # phi w1: every head reads the whole edge input
-        head, half = divmod(nt, nh)
-        for kt in range(kp):
-            tile(0, _sel(head * hid, hid, half * 8, 8), _sel(0, pf, kt * 16, 16))
+    def phi_in(c):  # the kernel's phi input column c -> the fused input column
+        return c if c < lat else lat + c - d.le if d.le <= c < d.le + 5 else -1
+
+    def l_in(c, blk):  # the kernel's L-head input column c -> the fused input column
+        if c < 4 + lat:
+            return c
+        if d.nbw <= c < d.nbw + lat:
+            return 4 + lat + blk * lat + c - d.nbw
+        return -1
+
+    for nt in range(3 * d.nh):  # phi w1: every head reads the whole edge input
+        head, part = divmod(nt, d.nh)
+        for kt in range(d.kp):
+            tile(0, _sel(head * hid, hid, part * 8, 8), [phi_in(kt * 16 + j) for j in range(16)])
     for layer in (1, 2):  # phi w2, w4 per head
         for h in range(3):
             width, first = (hid, h * hid) if layer == 1 else (lat, h * lat)
-            for nt in range(nh if layer == 1 else nl):
-                tile(layer, _sel(first, width, nt * 8, 8), _sel(h * hid, hid, 0, 16))
+            for nt in range(d.nh if layer == 1 else d.nl):
+                for kt in range(d.kh):
+                    tile(layer, _sel(first, width, nt * 8, 8), _sel(h * hid, hid, kt * 16, 16))
     for h, blk in enumerate(_PHI_L_BLOCK):  # L w1: the head's own inputs only
-        for nt in range(nh):
-            for kt in range(kl):
-                cols = []
-                for j in range(16):
-                    kin = kt * 16 + j
-                    cols.append(kin if kin < 4 + lat else
-                                4 + lat + blk * lat + kin - 4 - lat if kin < li else -1)
-                tile(3, _sel(h * hid, hid, nt * 8, 8), cols)
+        for nt in range(d.nh):
+            for kt in range(d.kl):
+                tile(3, _sel(h * hid, hid, nt * 8, 8), [l_in(kt * 16 + j, blk) for j in range(16)])
     for h in range(3):  # L w2
-        for nt in range(nh):
-            tile(4, _sel(h * hid, hid, nt * 8, 8), _sel(h * hid, hid, 0, 16))
-    tile(5, [0] + [-1] * 7, _sel(0, hid, 0, 16))  # L w4: L_theta, L_v, L_m
-    tile(5, [1] + [-1] * 7, _sel(hid, hid, 0, 16))
-    for nt in range(nl):
-        tile(5, _sel(2, lat, nt * 8, 8), _sel(2 * hid, hid, 0, 16))
+        for nt in range(d.nh):
+            for kt in range(d.kh):
+                tile(4, _sel(h * hid, hid, nt * 8, 8), _sel(h * hid, hid, kt * 16, 16))
+    for row, first in ((0, 0), (1, hid)):  # L w4: L_theta, L_v, then L_m
+        for kt in range(d.kh):
+            tile(5, [row] + [-1] * 7, _sel(first, hid, kt * 16, 16))
+    for nt in range(d.nl):
+        for kt in range(d.kh):
+            tile(5, _sel(2, lat, nt * 8, 8), _sel(2 * hid, hid, kt * 16, 16))
 
     nb = [3 * hid, 3 * hid, 3 * lat, 3 * hid, 3 * hid, 2 + lat]
     bo = np.cumsum([0] + nb)
     bias = []
     for layer in (0, 1):
-        bias += [i for h in range(3) for i in _sel(bo[layer] + h * hid, hid, 0, 16)]
-    bias += [i for h in range(3) for i in _sel(bo[2] + h * lat, lat, 0, lp)]
+        bias += [i for h in range(3) for i in _sel(bo[layer] + h * hid, hid, 0, d.hp)]
+    bias += [i for h in range(3) for i in _sel(bo[2] + h * lat, lat, 0, d.lp)]
     for layer in (3, 4):
-        bias += [i for h in range(3) for i in _sel(bo[layer] + h * hid, hid, 0, 16)]
-    bias += [bo[5]] + [-1] * 7 + [bo[5] + 1] + [-1] * 7 + _sel(bo[5] + 2, lat, 0, lp)
+        bias += [i for h in range(3) for i in _sel(bo[layer] + h * hid, hid, 0, d.hp)]
+    bias += [bo[5]] + [-1] * 7 + [bo[5] + 1] + [-1] * 7 + _sel(bo[5] + 2, lat, 0, d.lp)
     return np.concatenate(tiles).reshape(-1), np.asarray(bias, np.int64)
 
 
@@ -297,25 +341,29 @@ def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None) -> Tuple
     kern._check_cuda("discounts", inp.discounts, (torch.float32,), 1, dev)
     if not 0.0 <= inp.slope <= 1.0:
         raise ValueError(f"K4 takes a LeakyReLU slope in [0, 1], got {inp.slope}")
-    step_sizes = kern.function("gns_megakernel_step_sizes")
+    kern.check_width(inp.latent, inp.hidden)
+    width = (inp.latent, inp.hidden)
+    step_sizes = kern.function("gns_megakernel_step_sizes", width)
     want = (step_sizes(inp.latent, inp.hidden, 0), step_sizes(inp.latent, inp.hidden, 1))
     if want[0] < 0:
-        raise ValueError(f"K4 is not built for latent {inp.latent}, hidden {inp.hidden}")
+        raise RuntimeError(f"K4's library for latent {inp.latent}, hidden {inp.hidden} is built "
+                           f"for another width")
     if (inp.wpack.shape[1], inp.bpack.shape[1]) != want or inp.bpack.shape[0] != k \
             or inp.discounts.numel() != k:
         raise ValueError(f"weight packs {tuple(inp.wpack.shape)} / {tuple(inp.bpack.shape)} "
                          f"do not match K={k} steps of {want}")
-    shared = kern.function("gns_megakernel_shared_bytes")(n, e, g, inp.latent, inp.hidden)
+    shared = kern.function("gns_megakernel_shared_bytes", width)(n, e, g, inp.latent, inp.hidden)
     if shared > kern.MAX_SHARED_BYTES:
-        raise ValueError(f"a grid of N={n}, E={e}, G={g} needs {shared} bytes of shared "
-                         f"memory, more than the {kern.MAX_SHARED_BYTES} a block can hold")
+        raise ValueError(f"a grid of N={n}, E={e}, G={g} at latent {inp.latent}, hidden "
+                         f"{inp.hidden} needs {shared} bytes of shared memory, more than the "
+                         f"{kern.MAX_SHARED_BYTES} a block can hold")
     if clocks is not None:
         kern._check_cuda("clocks", clocks, (torch.int64,), 2, dev)
         if clocks.shape != (s, len(STAGES)):
             raise ValueError(f"clocks must be ({s}, {len(STAGES)}), got {tuple(clocks.shape)}")
     outs = [torch.empty((s, n), dtype=torch.float32, device=dev) for _ in range(4)]
     loss = torch.empty((s, 2), dtype=torch.float32, device=dev)
-    rc = kern.function("gns_megakernel")(
+    rc = kern.function("gns_megakernel", width)(
         inp.buses.data_ptr(), inp.lines.data_ptr(), inp.gens.data_ptr(),
         inp.bus_mask.data_ptr(), inp.line_mask.data_ptr(), inp.gen_mask.data_ptr(),
         *(t.data_ptr() for t in ints), inp.items.shape[0],
@@ -336,8 +384,9 @@ def megakernel_occupancy(inp: MegakernelInputs) -> Tuple[int, int]:
     """(shared bytes one grid needs, grids the card keeps resident per SM)
     for this batch's grid size, from the kernel library."""
     n, e, g = inp.buses.shape[1], inp.lines.shape[1], inp.gens.shape[1]
-    return (kern.function("gns_megakernel_shared_bytes")(n, e, g, inp.latent, inp.hidden),
-            kern.function("gns_megakernel_blocks_per_sm")(n, e, g, inp.latent, inp.hidden))
+    width = (inp.latent, inp.hidden)
+    return (kern.function("gns_megakernel_shared_bytes", width)(n, e, g, *width),
+            kern.function("gns_megakernel_blocks_per_sm", width)(n, e, g, *width))
 
 
 def megakernel_plain(inp: MegakernelInputs) -> Tuple[torch.Tensor, ...]:

@@ -2,14 +2,21 @@
 
 The one dispatch point of the port's graph primitives (counterpart of
 gns_tpu/ops/segment.py). Data is always batched: (S, E) or (S, E, D).
+The device picks the lowering, and nothing else does:
 
-  * On a CPU tensor every method name of the JAX package ('scatter',
-    'onehot', 'hybrid', 'take', 'auto', 'pallas') computes the plain
-    version (ops/segment_kernels.py segment_sum_plain / gather_plain);
-    autograd differentiates it.
-  * On a CUDA tensor 'auto' (and 'pallas', so that existing configs carry
-    over) launches K1 / K2; any other method raises. There is no fallback:
-    a CUDA tensor reaches a kernel or an error.
+  * on a CPU tensor the plain version (ops/segment_kernels.py
+    segment_sum_plain / gather_plain), which autograd differentiates;
+  * on a CUDA tensor K1 / K2. There is no fallback: a CUDA tensor reaches
+    a kernel or an error, and any other device raises.
+
+gns_tpu picks among XLA lowerings by a `method` name. The port keeps those
+names only at the surfaces that mirror gns_tpu's (gns_forward and the
+forward machinery, physics_refresh, GNSPredictor / predict, evaluate, the
+train and epoch step makers, the CLIs' --method, cfg.gather_method),
+where `check_method` validates them once: on the CPU every name computes
+the plain twins; on the card 'auto' and 'pallas' (so that existing
+configs carry over) run K1 / K2 and any other name raises; 'degree' names
+the physics refresh's lowering (physics/fused.py).
 
 The kernels take 1-D data as (S, E, 1). A segment-sum of bfloat16 data
 returns float32 (the kernel accumulates in float32, as the JAX 'onehot' /
@@ -34,9 +41,29 @@ import torch
 
 from gns_torch.ops import segment_kernels as kern
 
-SEGMENT_METHODS = ("auto", "scatter", "onehot", "hybrid", "pallas")
+# gns_tpu's method names: a forward's (its segment-sum's, plus the
+# refresh's "degree") and cfg.gather_method's
+METHODS = ("auto", "scatter", "onehot", "hybrid", "pallas", "degree")
 GATHER_METHODS = ("auto", "take", "onehot", "hybrid", "pallas")
-_KERNEL_METHODS = ("auto", "pallas")
+_KERNEL_METHODS = ("auto", "pallas", "degree")  # the names the card runs
+
+
+def check_method(method: str, device=None, names=METHODS) -> str:
+    """The one check of a gns_tpu method name at the port's entry points:
+    raises unless `method` is one of `names` and, on `device` (when
+    given), has a lowering there (every name on the CPU; 'auto', 'pallas'
+    and 'degree' on the card; no other device). Returns method."""
+    if method not in names:
+        raise ValueError(f"unknown method {method!r}; expected one of {names}")
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            if method not in _KERNEL_METHODS:
+                raise ValueError(f"method {method!r} has no CUDA lowering; on the card the "
+                                 f"graph primitives are K1 / K2, method 'auto' (or 'pallas')")
+        elif dev.type != "cpu":
+            raise ValueError(f"unsupported device {dev}: gns_torch runs on cuda or cpu")
+    return method
 
 
 class SegmentIndex:
@@ -87,16 +114,8 @@ class SegmentIndex:
         return x.reshape(1, -1, x.shape[-1])
 
 
-def _check_method(method: str, allowed, x: torch.Tensor) -> None:
-    if method not in allowed:
-        raise ValueError(f"unknown method {method!r}; expected one of {allowed}")
-    if x.is_cuda:
-        if method not in _KERNEL_METHODS:
-            raise ValueError(
-                f"method {method!r} has no CUDA lowering; CUDA tensors go to "
-                f"the kernels with method 'auto' (or 'pallas')"
-            )
-    elif x.device.type != "cpu":
+def _check_device(x: torch.Tensor) -> None:
+    if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}: gns_torch runs on cuda or cpu")
 
 
@@ -132,10 +151,10 @@ class _GatherK2(torch.autograd.Function):
         return out.to(ctx.dtype), None
 
 
-def segment_sum(data: torch.Tensor, index: SegmentIndex, method: str = "auto"):
+def segment_sum(data: torch.Tensor, index: SegmentIndex):
     """Sum `data` (S, E) or (S, E, D) into index.n buckets per sample ->
     (S, n) or (S, n, D). float32 for float32 or bfloat16 data."""
-    _check_method(method, SEGMENT_METHODS, data)
+    _check_device(data)
     squeeze = data.dim() == 2
     x = data.unsqueeze(-1) if squeeze else data
     if x.shape[1] != index.edges:
@@ -150,10 +169,10 @@ def segment_sum(data: torch.Tensor, index: SegmentIndex, method: str = "auto"):
     return out[..., 0] if squeeze else out
 
 
-def gather(data: torch.Tensor, index: SegmentIndex, method: str = "auto"):
+def gather(data: torch.Tensor, index: SegmentIndex):
     """Row gather data[s, ids[e]] for data (S, n) or (S, n, D) ->
     (S, E) or (S, E, D), in the data's dtype."""
-    _check_method(method, GATHER_METHODS, data)
+    _check_device(data)
     if not index.in_range:
         raise ValueError(f"gather index has ids outside [0, {index.n})")
     squeeze = data.dim() == 2
@@ -170,12 +189,11 @@ def gather(data: torch.Tensor, index: SegmentIndex, method: str = "auto"):
     return out[..., 0] if squeeze else out
 
 
-def broadcast_col0_segment_sum(data_col, index: SegmentIndex, latent_dim: int,
-                               method: str = "auto"):
+def broadcast_col0_segment_sum(data_col, index: SegmentIndex, latent_dim: int):
     """Reference quirk Q1: scatter an (S, E, 1) message into an
     (S, n, latent) buffer of which only column 0 is written
     (reference GNS/main.py:169-170, SURVEY.md §2.4-Q1)."""
-    col0 = segment_sum(data_col[..., 0], index, method=method)
+    col0 = segment_sum(data_col[..., 0], index)
     out = torch.zeros(
         (data_col.shape[0], index.n, latent_dim),
         dtype=data_col.dtype, device=data_col.device,

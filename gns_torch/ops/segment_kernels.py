@@ -5,13 +5,20 @@ The kernels are in gns_torch/csrc/segment.cu; that file's header says
 which TPU kernels they replace, what bounds them and how. This module
 builds each source of SOURCES (segment.cu here, fused_edge.cu for K3 in
 ops/fused.py, megakernel.cu for K4 in ops/megakernel.py) with nvcc at
-first use, into build/torch_kernels/ under the checkout keyed by the
-source's and flags' hash (build_libraries, which also builds the host
-packer of utils/native.py there), loads the library with ctypes, and
-wraps K1/K2:
+first use, into build/torch_kernels/ under the checkout (build_libraries,
+which also builds the host packer of utils/native.py there), loads the
+library with ctypes, and wraps K1/K2:
 
   segment_sum_cuda(data, order, indptr, n)  K1: (S, E, D) f32/bf16 -> (S, n, D) f32
   gather_cuda(data, ids, masked=False)      K2: (S, R, D) -> (S, E, D), same dtype
+
+K3 and K4 are built once per (latent, hidden) width (WIDTHED): the width
+and the blocks per SM its __launch_bounds__ asks for reach the template as
+-D macros (`_flags`), and each width is a library of its own. A library's
+key is the hash of its source, its flags and what the host resolves them
+to: `nvcc --version` for the CUDA sources, the C++ compiler's `--version`
+and the target `-march=native` names for the host packer (`host_probe`,
+each probe run once per process).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates the output with new_empty, launches on the
@@ -64,7 +71,7 @@ NVCC_FLAGS = [
 
 MAX_SHARED_BYTES = 232448  # 227 KB: the most shared memory an H100 block may use
 
-_libs = {}  # library name -> loaded ctypes.CDLL
+_libs = {}  # library name, or (name, width) for K3 / K4 -> loaded ctypes.CDLL
 
 
 def _nvcc() -> str:
@@ -80,18 +87,104 @@ def _nvcc() -> str:
     )
 
 
-def _flags(name: str):
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+# K3 and K4 are built per (latent, hidden) width, for every width in
+# [1, MAX_LATENT] x [1, MAX_HIDDEN].
+WIDTHED = ("fused_edge", "megakernel")
+MAX_LATENT, MAX_HIDDEN = 64, 32
 
 
-def _library_path(name: str, source: str | None = None, key: str | None = None) -> str:
+def check_width(latent: int, hidden: int) -> None:
+    """Raises unless K3 and K4 take (latent, hidden)."""
+    if not (1 <= latent <= MAX_LATENT and 1 <= hidden <= MAX_HIDDEN):
+        raise ValueError(f"K3 and K4 take latent in [1, {MAX_LATENT}] and hidden in "
+                         f"[1, {MAX_HIDDEN}], got ({latent}, {hidden})")
+
+
+def min_blocks(name: str, latent: int, hidden: int) -> int:
+    """Blocks per SM the width's __launch_bounds__ asks for, which caps
+    its registers a thread (65,536 / (threads x blocks), at most 255).
+    K3 (128 threads): 3 (170 registers) while a lane's two edges' inputs
+    and hidden activations, 2 (L + 5) + 4 H floats, stay within the (20,
+    10) instance's 90 and L <= 25, else 2 (255). ptxas's registers grow
+    with L about three times as fast as with H: at 90 floats (30, 5)
+    spills at 3 where (24, 8) does not. python3 probe_k3_blocks.py prints
+    ptxas's registers and spills at 2 and at 3 for the five tested
+    widths, this rule's boundary and the range's ends. K4 (256
+    threads): 2 grids (128 registers) up to latent 20 with one k-tile of
+    hidden units, else 1."""
+    if name == "fused_edge":
+        return 3 if 2 * (latent + 5) + 4 * hidden <= 90 and latent <= 25 else 2
+    return 2 if latent <= 20 and hidden <= 16 else 1
+
+
+def _flags(name: str, width=None, blocks: int | None = None):
+    """nvcc's flags for a source; for K3 / K4 those of one width, with
+    `blocks` (default: min_blocks) as its blocks per SM."""
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+    if name not in WIDTHED:
+        return flags
+    if width is None:
+        raise ValueError(f"{name} is built per (latent, hidden) width: give one")
+    latent, hidden = width
+    check_width(latent, hidden)
+    if blocks is None:
+        blocks = min_blocks(name, latent, hidden)
+    return flags + [f"-DGNS_LATENT={latent}", f"-DGNS_HIDDEN={hidden}",
+                    f"-DGNS_MIN_BLOCKS={blocks}"]
+
+
+_PROBES = {}  # argv -> its output: each host probe runs once per process
+
+
+def _run(argv) -> str:
+    """The output (stdout, then stderr) of argv, or why it did not run."""
+    try:
+        proc = subprocess.run(argv, capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"{argv[0]}: {exc}"
+    return proc.stdout + proc.stderr
+
+
+def host_probe(*argv: str) -> str:
+    """The output of argv, run once per process and kept."""
+    out = _PROBES.get(argv)
+    if out is None:
+        out = _PROBES[argv] = _run(list(argv))
+    return out
+
+
+def nvcc_host() -> str:
+    """What the CUDA libraries' key sees of the host: `nvcc --version`."""
+    try:
+        tool = _nvcc()
+    except RuntimeError:
+        return "no nvcc"  # the build raises
+    return host_probe(tool, "--version")
+
+
+def cxx_host(cxx: str) -> str:
+    """What the host packer's key sees of the host: the compiler's
+    `--version` and the target -march=native resolves to, GCC's -march=
+    line of `-march=native -Q --help=target` (a compiler that prints none
+    is keyed by its version alone)."""
+    march = [" ".join(line.split()) for line in
+             host_probe(cxx, "-march=native", "-Q", "--help=target").splitlines()
+             if line.strip().startswith("-march=")]
+    return "\n".join([host_probe(cxx, "--version"), *march])
+
+
+def _library_path(name: str, source: str | None = None, key: str | None = None,
+                  width=None) -> str:
     """The library of a source under BUILD_DIR, keyed by the hash of the
-    source and `key` (default: the source's nvcc flags)."""
+    source and `key` (default: its nvcc flags at `width` and nvcc_host());
+    a width's library names it."""
     source = SOURCES[name] if source is None else source
-    key = " ".join(_flags(name)) if key is None else key
+    if key is None:
+        key = " ".join(_flags(name, width)) + "\n" + nvcc_host()
     with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + key.encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libgns_{name}_{digest}.so")
+    tag = "" if width is None else "_L{}_H{}".format(*width)
+    return os.path.join(BUILD_DIR, f"libgns_{name}{tag}_{digest}.so")
 
 
 def build_libraries(jobs: dict) -> dict:
@@ -142,18 +235,21 @@ def build_libraries(jobs: dict) -> dict:
     return info
 
 
-def build_kernels(names=None) -> dict:
-    """Compile each named CUDA source (default: all of SOURCES) with nvcc
-    unless its library, keyed by the hash of the source and the flags,
-    exists; one nvcc per source, all started together (build_libraries).
-    The log kept beside a library is nvcc's, ptxas's register and spill
-    report included."""
-    names = list(SOURCES) if names is None else list(names)
-    return build_libraries({
-        name: (_library_path(name),
-               lambda out, name=name: [_nvcc(), *_flags(name), "-o", out, SOURCES[name]])
-        for name in names
-    })
+def build_kernels(libs=None) -> dict:
+    """Compile each library of `libs` with nvcc unless it exists: a list of
+    source names (segment) and (name, (latent, hidden)) pairs (K3 / K4,
+    one library per width); default, every source that needs no width.
+    One nvcc per library, all started together (build_libraries); returns
+    build_libraries' info keyed as `libs` names them. The log kept beside a
+    library is nvcc's, ptxas's register and spill report included."""
+    libs = [n for n in SOURCES if n not in WIDTHED] if libs is None else list(libs)
+    jobs = {}
+    for lib in libs:
+        name, width = (lib, None) if isinstance(lib, str) else lib
+        jobs[lib] = (_library_path(name, width=width),
+                     lambda out, name=name, width=width: [_nvcc(), *_flags(name, width), "-o",
+                                                          out, SOURCES[name]])
+    return build_libraries(jobs)
 
 
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -179,28 +275,33 @@ SIGNATURES = {
     },
 }
 _LIBRARY_OF = {fn: name for name, fns in SIGNATURES.items() for fn in fns}
-_fns = {}  # C function name -> its bound ctypes function, resolved once
+# C function name (or (name, width) for K3 / K4) -> its bound ctypes
+# function, resolved once when its library loads
+_fns = {}
 
 
-def library(name: str):
-    """The loaded library of SOURCES[name], built at first use, with every
-    C function of SIGNATURES[name] resolved and typed once."""
-    if name not in _libs:
-        lib = ctypes.CDLL(build_kernels([name])[name]["path"])
+def library(name: str, width=None):
+    """The loaded library of SOURCES[name] (at `width` for K3 / K4), built
+    at first use, with every C function of SIGNATURES[name] resolved and
+    typed once."""
+    lib_key = name if width is None else (name, tuple(width))
+    if lib_key not in _libs:
+        lib = ctypes.CDLL(build_kernels([lib_key])[lib_key]["path"])
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             bound = getattr(lib, fn)
             bound.argtypes, bound.restype = argtypes, restype
-            _fns[fn] = bound
-        _libs[name] = lib
-    return _libs[name]
+            _fns[fn if width is None else (fn, tuple(width))] = bound
+        _libs[lib_key] = lib
+    return _libs[lib_key]
 
 
-def function(fn: str):
-    """The bound C function `fn` of its library (loaded at first use)."""
-    bound = _fns.get(fn)
+def function(fn: str, width=None):
+    """The bound C function `fn` of its library (at `width`, a (latent,
+    hidden) tuple, for K3 / K4), loaded at first use."""
+    bound = _fns.get(fn if width is None else (fn, width))
     if bound is None:
-        library(_LIBRARY_OF[fn])
-        bound = _fns[fn]
+        library(_LIBRARY_OF[fn], width)
+        bound = _fns[fn if width is None else (fn, tuple(width))]
     return bound
 
 

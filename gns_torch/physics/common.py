@@ -103,8 +103,7 @@ def ones_mask(n, dtype=torch.float32, device="cpu") -> torch.Tensor:
     return torch.ones(n, dtype=dtype, device=device)
 
 
-def branch_flows(v, theta, geom: EdgeGeom, graph: Graph, method: str = "auto",
-                 at_src=None, at_dst=None):
+def branch_flows(v, theta, geom: EdgeGeom, graph: Graph, at_src=None, at_dst=None):
     """Textbook AC branch flows (paper mode): per-line (p_f, q_f, p_t, q_t),
     the power flowing into the line at its from- and to-side.
 
@@ -113,8 +112,8 @@ def branch_flows(v, theta, geom: EdgeGeom, graph: Graph, method: str = "auto",
     physics/fused.py); gathered here when None."""
     if at_src is None or at_dst is None:
         vth = torch.stack([v, theta], dim=-1)
-        at_src = gather(vth, graph.src, method=method)
-        at_dst = gather(vth, graph.dst, method=method)
+        at_src = gather(vth, graph.src)
+        at_dst = gather(vth, graph.dst)
     vf = at_src[..., 0] / geom.tau
     vt = at_dst[..., 0]
     th = at_src[..., 1] - at_dst[..., 1] - geom.shift
@@ -129,7 +128,7 @@ def branch_flows(v, theta, geom: EdgeGeom, graph: Graph, method: str = "auto",
 
 
 def bus_injections(v, buses, gens, pg, qg_bus, gen_mask: Optional[torch.Tensor],
-                   graph: Optional[Graph] = None, method: str = "auto"):
+                   graph: Optional[Graph] = None):
     """(P_inj, Q_inj) per bus, each (S, N), from per-generator active power
     pg (S, G) and per-bus reactive generation qg_bus (S, N)
     (gns_tpu/physics/common.py:93). graph: the batch's Graph; without one
@@ -139,7 +138,7 @@ def bus_injections(v, buses, gens, pg, qg_bus, gen_mask: Optional[torch.Tensor],
         buses.shape[-2], buses.device)
     if gen_mask is not None:
         pg = pg * gen_mask
-    pg_bus = segment_sum(pg, index, method=method)
+    pg_bus = segment_sum(pg, index)
     v2 = v * v
     p_inj = pg_bus - buses[..., BUS["Pd"]] - buses[..., BUS["Gs"]] * v2
     q_inj = qg_bus - buses[..., BUS["Qd"]] + buses[..., BUS["Bs"]] * v2

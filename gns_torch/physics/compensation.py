@@ -51,7 +51,6 @@ def global_active_compensation(
     bus_mask: Optional[torch.Tensor] = None,
     line_mask: Optional[torch.Tensor] = None,
     gen_mask: Optional[torch.Tensor] = None,
-    method: str = "auto",
     qg_gen_only: bool = False,
     dispatch: str = "lambda",
     edge_group=None,
@@ -85,7 +84,7 @@ def global_active_compensation(
     lm = line_mask if line_mask is not None else 1.0
 
     if reference_parity:
-        q2 = q2_gathers(v, theta, geom, graph, method)
+        q2 = q2_gathers(v, theta, geom, graph)
         v_s, v_d, th_s, th_d = q2["v_s"], q2["v_d"], q2["th_s"], q2["th_d"]
         y_s, d_s, tau_s, sh_s = q2["y_s"], q2["d_s"], q2["tau_s"], q2["sh_s"]
         msg = torch.abs(
@@ -96,7 +95,7 @@ def global_active_compensation(
         )
         p_joule = (msg * lm).sum(-1)
     else:
-        p_f, _, p_t, _ = branch_flows(v, theta, geom, graph, method)
+        p_f, _, p_t, _ = branch_flows(v, theta, geom, graph)
         p_joule = all_reduce_sum(((p_f + p_t) * lm).sum(-1), edge_group)
 
     v2 = v * v
@@ -127,38 +126,38 @@ def global_active_compensation(
             -v_d * v_s * y_d / tau_d * torch.cos(th_d - th_s - dj_d - sh_d)
             + v_d**2 * (y_d * torch.sin(dj_d) - q2["b_d"] / 2.0)
         )
-        aggr_from = segment_sum(msg_from * lm, graph.dst, method=method)
-        aggr_to = segment_sum(msg_to * lm, graph.src, method=method)
+        aggr_from = segment_sum(msg_from * lm, graph.dst)
+        aggr_to = segment_sum(msg_to * lm, graph.src)
         qg_new = qg_start - aggr_from - aggr_to
     else:
-        _, q_f, _, q_t = branch_flows(v, theta, geom, graph, method)
-        q_at_bus = all_reduce_sum(segment_sum(q_f * lm, graph.src, method=method)
-                                  + segment_sum(q_t * lm, graph.dst, method=method), edge_group)
+        _, q_f, _, q_t = branch_flows(v, theta, geom, graph)
+        q_at_bus = all_reduce_sum(segment_sum(q_f * lm, graph.src)
+                                  + segment_sum(q_t * lm, graph.dst), edge_group)
         qg_new = qg_start + q_at_bus
 
     if qg_gen_only:
         ones = gen_mask if gen_mask is not None else torch.ones_like(pg_new)
-        gen_bus_mask = segment_sum(ones, graph.gen, method=method) > 0
+        gen_bus_mask = segment_sum(ones, graph.gen) > 0
         qg_new = qg_new * gen_bus_mask.to(qg_new.dtype)
     if bus_mask is not None:
         qg_new = qg_new * bus_mask
     return pg_new, qg_new
 
 
-def q2_gathers(v, theta, geom: EdgeGeom, graph: Graph, method: str = "auto") -> dict:
+def q2_gathers(v, theta, geom: EdgeGeom, graph: Graph) -> dict:
     """The per-line operands of the reference's parity formulas, each
     (S, E): v and theta at each line's ends, and quirk Q2's reads of the
     per-line arrays (y, tau, shift, b, the angle difference delta) at the
     BUS ids src[e] / dst[e] used as line indices (main.py:41,68-72,91-99)."""
-    v_s, v_d = gather(v, graph.src, method=method), gather(v, graph.dst, method=method)
-    th_s, th_d = gather(theta, graph.src, method=method), gather(theta, graph.dst, method=method)
+    v_s, v_d = gather(v, graph.src), gather(v, graph.dst)
+    th_s, th_d = gather(theta, graph.src), gather(theta, graph.dst)
     delta = th_s - th_d
     out = dict(v_s=v_s, v_d=v_d, th_s=th_s, th_d=th_d)
     for side, rows in (("s", graph.src_rows), ("d", graph.dst_rows)):
-        out[f"y_{side}"] = gather(geom.y, rows, method=method)
-        out[f"tau_{side}"] = gather(geom.tau, rows, method=method)
-        out[f"sh_{side}"] = gather(geom.shift, rows, method=method)
-        out[f"b_{side}"] = gather(geom.b_chg, rows, method=method)
-    out["d_s"] = gather(delta, graph.src_rows, method=method)  # delta[src]
-    out["dj_d"] = gather(-delta, graph.dst_rows, method=method)  # delta_ji[dst]
+        out[f"y_{side}"] = gather(geom.y, rows)
+        out[f"tau_{side}"] = gather(geom.tau, rows)
+        out[f"sh_{side}"] = gather(geom.shift, rows)
+        out[f"b_{side}"] = gather(geom.b_chg, rows)
+    out["d_s"] = gather(delta, graph.src_rows)  # delta[src]
+    out["dj_d"] = gather(-delta, graph.dst_rows)  # delta_ji[dst]
     return out

@@ -46,7 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from gns_torch.ops.collectives import all_gather_rows, all_reduce_sum
-from gns_torch.ops.segment import gather, segment_sum
+from gns_torch.ops.segment import check_method, gather, segment_sum
 from gns_torch.physics.common import EdgeGeom, Graph, branch_flows, edge_geometry
 from gns_torch.physics.compensation import _lambda_dispatch
 from gns_torch.utils.schema import BUS, BUS_TYPE_SLACK, GEN
@@ -60,7 +60,7 @@ def stack_switches() -> Tuple[bool, bool]:
     return _STACK_GATHER, _STACK_AGG
 
 
-def q2_geometry(geom: EdgeGeom, graph: Graph, method: str = "auto", line_group=None
+def q2_geometry(geom: EdgeGeom, graph: Graph, line_group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quirk Q2's step-invariant gathers: (y, tau, shift, b_chg) of line
     src[e] and of line dst[e] (bus ids used as line indices), each
@@ -70,8 +70,8 @@ def q2_geometry(geom: EdgeGeom, graph: Graph, method: str = "auto", line_group=N
     line (graph.src_rows / dst_rows index the whole line set)."""
     per_line = torch.stack([geom.y, geom.tau, geom.shift, geom.b_chg], dim=-1)
     per_line = all_gather_rows(per_line, line_group, dim=1)
-    return (gather(per_line, graph.src_rows, method=method),
-            gather(per_line, graph.dst_rows, method=method))
+    return (gather(per_line, graph.src_rows),
+            gather(per_line, graph.dst_rows))
 
 
 def physics_refresh(
@@ -112,9 +112,7 @@ def physics_refresh(
         )
     if dispatch not in ("lambda", "setpoint_slack"):
         raise ValueError(f"dispatch must be lambda/setpoint_slack, got {dispatch!r}")
-    degree = method == "degree"
-    if degree:
-        method = "auto"
+    degree = check_method(method, v.device) == "degree"
     stackable = not reference_parity and edge_group is None and not degree
     stack_gather = stackable and _STACK_GATHER
     stack_agg = stackable and _STACK_AGG
@@ -136,17 +134,17 @@ def physics_refresh(
 
     if reference_parity:
         if q2 is None:
-            q2 = q2_geometry(geom, graph, method, edge_group)
+            q2 = q2_geometry(geom, graph, edge_group)
         y_s, tau_s, sh_s, b_s = q2[0].unbind(-1)
         y_d, tau_d, sh_d, b_d = q2[1].unbind(-1)
         vth = torch.stack([v, theta], dim=-1)
-        at_src = gather(vth, graph.src, method=method)
-        at_dst = gather(vth, graph.dst, method=method)
+        at_src = gather(vth, graph.src)
+        at_dst = gather(vth, graph.dst)
         v_s, v_d = at_src[..., 0], at_dst[..., 0]
         th_sd = at_src[..., 1] - at_dst[..., 1]  # delta (S, E)
         th_all = all_gather_rows(th_sd, edge_group, dim=1)  # Q2 reads any line
-        d_s = gather(th_all, graph.src_rows, method=method)  # delta[src]
-        dj_d = -gather(th_all, graph.dst_rows, method=method)  # delta_ji[dst]
+        d_s = gather(th_all, graph.src_rows)  # delta[src]
+        dj_d = -gather(th_all, graph.dst_rows)  # delta_ji[dst]
 
         ang_s = th_sd - d_s - sh_s
         ang_d = -th_sd - dj_d - sh_d
@@ -174,10 +172,10 @@ def physics_refresh(
     else:
         at_src = at_dst = None
         if stack_gather:
-            at_both = gather(torch.stack([v, theta], dim=-1), graph.src_dst, method=method)
+            at_both = gather(torch.stack([v, theta], dim=-1), graph.src_dst)
             e = at_both.shape[1] // 2
             at_src, at_dst = at_both[:, :e], at_both[:, e:]
-        p_f, q_f, p_t, q_t = branch_flows(v, theta, geom, graph, method, at_src, at_dst)
+        p_f, q_f, p_t, q_t = branch_flows(v, theta, geom, graph, at_src, at_dst)
         p_joule = all_reduce_sum(((p_f + p_t) * lm).sum(-1), edge_group)
         p_from, p_to = -p_f, -p_t  # the imbalance subtracts the line draw
         q_from, q_to = -q_f, -q_t
@@ -187,8 +185,8 @@ def physics_refresh(
     from_pair = torch.stack([p_from, q_from], dim=-1) * lm_col
     to_pair = torch.stack([p_to, q_to], dim=-1) * lm_col
     if not stack_agg:  # else after pg_new, which the generator rows need
-        agg_from = all_reduce_sum(segment_sum(from_pair, from_idx, method=method), edge_group)
-        agg_to = all_reduce_sum(segment_sum(to_pair, to_idx, method=method), edge_group)
+        agg_from = all_reduce_sum(segment_sum(from_pair, from_idx), edge_group)
+        agg_to = all_reduce_sum(segment_sum(to_pair, to_idx), edge_group)
         p_sum = agg_from[..., 0] + agg_to[..., 0]
         q_sum = agg_from[..., 1] + agg_to[..., 1]
 
@@ -206,11 +204,11 @@ def physics_refresh(
     if stack_agg:
         rows = torch.cat([from_pair, to_pair, torch.stack([pg, torch.zeros_like(pg)], dim=-1)],
                          dim=1)
-        agg = segment_sum(rows, graph.src_dst_gen, method=method)
+        agg = segment_sum(rows, graph.src_dst_gen)
         q_sum = agg[..., 1]
         delta_p = agg[..., 0] - pd - gs * v2  # column 0 is p_sum + pg_bus
     else:
-        pg_bus = segment_sum(pg, graph.gen, method=method)
+        pg_bus = segment_sum(pg, graph.gen)
         delta_p = pg_bus - pd - gs * v2 + p_sum
 
     qg_start = qd - bs * v2
@@ -218,7 +216,7 @@ def physics_refresh(
     if qg_gen_only:
         if gen_bus_mask is None:
             ones = gen_mask if gen_mask is not None else torch.ones_like(pg)
-            gen_bus_mask = (segment_sum(ones, graph.gen, method=method) > 0).to(qg_new.dtype)
+            gen_bus_mask = (segment_sum(ones, graph.gen) > 0).to(qg_new.dtype)
         qg_new = qg_new * gen_bus_mask
     if dispatch == "setpoint_slack":
         if slack_mask is None:

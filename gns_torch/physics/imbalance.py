@@ -36,7 +36,6 @@ def local_power_imbalance(
     bus_mask: Optional[torch.Tensor] = None,
     line_mask: Optional[torch.Tensor] = None,
     gen_mask: Optional[torch.Tensor] = None,
-    method: str = "auto",
     zero_slack_dp: bool = False,
     edge_group=None,
 ):
@@ -54,13 +53,13 @@ def local_power_imbalance(
     lm = line_mask if line_mask is not None else 1.0
 
     pg = pg_k * gen_mask if gen_mask is not None else pg_k
-    pg_bus = segment_sum(pg, graph.gen, method=method)
+    pg_bus = segment_sum(pg, graph.gen)
     v2 = v * v
     delta_p_start = pg_bus - buses[..., BUS["Pd"]] - buses[..., BUS["Gs"]] * v2
     delta_q_start = qg_k - buses[..., BUS["Qd"]] + buses[..., BUS["Bs"]] * v2
 
     if reference_parity:
-        q2 = q2_gathers(v, theta, geom, graph, method)
+        q2 = q2_gathers(v, theta, geom, graph)
         v_s, v_d, th_s, th_d = q2["v_s"], q2["v_d"], q2["th_s"], q2["th_d"]
         y_s, d_s, tau_s, sh_s = q2["y_s"], q2["d_s"], q2["tau_s"], q2["sh_s"]
         y_d, dj_d, tau_d, sh_d = q2["y_d"], q2["dj_d"], q2["tau_d"], q2["sh_d"]
@@ -72,8 +71,8 @@ def local_power_imbalance(
             v_d * v_s * y_d / tau_d * torch.sin(th_d - th_s - dj_d - sh_d)
             + v_d**2 * y_d * torch.sin(dj_d)
         )
-        p_sum = (segment_sum(p_msg_from * lm, graph.dst, method=method)
-                 + segment_sum(p_msg_to * lm, graph.src, method=method))
+        p_sum = (segment_sum(p_msg_from * lm, graph.dst)
+                 + segment_sum(p_msg_to * lm, graph.src))
         delta_p = delta_p_start + p_sum
         q_msg_from = (
             -v_s * v_d * y_s / tau_s * torch.cos(th_s - th_d - d_s - sh_s)
@@ -84,17 +83,17 @@ def local_power_imbalance(
             -v_d * v_s * y_d / tau_d * torch.cos(th_d - th_s - dj_d - sh_d)
             + v_d**2 * (y_d * torch.sin(dj_d) - q2["b_d"] / 2.0)
         )
-        q_sum = (segment_sum(q_msg_from * lm, graph.dst, method=method)
-                 + segment_sum(q_msg_to * lm, graph.src, method=method))
+        q_sum = (segment_sum(q_msg_from * lm, graph.dst)
+                 + segment_sum(q_msg_to * lm, graph.src))
         delta_q = delta_q_start + q_sum
     else:
-        p_f, q_f, p_t, q_t = branch_flows(v, theta, geom, graph, method)
+        p_f, q_f, p_t, q_t = branch_flows(v, theta, geom, graph)
         delta_p = delta_p_start - all_reduce_sum(
-            segment_sum(p_f * lm, graph.src, method=method)
-            + segment_sum(p_t * lm, graph.dst, method=method), edge_group)
+            segment_sum(p_f * lm, graph.src)
+            + segment_sum(p_t * lm, graph.dst), edge_group)
         delta_q = delta_q_start - all_reduce_sum(
-            segment_sum(q_f * lm, graph.src, method=method)
-            + segment_sum(q_t * lm, graph.dst, method=method), edge_group)
+            segment_sum(q_f * lm, graph.src)
+            + segment_sum(q_t * lm, graph.dst), edge_group)
 
     if zero_slack_dp:
         if reference_parity:

@@ -14,10 +14,10 @@ from gns_torch.physics.common import Graph
 from gns_torch.utils.schema import LINE
 
 
-def active_line_flow(v, theta, lines, graph: Graph, method: str = "auto"):
+def active_line_flow(v, theta, lines, graph: Graph):
     """v / theta (S, N), lines (S, E, 7) -> per-line active flow (S, E)."""
     vth = torch.stack([v, theta], dim=-1)
-    at_src = gather(vth, graph.src, method=method)
-    at_dst = gather(vth, graph.dst, method=method)
+    at_src = gather(vth, graph.src)
+    at_dst = gather(vth, graph.dst)
     x = lines[..., LINE["x"]]
     return (1.0 / x) * at_src[..., 0] * at_dst[..., 0] * torch.sin(at_src[..., 1] - at_dst[..., 1])

@@ -32,6 +32,7 @@ import torch
 from gns_torch.eval.harness import align_slack_angle
 from gns_torch.models.gns import GNS, batch_tensors, gns_forward, step_params
 from gns_torch.ops import collectives
+from gns_torch.ops.segment import check_method
 from gns_torch.parallel.solver_dp import dp_block, dp_group, dp_size
 from gns_torch.physics.common import build_graph
 from gns_torch.physics.fused import stack_switches
@@ -78,7 +79,7 @@ class GNSPredictor:
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.batch_size = batch_size
-        self.method = method
+        self.method = check_method(method, self.device)
         self.align_slack = align_slack
         with torch.no_grad():
             steps = step_params(model, cfg)

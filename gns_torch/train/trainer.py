@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from gns_torch.models.gns import GNS, batch_tensors, gns_forward, step_params
+from gns_torch.ops.segment import check_method
 from gns_torch.physics.common import build_graph
 from gns_torch.physics.fused import stack_switches
 from gns_torch.utils.config import GNSConfig
@@ -207,7 +208,9 @@ def _update_core(cfg, optimizer, method, dense, grads_fn=None):
     grads_fn(model, batch, graph, *extra) -> (metric, metric, gradients in
     the order of model.parameters()), the metrics detached; default
     loss_and_grads (mean total_loss, mean last_loss). The core returns the
-    two metrics."""
+    two metrics. `method` is checked here by name (ops/segment.py
+    check_method), and against the device at each forward."""
+    check_method(method)
     if grads_fn is None:
         def grads_fn(model, batch, graph):
             return loss_and_grads(model, cfg, batch, graph, method, dense)

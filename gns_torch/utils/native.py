@@ -8,8 +8,9 @@ is bit-equal to it (tests/test_torch_native.py).
 
 The library is built at first use with the host C++ compiler ($CXX, else
 c++ or g++) and native/Makefile's flags into build/torch_kernels/, keyed
-by the hash of the source, the compiler and the flags
-(ops/segment_kernels.py build_libraries). The committed
+by the hash of the source, the compiler, the flags and what the host
+resolves them to: the compiler's version and the target -march=native
+names (ops/segment_kernels.py cxx_host, build_libraries). The committed
 native/libgridpack.so of the JAX package is never loaded: it was built
 with -march=native on another machine.
 
@@ -58,6 +59,14 @@ def compiler() -> Optional[str]:
 HAVE_NATIVE = compiler() is not None
 
 
+def library_path(cxx: str) -> str:
+    """Where the library built by `cxx` lives: keyed by the source, the
+    compiler, CXX_FLAGS and what the host resolves them to (its version
+    and -march=native's target, ops/segment_kernels.py cxx_host)."""
+    return kern._library_path("gridpack", SOURCE, " ".join([cxx, *CXX_FLAGS]) + "\n"
+                              + kern.cxx_host(cxx))
+
+
 def build_packer() -> dict:
     """Build the library unless it exists; returns {"path", "seconds",
     "log", "compiler", "flags"} (seconds 0.0 for a library already built).
@@ -67,7 +76,7 @@ def build_packer() -> dict:
     if cxx is None:
         raise RuntimeError("no host C++ compiler ($CXX, c++, g++): gns_torch/csrc/gridpack.cpp "
                            "is built at first use")
-    path = kern._library_path("gridpack", SOURCE, " ".join([cxx, *CXX_FLAGS]))
+    path = library_path(cxx)
     info = kern.build_libraries(
         {"gridpack": (path, lambda out: [cxx, *CXX_FLAGS, "-o", out, SOURCE])})["gridpack"]
     info.update(compiler=cxx, flags=list(CXX_FLAGS))

@@ -1,6 +1,8 @@
 """gns_torch K3, the fused edge stage, on the CPU against gns_tpu's
 `fused_edge_stage` in interpret mode (tests/test_fused.py's problem: S3,
-N14, E20, L8, H8).
+N14, E20), at every (L, H) of WIDTHS: gns_tpu's own test width (8, 8), the
+reference's default (10, 10), an odd L with H > 16 (33, 24) and the
+shipped checkpoints' (20, 10) and (40, 10).
 
 On the CPU the port's fused_edge_stage is its plain twin (gather_plain,
 F.linear, segment_sum_plain). The CUDA kernel runs only on the card, where
@@ -24,15 +26,17 @@ from gns_torch.ops.fused import fused_edge_cuda, fused_edge_stage, fused_edge_st
 from gns_torch.ops.segment import SegmentIndex
 
 torch.set_num_threads(1)
-S, N, E, L, H = 3, 14, 20, 8, 8
+S, N, E = 3, 14, 20
+WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10)]
 SLOPE = 0.01
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=2e-4, atol=1e-5)
 HEADS = ("phi_v", "phi_theta", "phi_m")
 
 
-@pytest.fixture(scope="module")
-def problem():
+@pytest.fixture(scope="module", params=WIDTHS, ids=lambda w: f"L{w[0]}_H{w[1]}")
+def problem(request):
+    L, H = request.param  # noqa: N806 (the width under test)
     rng = np.random.default_rng(0)
     m = rng.standard_normal((S, N, L)).astype(np.float32)
     feats = rng.standard_normal((S, E, 5)).astype(np.float32)
@@ -60,6 +64,7 @@ def _torch(problem, requires_grad=False):
 
 def test_k3_plain_matches_pallas_interpret(problem):
     m, feats, mask, seg, sp = problem
+    L = m.shape[-1]  # noqa: N806
     ref = j_fused_edge_stage(jnp.asarray(m), jnp.asarray(feats), jnp.asarray(mask),
                              jnp.asarray(seg), sp, SLOPE, True)
     tm, tf, tmask, idx, heads = _torch(problem)
@@ -146,6 +151,7 @@ def test_k3_autograd_function_recomputes_through_the_primitives(problem, monkeyp
 
 def test_k3_cuda_wrapper_and_index_checks(problem):
     tm, tf, tmask, idx, heads = _torch(problem)
+    L, H = problem[0].shape[-1], heads["phi_v"]["w1"].shape[0]  # noqa: N806
     libs = dict(fused.kern._libs)
     with pytest.raises(ValueError, match="CUDA"):
         fused_edge_cuda(tm, tf, tmask, idx, fused._weights(heads), SLOPE)
@@ -165,3 +171,29 @@ def test_k3_cuda_wrapper_and_index_checks(problem):
         fused_edge_stage(tm[:, :-1], tf, tmask, idx, heads, SLOPE)
     with pytest.raises(ValueError):
         fused_edge_stage(tm.to("meta"), tf, tmask, idx, heads, SLOPE)
+
+
+def test_k3_width_range():
+    """K3 takes every (L, H) in [1, 64] x [1, 32] (segment_kernels.check_width)
+    and refuses the rest before anything is built. On CPU tensors
+    fused_edge_cuda raises at its device check, before the width, and no
+    library is built or loaded either way; fused_edge_occupancy checks the
+    width before it loads its library."""
+    libs = dict(fused.kern._libs)
+    for latent, hidden in ((1, 1), (64, 32), (33, 24), (7, 17)):
+        fused.kern.check_width(latent, hidden)
+    for latent, hidden in ((0, 8), (65, 8), (8, 0), (8, 33), (80, 40)):
+        with pytest.raises(ValueError, match=r"latent in \[1, 64\] and hidden in \[1, 32\]"):
+            fused.kern.check_width(latent, hidden)
+        with pytest.raises(ValueError, match="latent in"):
+            fused.fused_edge_occupancy(latent, hidden)
+        with pytest.raises(ValueError, match="latent in"):
+            fused.kern._library_path("fused_edge", width=(latent, hidden))
+    wide = {h: jax.tree.map(np.asarray, init_learning_block(jax.random.key(i), 70, 8, 65))
+            for i, h in enumerate(HEADS)}
+    seg = np.arange(E, dtype=np.int32) % N
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_edge_cuda(torch.zeros((S, N, 65)), torch.zeros((S, E, 5)), torch.ones((S, E)),
+                        SegmentIndex(seg, N), fused._weights(heads_from_jax(wide, device="cpu")),
+                        SLOPE)
+    assert fused.kern._libs == libs  # nothing built or loaded

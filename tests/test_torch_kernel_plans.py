@@ -260,7 +260,8 @@ def test_k3_order_of_adds_equals_segment_sum(case):
                        kern.segment_sum_plain(x, index.order, index.indptr, index.n))
 
 
-@pytest.mark.parametrize("latent, hidden", [(20, 10), (8, 8), (12, 6), (40, 10)])
+@pytest.mark.parametrize("latent, hidden", [(20, 10), (8, 8), (12, 6), (40, 10), (10, 10),
+                                            (33, 24)])
 def test_k3_packed_weights_unpack_exactly(latent, hidden):
     """pack_weights lays the 18 weights out as fused_edge.cu's Pack reads
     them: per head w1, b1, w2, b2, w4, b4, each matrix transposed to (in,

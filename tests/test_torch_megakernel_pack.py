@@ -37,7 +37,13 @@ LAT, HID = 20, 10
 DIMS = {
     (20, 10): ((0, 12, 18, 27, 45, 51, 56), (0, 48, 96, 168, 216, 264, 304)),
     (40, 10): ((0, 18, 24, 39, 75, 81, 88), (0, 48, 96, 216, 264, 312, 368)),
+    (8, 8): ((0, 6, 12, 15, 27, 33, 36), (0, 48, 96, 120, 168, 216, 240)),
+    (10, 10): ((0, 6, 12, 18, 30, 36, 40), (0, 48, 96, 144, 192, 240, 272)),
+    # L = 33: m and each aggregate block padded to 34 columns; H = 24: two
+    # k-tiles and four n-tiles of hidden units per head
+    (33, 24): ((0, 36, 60, 90, 150, 174, 188), (0, 96, 192, 312, 408, 504, 560)),
 }
+WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10)]
 RTOL = 1e-6
 
 
@@ -125,13 +131,15 @@ def _check_unpack(seed, lat, hid):
         + 3 * hid + 3 * hid + 2 + lat
 
 
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda w: f"L{w[0]}_H{w[1]}")
 @pytest.mark.parametrize("seed", [0, 1])
-def test_unpack_gives_fused_bf16_weights(seed):
+def test_unpack_gives_fused_bf16_weights(seed, width):
     """Unpacking the tiles gives step_params' bf16 fused weights exactly:
     the per-head blocks, the block-diagonal zeros, the padding and L w1's
     column selection. Every fused weight lands in at most one slot, and the
-    slots hold exactly the heads' own weights (1650 per edge, 1840 per bus)."""
-    _check_unpack(seed, LAT, HID)
+    slots hold exactly the heads' own weights (1650 per edge, 1840 per bus
+    at (20, 10)); at each width of WIDTHS."""
+    _check_unpack(seed, *width)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -146,11 +154,26 @@ def _check_tile_products(case, lat, hid):
     (T_PW1, T_PW2, T_PW4, T_LW1, T_LW2, T_LW4, N_TILES), \
         (B_PB1, B_PB2, B_PB4, B_LB1, B_LB2, B_LB4, _) = DIMS[(lat, hid)]
     LAT, HID = lat, hid  # noqa: N806 (the widths under test)
-    kp, kl, nl = -(-(LAT + 5) // 16), -(-(4 + 2 * LAT) // 16), -(-LAT // 8)
+    # megakernel.cu's Dims: m and each aggregate block in column pairs, each
+    # head's hidden units in whole 16-wide k-tiles
+    le, hp = LAT + LAT % 2, -(-HID // 16) * 16
+    kh, nh, nbw = hp // 16, hp // 8, 4 + LAT + LAT % 2
+    kp, kl, nl = -(-(le + 5) // 16), -(-(nbw + le) // 16), -(-LAT // 8)
     fused, wpack, bpack = _packs(0, lat, hid)
     batch = base_case_batch(case)
     n_bus, n_line = batch.buses.shape[1], batch.lines.shape[1]
     rng = np.random.default_rng(case)
+
+    def junk(rows, cols):  # what the padding columns of A hold: the tiles' zeros must drop it
+        return torch.as_tensor(rng.standard_normal((rows, cols)), dtype=torch.float32)
+
+    def hidden_in(h_all, h):  # one head's hidden units, padded to hp
+        return torch.cat([h_all[:, h * HID:(h + 1) * HID], junk(h_all.shape[0], hp - HID)], 1)
+
+    def product(a, first, n_tiles, k_tiles):  # A @ B over n_tiles n-tiles of k_tiles each
+        return torch.cat([sum(a[:, 16 * kt:16 * kt + 16] @ _b(tiles, first + nt * k_tiles + kt)
+                              for kt in range(k_tiles)) for nt in range(n_tiles)], 1)
+
     for k, st in enumerate(fused):
         tiles = wpack[k].view(N_TILES, 32, 4)
         bias = bpack[k]
@@ -158,18 +181,19 @@ def _check_tile_products(case, lat, hid):
         w = {h: {n: t.to(torch.bfloat16).float() if n.startswith("w") else t for n, t in p.items()}
              for h, p in (("phi", phi), ("L", lay))}
 
-        # phi: edge rows, input (E, L + 5)
+        # phi: edge rows, input (E, L + 5): m padded to le, then the features
         x = _bf(torch.as_tensor(rng.standard_normal((n_line, LAT + 5)), dtype=torch.float32))
         ref1 = x @ w["phi"]["w1"].t() + w["phi"]["b1"]
-        xp = torch.nn.functional.pad(x, (0, 16 * kp - x.shape[1]))
-        for nt in range(6):
-            head, half = divmod(nt, 2)
-            got = sum(xp[:, 16 * kt:16 * kt + 16] @ _b(tiles, T_PW1 + nt * kp + kt)
-                      for kt in range(kp))
+        xp = torch.cat([x[:, :LAT], junk(n_line, le - LAT), x[:, LAT:],
+                        junk(n_line, 16 * kp - le - 5)], 1)
+        for nt in range(3 * nh):
+            head, part = divmod(nt, nh)
+            got = product(xp, T_PW1 + nt * kp, 1, kp)
             got = got + bias[B_PB1 + nt * 8:B_PB1 + nt * 8 + 8]
-            cols = slice(head * HID + half * 8, head * HID + min(half * 8 + 8, HID))
-            n_real = cols.stop - cols.start
-            _close(got[:, :n_real], ref1[:, cols], x, w["phi"]["w1"][cols])
+            n_real = max(0, min(part * 8 + 8, HID) - part * 8)
+            cols = slice(head * HID + part * 8, head * HID + part * 8 + n_real)
+            if n_real:
+                _close(got[:, :n_real], ref1[:, cols], x, w["phi"]["w1"][cols])
             assert torch.equal(got[:, n_real:], bias[B_PB1 + nt * 8 + n_real:B_PB1 + nt * 8 + 8]
                                .expand(got.shape[0], -1))
         h1 = _bf(torch.where(ref1 >= 0, ref1, 0.01 * ref1))
@@ -177,13 +201,11 @@ def _check_tile_products(case, lat, hid):
         h2 = _bf(torch.where(ref2 >= 0, ref2, 0.01 * ref2))
         ref4 = h2 @ w["phi"]["w4"].t() + w["phi"]["b4"]
         for h in range(3):
-            a = torch.nn.functional.pad(h1[:, h * HID:(h + 1) * HID], (0, 16 - HID))
-            got = torch.cat([a @ _b(tiles, T_PW2 + h * 2 + nt) for nt in range(2)], 1)
-            got = (got + bias[B_PB2 + 16 * h:B_PB2 + 16 * h + 16])[:, :HID]
+            got = product(hidden_in(h1, h), T_PW2 + h * nh * kh, nh, kh)
+            got = (got + bias[B_PB2 + hp * h:B_PB2 + hp * (h + 1)])[:, :HID]
             rows = slice(h * HID, (h + 1) * HID)
             _close(got, ref2[:, rows], h1, w["phi"]["w2"][rows])
-            a = torch.nn.functional.pad(h2[:, h * HID:(h + 1) * HID], (0, 16 - HID))
-            got = torch.cat([a @ _b(tiles, T_PW4 + h * nl + nt) for nt in range(nl)], 1)
+            got = product(hidden_in(h2, h), T_PW4 + h * nl * kh, nl, kh)
             got = (got + bias[B_PB4 + 8 * nl * h:B_PB4 + 8 * nl * (h + 1)])[:, :LAT]
             rows = slice(h * LAT, (h + 1) * LAT)
             _close(got, ref4[:, rows], h2, w["phi"]["w4"][rows])
@@ -196,35 +218,39 @@ def _check_tile_products(case, lat, hid):
         h2 = _bf(torch.where(ref2 >= 0, ref2, 0.01 * ref2))
         ref4 = h2 @ w["L"]["w4"].t() + w["L"]["b4"]
         out_rows = (slice(0, 1), slice(1, 2), slice(2, 2 + LAT))
-        out_tiles = ([T_LW4], [T_LW4 + 1], [T_LW4 + 2 + nt for nt in range(nl)])
+        out_tiles = ((T_LW4, 1), (T_LW4 + kh, 1), (T_LW4 + 2 * kh, nl))
         out_bias = (B_LB4, B_LB4 + 8, B_LB4 + 16)
         for h, blk in enumerate((1, 0, 2)):
-            xi = torch.cat([x[:, :4 + LAT], x[:, 4 + LAT + blk * LAT:4 + LAT + (blk + 1) * LAT]], 1)
-            xi = torch.nn.functional.pad(xi, (0, 16 * kl - xi.shape[1]))
-            got = torch.cat([sum(xi[:, 16 * kt:16 * kt + 16] @ _b(tiles, T_LW1 + (h * 2 + nt) * kl + kt)
-                                 for kt in range(kl)) for nt in range(2)], 1)
-            got = (got + bias[B_LB1 + 16 * h:B_LB1 + 16 * h + 16])[:, :HID]
+            # the state row (m padded to le), then this head's aggregate block
+            # (padded to le), padded to 16 kl
+            agg = x[:, 4 + LAT + blk * LAT:4 + LAT + (blk + 1) * LAT]
+            xi = torch.cat([x[:, :4 + LAT], junk(n_bus, le - LAT), agg, junk(n_bus, le - LAT),
+                            junk(n_bus, 16 * kl - nbw - le)], 1)
+            got = product(xi, T_LW1 + h * nh * kl, nh, kl)
+            got = (got + bias[B_LB1 + hp * h:B_LB1 + hp * (h + 1)])[:, :HID]
             rows = slice(h * HID, (h + 1) * HID)
             _close(got, ref1[:, rows], x, w["L"]["w1"][rows])
-            a = torch.nn.functional.pad(h1[:, rows], (0, 16 - HID))
-            got = torch.cat([a @ _b(tiles, T_LW2 + h * 2 + nt) for nt in range(2)], 1)
-            got = (got + bias[B_LB2 + 16 * h:B_LB2 + 16 * h + 16])[:, :HID]
+            got = product(hidden_in(h1, h), T_LW2 + h * nh * kh, nh, kh)
+            got = (got + bias[B_LB2 + hp * h:B_LB2 + hp * (h + 1)])[:, :HID]
             _close(got, ref2[:, rows], h1, w["L"]["w2"][rows])
-            a = torch.nn.functional.pad(h2[:, rows], (0, 16 - HID))
-            got = torch.cat([a @ _b(tiles, t) for t in out_tiles[h]], 1)
+            first, n_tiles = out_tiles[h]
+            got = product(hidden_in(h2, h), first, n_tiles, kh)
             width = out_rows[h].stop - out_rows[h].start
             got = got[:, :width] + bias[out_bias[h]:out_bias[h] + width]
             _close(got, ref4[:, out_rows[h]], h2, w["L"]["w4"][out_rows[h]])
 
 
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda w: f"L{w[0]}_H{w[1]}")
 @pytest.mark.parametrize("case", [14, 30])
-def test_tile_products_match_dense_mlp(case):
+def test_tile_products_match_dense_mlp(case, width):
     """A torch emulation of the kernel's per-head, padded tile products on
     the packed operands equals the twin's dense-layout mlp layer by layer
     (pre-activation, on the twin's own bf16 activations) within float32
     rounding, on every step's weights; the edge and node rows are case
-    grids' sizes with seeded inputs."""
-    _check_tile_products(case, LAT, HID)
+    grids' sizes with seeded inputs, the operands' padding columns random
+    (the tiles' zeros must drop them); at each width of WIDTHS (an odd
+    latent's column pairs, a hidden width over two k-tiles)."""
+    _check_tile_products(case, *width)
 
 
 @pytest.mark.parametrize("case", [14, 30])

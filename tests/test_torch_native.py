@@ -91,6 +91,53 @@ def test_built_from_the_port_source_into_build_dir():
         assert sym in src
 
 
+def test_build_key_sees_the_host(monkeypatch):
+    """A library's key sees what the host resolves its build to, from
+    probes that run once per process: two -march=native targets give two
+    packer paths, two `nvcc --version` outputs two paths of every CUDA
+    library, the same probes the same paths, and two widths two K3 and two
+    K4 paths."""
+    host = {"march": "cooperlake", "nvcc": "Cuda compilation tools, release 12.4, V12.4.131"}
+    runs = []
+
+    def probe(argv):  # the host, as the probes read it
+        runs.append(tuple(argv))
+        if argv[1:] == ["--version"]:
+            return host["nvcc"] if argv[0].endswith("nvcc") else "g++ (GCC) 13.2.0"
+        if "--help=target" in argv:
+            return (f"  -march=                     \t\t{host['march']}\n"
+                    "  Known valid arguments for -march= option:\n")
+        return ""
+
+    monkeypatch.setattr(kern, "_run", probe)
+    monkeypatch.setattr(kern, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    libs = [("segment", None), ("fused_edge", (20, 10)), ("megakernel", (20, 10))]
+
+    def paths():
+        monkeypatch.setattr(kern, "_PROBES", {})  # a new process
+        runs.clear()
+        out = [native.library_path("/usr/bin/g++")]
+        out += [kern._library_path(name, width=width) for name, width in libs]
+        probes = len(runs)
+        assert out == [native.library_path("/usr/bin/g++")] + [
+            kern._library_path(name, width=width) for name, width in libs]
+        assert len(runs) == probes == len(set(runs)) == 3  # each probe once per process
+        return out
+
+    first = paths()
+    assert paths() == first  # one probe, one path
+    host["march"] = "sapphirerapids"
+    other_cpu = paths()
+    assert other_cpu[0] != first[0] and other_cpu[1:] == first[1:]
+    host["nvcc"] = "Cuda compilation tools, release 12.8, V12.8.93"
+    other_nvcc = paths()
+    assert other_nvcc[0] == other_cpu[0]
+    assert all(a != b for a, b in zip(other_nvcc[1:], other_cpu[1:]))
+    for name in ("fused_edge", "megakernel"):
+        narrow, default = (kern._library_path(name, width=w) for w in ((8, 8), (10, 10)))
+        assert narrow != default and "_L8_H8_" in narrow and "_L10_H10_" in default
+
+
 def test_bad_compiler_raises(tmp_path, monkeypatch):
     """A $CXX that cannot build the library makes pack_batch raise with the
     compiler's output; it never packs with numpy. csr_by_dst keeps its

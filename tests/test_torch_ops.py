@@ -19,9 +19,10 @@ from gns_tpu.ops.segment import segment_sum as j_segment_sum
 from gns_torch.ops import segment_kernels as kern
 from gns_torch.ops.segment import (
     GATHER_METHODS,
-    SEGMENT_METHODS,
+    METHODS,
     SegmentIndex,
     broadcast_col0_segment_sum,
+    check_method,
     gather,
     segment_sum,
 )
@@ -61,20 +62,20 @@ def test_k2_plain_matches_pallas_interpret():
 
 @pytest.mark.parametrize("d", [None, 1, 5])
 def test_segment_sum_and_gather_match_xla(d):
-    """1-D (S, E) and 2-D (S, E, D) per-sample data; every method name."""
+    """1-D (S, E) and 2-D (S, E, D) per-sample data; every gns_tpu method
+    name passes the entry points' check on the CPU, where the primitives
+    (which take no method) run their plain twins."""
     data, seg, n = _problem(1, d=d)
     ref = np.asarray(jax.vmap(lambda x: j_segment_sum(x, seg, n, method="scatter"))(data))
     idx = SegmentIndex(seg, n)
-    for method in SEGMENT_METHODS:
-        np.testing.assert_allclose(
-            segment_sum(torch.from_numpy(data), idx, method=method).numpy(), ref, **TOL
-        )
+    for method in METHODS:
+        assert check_method(method, "cpu") == method
+    np.testing.assert_allclose(segment_sum(torch.from_numpy(data), idx).numpy(), ref, **TOL)
     nodes = np.array(ref)
     g_ref = np.asarray(jax.vmap(lambda x: j_gather(x, seg, method="take"))(nodes))
     for method in GATHER_METHODS:
-        np.testing.assert_allclose(
-            gather(torch.from_numpy(nodes), idx, method=method).numpy(), g_ref, **TOL
-        )
+        assert check_method(method, "cpu", GATHER_METHODS) == method
+    np.testing.assert_allclose(gather(torch.from_numpy(nodes), idx).numpy(), g_ref, **TOL)
 
 
 def test_bf16_segment_sum_accumulates_in_f32():
@@ -196,12 +197,41 @@ def test_broadcast_col0_quirk():
 
 
 def test_dispatch_rejects_bad_methods_and_devices():
+    """check_method, the one check of a method name at the entry points:
+    an unknown name raises; on the card only 'auto', 'pallas' and
+    'degree' run; no device but cuda and cpu. The entry points call it
+    before any work, and the primitives take no method at all and raise
+    on any other device."""
+    from gns_torch.models.gns import GNS
+    from gns_torch.serve import GNSPredictor
+    from gns_torch.train.trainer import make_epoch_step, make_train_step
+    from gns_torch.utils.config import GNSConfig
+
     data, seg, n = _problem(8)
     idx = SegmentIndex(seg, n)
-    with pytest.raises(ValueError):
-        segment_sum(torch.from_numpy(data), idx, method="bogus")
-    with pytest.raises(ValueError):
-        gather(torch.zeros((3, n, 2)), idx, method="scatter")
+    with pytest.raises(ValueError, match="unknown method"):
+        check_method("bogus")
+    with pytest.raises(ValueError, match="unknown method"):
+        check_method("take", "cpu")  # a gather's name, not a forward's
+    with pytest.raises(ValueError, match="unknown method"):
+        check_method("scatter", names=GATHER_METHODS)
+    for method in ("scatter", "onehot", "hybrid"):
+        with pytest.raises(ValueError, match="no CUDA lowering"):
+            check_method(method, "cuda")
+    for method in ("auto", "pallas", "degree"):
+        assert check_method(method, "cuda") == method
+    with pytest.raises(ValueError, match="unsupported device"):
+        check_method("auto", "meta")
+    cfg = GNSConfig(K=1, latent_dim=4, hidden_dim=4)
+    model = GNS(cfg, seed=0, device="cpu")
+    assert GNSPredictor(model, cfg, method="onehot", device="cpu").method == "onehot"
+    with pytest.raises(ValueError, match="unknown method"):
+        GNSPredictor(model, cfg, method="bogus", device="cpu")
+    for build in (make_train_step, make_epoch_step):
+        with pytest.raises(ValueError, match="unknown method"):
+            build(cfg, method="bogus")
+    with pytest.raises(TypeError):  # the primitives take no method
+        segment_sum(torch.from_numpy(data), idx, method="auto")
     with pytest.raises(ValueError):  # neither cuda nor cpu: no silent path
         segment_sum(torch.zeros((3, 37, 2), device="meta"), idx)
     with pytest.raises(ValueError):
@@ -214,7 +244,8 @@ def test_dispatch_rejects_bad_methods_and_devices():
 
 def test_kernel_source_and_build_dir():
     """The kernels are built from the checkout's sources into build/, one
-    library per source, keyed by the source's and flags' hash."""
+    library per source (K3 and K4: per source and width), keyed by the
+    source's and flags' hash."""
     import os
 
     symbols = {
@@ -232,6 +263,11 @@ def test_kernel_source_and_build_dir():
         src = open(path).read()
         for sym in (*syms, "cudaGetLastError"):
             assert sym in src
-        lib = kern._library_path(name)
+        width = (20, 10) if name in kern.WIDTHED else None
+        lib = kern._library_path(name, width=width)
         assert os.path.dirname(lib) == kern.BUILD_DIR and f"libgns_{name}_" in lib
-    assert kern._library_path("megakernel") != kern._library_path("segment")
+        if width is not None:
+            assert "_L20_H10_" in lib
+            with pytest.raises(ValueError, match="width"):
+                kern._library_path(name)
+    assert kern._library_path("megakernel", width=(20, 10)) != kern._library_path("segment")

@@ -272,3 +272,93 @@ def test_train_step_rebuilds_after_a_switch_flips(switches):
     assert torch.equal(m_flipped["loss"], m_fresh["loss"])
     for a, b in zip(state.model.parameters(), state2.model.parameters()):
         assert torch.equal(a, b)
+
+
+# ---- the forward hands its method to the refresh and checks it there ----
+
+PAPER_CFG = dict(case_nr=30, K=2, latent_dim=4, hidden_dim=4, reference_parity=False,
+                 qg_gen_only=True, batch_size=3)
+
+
+@pytest.mark.parametrize("flags", [(True, False), (False, True), (True, True)])
+def test_forward_degree_reaches_the_refresh(flags, switches):
+    """gns_forward(method="degree") in paper mode with a stacking switch on
+    runs the refresh unstacked, as gns_tpu's does: it runs on a Graph built
+    while the switches were off (with "auto" the refresh asks for the
+    stacked index and raises), and equals the unstacked "auto" forward bit
+    for bit."""
+    from gns_torch.models.gns import GNS, gns_forward, step_params
+    from gns_torch.utils.config import GNSConfig
+
+    cfg = GNSConfig(**PAPER_CFG)
+    batch = _batch(False)
+    bt = batch_tensors(batch, "cpu")
+    graph = build_graph(batch.buses, batch.lines, batch.generators,
+                        extract_shared_topology(batch), "cpu")
+    model = GNS(cfg, seed=0, device="cpu")
+    steps = step_params(model, cfg)
+    with torch.no_grad():
+        unstacked = gns_forward(steps, cfg, bt, graph, dense=True)
+        switches(*flags)
+        with pytest.raises(ValueError, match="built while it was off"):
+            gns_forward(steps, cfg, bt, graph, dense=True)
+        for out in (gns_forward(steps, cfg, bt, graph, dense=True, method="degree"),
+                    model(bt, graph, dense=True, method="degree")):
+            for a, b in zip(out, unstacked):
+                assert torch.equal(a, b)
+
+
+def _cuda_check(monkeypatch):
+    """Make the forward's method check see a CUDA batch (the CPU has no
+    card): each entry point below then rejects a name the card has no
+    lowering for before any work."""
+    import gns_torch.models.gns as gns
+    from gns_torch.ops.segment import check_method
+
+    seen = []
+
+    def as_on_cuda(method, device=None, names=None):
+        if names is not None:
+            return check_method(method, names=names)
+        seen.append((method, torch.device(device).type))
+        return check_method(method, "cuda")
+
+    monkeypatch.setattr(gns, "check_method", as_on_cuda)
+    return seen
+
+
+def _forward_entries(cfg, batch):
+    from gns_torch.models.gns import GNS, gns_forward, gns_forward_batch, step_params
+    from gns_torch.train.trainer import init_train_state, make_train_step
+
+    bt = batch_tensors(batch, "cpu")
+    topo = extract_shared_topology(batch)
+    graph = build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu")
+    model = GNS(cfg, seed=0, device="cpu")
+    return {
+        "gns_forward": lambda m: gns_forward(step_params(model, cfg), cfg, bt, graph,
+                                             dense=True, method=m),
+        "GNS.forward": lambda m: model(bt, graph, dense=True, method=m),
+        "gns_forward_batch": lambda m: gns_forward_batch(model, cfg, batch, method=m,
+                                                         topo=topo, dense=True),
+        "make_train_step": lambda m: make_train_step(cfg, method=m, topo=topo, dense=True)(
+            init_train_state(0, cfg, device="cpu"), batch),
+    }
+
+
+@pytest.mark.parametrize("entry", ["gns_forward", "GNS.forward", "gns_forward_batch",
+                                   "make_train_step"])
+def test_forward_checks_method_against_the_device(entry, monkeypatch):
+    """Every forward entry point checks its method against the batch's
+    device: on a CUDA batch 'scatter' raises, 'auto' and 'degree' run, and
+    the check sees the caller's name."""
+    from gns_torch.utils.config import GNSConfig
+
+    seen = _cuda_check(monkeypatch)
+    run = _forward_entries(GNSConfig(**PAPER_CFG), _batch(False))[entry]
+    with pytest.raises(ValueError, match="no CUDA lowering"):
+        run("scatter")
+    for method in ("auto", "degree"):
+        run(method)
+    assert [m for m, _ in seen] == ["scatter", "auto", "degree"]
+    assert {d for _, d in seen} == {"cpu"}
