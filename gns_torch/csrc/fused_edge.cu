@@ -48,10 +48,18 @@
 //     57,408 bytes of shared memory, so the instance asks for 2 blocks per
 //     SM, which leaves it up to 255 registers.
 //   * One library per width: ops/segment_kernels.py builds this file for
-//     each (L, H) in [1, 64] x [1, 32] a caller needs, with GNS_LATENT,
-//     GNS_HIDDEN and GNS_MIN_BLOCKS (the blocks per SM __launch_bounds__
+//     each (L, H) in [1, 128] x [1, 128] a caller needs, with GNS_LATENT,
+//     GNS_HIDDEN, GNS_MIN_BLOCKS (the blocks per SM __launch_bounds__
 //     asks for, segment_kernels.min_blocks: 3 while 2 (L + 5) + 4 H <= 90
-//     and L <= 25, else 2) defined on the command line.
+//     and L <= 25, else 2; 4 for the wide design) and GNS_ROWS (the
+//     design, segment_kernels.k3_rows) defined on the command line.
+//   * Two edges' 2 (L + 5) inputs and 4 H activations stay in a lane's
+//     registers up to (33, 24)'s 172 floats (198 registers, no spill); at
+//     (64, 32) they would be 266. Past 172 the library is the wide design
+//     (GNS_ROWS 16, fused_edge_kernel_wide below): 16-row tiles whose
+//     inputs and activations sit in the warp's shared memory, each row's
+//     outputs split over lanes, the weights read from L2 through L1, the
+//     sums taken a lane per output column; the same bits as this design.
 //   * Shared memory is dynamic (SharedLayout): at L = 40 it is over the 48
 //     KB a block may hold statically.
 //   * Per head, each lane writes its two rows of masked outputs into the
@@ -88,15 +96,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#if !defined(GNS_LATENT) || !defined(GNS_HIDDEN) || !defined(GNS_MIN_BLOCKS)
-#error "built per width: nvcc -DGNS_LATENT=L -DGNS_HIDDEN=H -DGNS_MIN_BLOCKS=B (ops/segment_kernels.py)"
+#if !defined(GNS_LATENT) || !defined(GNS_HIDDEN) || !defined(GNS_MIN_BLOCKS) || !defined(GNS_ROWS)
+#error "built per width: nvcc -DGNS_LATENT=L -DGNS_HIDDEN=H -DGNS_MIN_BLOCKS=B -DGNS_ROWS=R \
+(ops/segment_kernels.py)"
 #endif
 
 namespace {
 
 constexpr int kLatent = GNS_LATENT, kHidden = GNS_HIDDEN;
-static_assert(kLatent >= 1 && kLatent <= 64 && kHidden >= 1 && kHidden <= 32,
-              "K3 takes L in [1, 64], H in [1, 32]");
+static_assert(kLatent >= 1 && kLatent <= 128 && kHidden >= 1 && kHidden <= 128,
+              "K3 takes L in [1, 128], H in [1, 128]");
+static_assert(GNS_ROWS == 64 || GNS_ROWS == 16, "rows per warp tile: 64 (registers) or 16 (wide)");
+// The design this library's width takes (segment_kernels.k3_rows): two
+// edges a lane in registers (64-row tiles), or the wide one (16-row tiles).
+constexpr bool kWide = GNS_ROWS == 16;
 
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
@@ -378,7 +391,218 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel(
   }
 }
 
-// Blocks of fused_edge_kernel<L, H, false> the card keeps resident per SM,
+// ---- the wide design (kWide: 2 (L + 5) + 4 H past the registers) ----
+// A warp's tile is 16 dst-CSR rows. Its inputs sit in the warp's shared
+// memory a column of 16 rows per input (16-byte words of 4 rows), and each
+// layer's outputs likewise: lane (rg, cg) = (lane / 16, lane % 16) computes
+// rows 8 rg .. 8 rg + 7 of outputs 4 cg .. 4 cg + 3 of each 64, reading per
+// input two words of rows (a broadcast to half the warp) and one word of
+// four outputs' weights: 32 FMAs per 48 bytes. The weights are read from
+// global memory (ld.global.nc, kept in L1 / L2), not staged: a head's
+// weights are up to 200 KB at (128, 128), and staging them per layer would
+// tie a block's warps, whose units differ in rows, to one another by
+// barriers. Each output is the sum of x[i] w[i][o] from 0.0f in order of i,
+// plus the bias, as `layer` computes it, and the sums of a bus are taken
+// in CSR order, so the two designs give the same bits at one width.
+constexpr int kWideRows = 16;
+
+template <int L, int H>
+struct WideLayout {  // one warp's shared memory, in floats
+  static constexpr int F = L + 5, HL = H > L ? H : L;
+  static constexpr int kIn = 0;                         // (F, 16): the tile's inputs
+  static constexpr int kA = kIn + F * kWideRows;        // (max(H, L), 16): layer 1, then the outputs
+  static constexpr int kB = kA + HL * kWideRows;        // (H, 16): layer 2
+  static constexpr int kHub = kB + H * kWideRows;       // 3 L: a hub bus's sums
+  static constexpr int kMask = kHub + round4(3 * L);    // 16 line masks
+  static constexpr int kPtr = kMask + kWideRows;        // 17 ints: each bus's first row
+  static constexpr int kWarp = round4(kPtr + kWideRows + 1);
+  static constexpr int kBytes = kWarps * kWarp * 4;
+};
+
+// One layer on a 16-row tile: out[o][r] = act(sum_i in[i][r] w[i][o] + b[o])
+// (ACT: LReLU, else times the row's mask) for o < O; w (N, OP) and b (OP,)
+// in global memory, OP = round4(O), zeros past O.
+template <int N, int O, int OP, bool ACT>
+__device__ __forceinline__ void wide_layer(const float* __restrict__ w, const float* __restrict__ b,
+                                           const float* in, float* out, const float* mask,
+                                           float slope, int lane) {
+  const int rg = lane >> 4, cg = lane & 15;
+#pragma unroll 1
+  for (int c0 = 0; c0 < O; c0 += 64) {
+    const int col = c0 + 4 * cg;
+    if (col >= O) continue;
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[j][k] = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < N; ++i) {
+      const float4 xa = *reinterpret_cast<const float4*>(in + i * kWideRows + 8 * rg);
+      const float4 xb = *reinterpret_cast<const float4*>(in + i * kWideRows + 8 * rg + 4);
+      const float4 q = __ldg(reinterpret_cast<const float4*>(w + i * OP + col));
+      const float x[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      const float t[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[j][k] = fmaf(x[j], t[k], acc[j][k]);
+    }
+    const float4 q = __ldg(reinterpret_cast<const float4*>(b + col));
+    const float t[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (col + k >= O) break;
+      float o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float v = acc[j][k] + t[k];
+        o[j] = ACT ? lrelu(v, slope) : v * mask[8 * rg + j];
+      }
+      float4* dst = reinterpret_cast<float4*>(out + (col + k) * kWideRows + 8 * rg);
+      dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+    }
+  }
+}
+
+template <int L, int H, bool CLOCKS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel_wide(
+    const float* __restrict__ m, const float* __restrict__ feats,
+    const float* __restrict__ mask, const int* __restrict__ order,
+    const int* __restrict__ indptr, const int4* __restrict__ items,
+    const int* __restrict__ row_bus, const float* __restrict__ weights,
+    float* __restrict__ out0, float* __restrict__ out1, float* __restrict__ out2,
+    long long S, int N, int E, int T, float slope, long long* __restrict__ clocks) {
+  using P = Pack<L, H>;
+  using WL = WideLayout<L, H>;
+  constexpr int W = row_word<L>();  // floats per word of an m row
+  constexpr int NA = (L + 31) / 32;  // output columns a lane sums
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  float* const ws = reinterpret_cast<float*>(smem) + wid * WL::kWarp;
+  float* in = ws + WL::kIn;
+  float* xa = ws + WL::kA;
+  float* xb = ws + WL::kB;
+  float* hub = ws + WL::kHub;
+  float* msk = ws + WL::kMask;
+  int* bp = reinterpret_cast<int*>(ws + WL::kPtr);
+  const bool m_vec = (reinterpret_cast<uintptr_t>(m) & (4 * W - 1)) == 0;
+  const long long units = S * T, warps = (long long)gridDim.x * kWarps;
+  long long spent[kPhases] = {0, 0, 0, 0};  // CLOCKS: SM cycles per phase, and units
+  for (long long u = (long long)blockIdx.x * kWarps + wid; u < units; u += warps) {
+    const long long s = u / T;
+    const int4 it = __ldg(items + (u - s * T));  // first bus, end bus, first row, end row
+    const int b0 = it.x, b1 = it.y, r0 = it.z, r1 = it.w;
+    const long long base = s * N * L;
+    if constexpr (CLOCKS) ++spent[3];
+    for (int r = r0; r == r0 || r < r1; r += kWideRows) {
+      const int t1 = min(r1, r + kWideRows);
+      long long t0 = stamp<CLOCKS>();
+      // lane j < 16 stages row r + j: m[s, bus] then feats[s, e], and its
+      // mask; zeros past the tile's rows
+      if (lane < kWideRows) {
+        float me = 0.0f;
+        const int j = r + lane;
+        if (j < t1) {
+          const int e = __ldg(order + j), bus = __ldg(row_bus + j) >> 1;
+          const float* mr = m + (s * N + bus) * L;
+          if (m_vec && W == 4) {
+#pragma unroll
+            for (int q = 0; q < L / 4; ++q) {
+              const float4 t = __ldg(reinterpret_cast<const float4*>(mr) + q);
+              in[(4 * q) * kWideRows + lane] = t.x;
+              in[(4 * q + 1) * kWideRows + lane] = t.y;
+              in[(4 * q + 2) * kWideRows + lane] = t.z;
+              in[(4 * q + 3) * kWideRows + lane] = t.w;
+            }
+          } else if (m_vec && W == 2) {
+#pragma unroll
+            for (int q = 0; q < L / 2; ++q) {
+              const float2 t = __ldg(reinterpret_cast<const float2*>(mr) + q);
+              in[(2 * q) * kWideRows + lane] = t.x;
+              in[(2 * q + 1) * kWideRows + lane] = t.y;
+            }
+          } else {
+#pragma unroll 4
+            for (int l = 0; l < L; ++l) in[l * kWideRows + lane] = __ldg(mr + l);
+          }
+          const float* fr = feats + (s * E + e) * 5;
+#pragma unroll
+          for (int k = 0; k < 5; ++k) in[(L + k) * kWideRows + lane] = __ldg(fr + k);
+          me = __ldg(mask + s * E + e);
+        } else {
+#pragma unroll 4
+          for (int i = 0; i < P::F; ++i) in[i * kWideRows + lane] = 0.0f;  // never summed
+        }
+        msk[lane] = me;
+      }
+      // the tile's rows of each bus of the item, relative to r
+      for (int i = lane; i <= b1 - b0; i += 32)
+        bp[i] = min(max(__ldg(indptr + b0 + i), r), t1) - r;
+      __syncwarp();
+      if constexpr (CLOCKS) spent[0] += stamp<CLOCKS>() - t0;
+#pragma unroll 1
+      for (int h = 0; h < 3; ++h) {
+        t0 = stamp<CLOCKS>();
+        const float* hw = weights + h * P::kSize;
+        if (t1 > r) {  // a tile with rows (an item of buses with no line has none)
+          wide_layer<P::F, H, P::HP, true>(hw + P::kW1, hw + P::kB1, in, xa, msk, slope, lane);
+          __syncwarp();
+          wide_layer<H, H, P::HP, true>(hw + P::kW2, hw + P::kB2, xa, xb, msk, slope, lane);
+          __syncwarp();
+          wide_layer<H, L, P::LP, false>(hw + P::kW4, hw + P::kB4, xb, xa, msk, slope, lane);
+          __syncwarp();
+        }
+        const long long t2 = stamp<CLOCKS>();
+        if constexpr (CLOCKS) spent[1] += t2 - t0;
+        // lane c sums columns c, c + 32, ... of each bus of the item in
+        // turn: its rows of this tile in CSR order, from 0.0f at the item's
+        // first tile (or from a hub bus's running sums), stored at the
+        // item's last tile
+        for (int i = 0; i < b1 - b0; ++i) {
+          const int k0 = bp[i], k1 = bp[i + 1];
+#pragma unroll
+          for (int q = 0; q < NA; ++q) {
+            const int col = lane + 32 * q;
+            if (col < L) {
+              float acc = r == r0 ? 0.0f : hub[h * L + col];
+              for (int k = k0; k < k1; ++k) acc += xa[col * kWideRows + k];
+              if (t1 == r1)
+                (h == 0 ? out0 : h == 1 ? out1 : out2)[base + (long long)(b0 + i) * L + col] = acc;
+              else  // a hub item (one bus): the next tile goes on
+                hub[h * L + col] = acc;
+            }
+          }
+        }
+        __syncwarp();
+        if constexpr (CLOCKS) spent[2] += stamp<CLOCKS>() - t2;
+      }
+    }
+  }
+  if constexpr (CLOCKS) {
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kPhases; ++k) clocks[(blockIdx.x * kWarps + wid) * kPhases + k] = spent[k];
+    }
+  }
+}
+
+// The design's kernel (CLOCKS: the instrumented instance) and its shared
+// bytes per block.
+template <int L, int H, bool CLOCKS>
+constexpr auto kernel_of() {
+  if constexpr (kWide) return &fused_edge_kernel_wide<L, H, CLOCKS>;
+  else return &fused_edge_kernel<L, H, CLOCKS>;
+}
+
+template <int L, int H>
+constexpr int block_bytes() {
+  if constexpr (kWide) return WideLayout<L, H>::kBytes;
+  else return SharedLayout<L, H>::kBytes;
+}
+
+// Blocks of the design's kernel (kernel_of<L, H, false>) the card keeps resident per SM,
 // and the SM count, cached per device; the first call on a device also lets
 // both instances take their dynamic shared memory. The grid of either
 // instance is sized by these (the CLOCKS instance only measures; were it to
@@ -391,16 +615,15 @@ cudaError_t residency(int* per_sm, int* sms) {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (cached[dev][0] == 0) {
-    constexpr int bytes = SharedLayout<L, H>::kBytes;
-    err = cudaFuncSetAttribute(fused_edge_kernel<L, H, false>,
+    constexpr int bytes = block_bytes<L, H>();
+    err = cudaFuncSetAttribute(kernel_of<L, H, false>(),
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(fused_edge_kernel<L, H, true>,
+      err = cudaFuncSetAttribute(kernel_of<L, H, true>(),
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached[dev][0],
-                                                        fused_edge_kernel<L, H, false>, kThreads,
-                                                        bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached[dev][0], kernel_of<L, H, false>(),
+                                                        kThreads, bytes);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&cached[dev][1], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -422,15 +645,21 @@ int launch(const float* m, const float* feats, const float* mask, const int* ord
   const long long want = (S * T + kWarps - 1) / kWarps;
   const long long most = (long long)per_sm * sms;
   const unsigned int grid = (unsigned int)(want < most ? want : most);
-  constexpr size_t bytes = SharedLayout<L, H>::kBytes;
-  if (clocks == nullptr)
-    fused_edge_kernel<L, H, false><<<grid, kThreads, bytes, stream>>>(
-        m, feats, mask, order, indptr, items, row_bus, weights, out0, out1, out2, S, N, E, T,
-        slope, nullptr);
-  else
-    fused_edge_kernel<L, H, true><<<grid, kThreads, bytes, stream>>>(
-        m, feats, mask, order, indptr, items, row_bus, weights, out0, out1, out2, S, N, E, T,
-        slope, clocks);
+  constexpr size_t bytes = block_bytes<L, H>();
+#define GNS_K3_ARGS \
+  m, feats, mask, order, indptr, items, row_bus, weights, out0, out1, out2, S, N, E, T, slope, clocks
+  if constexpr (kWide) {
+    if (clocks == nullptr)
+      fused_edge_kernel_wide<L, H, false><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS);
+    else
+      fused_edge_kernel_wide<L, H, true><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS);
+  } else {
+    if (clocks == nullptr)
+      fused_edge_kernel<L, H, false><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS);
+    else
+      fused_edge_kernel<L, H, true><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS);
+  }
+#undef GNS_K3_ARGS
   return (int)cudaGetLastError();
 }
 
@@ -439,7 +668,7 @@ int occupancy(int* out) {
   int per_sm = 0, sms = 0;
   const cudaError_t err = residency<L, H>(&per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
-  out[0] = SharedLayout<L, H>::kBytes;
+  out[0] = block_bytes<L, H>();
   out[1] = per_sm;
   out[2] = kThreads;
   out[3] = sms;

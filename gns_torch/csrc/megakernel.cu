@@ -66,8 +66,35 @@
 //     arrays, scratch that the physics and the warps' tiles share), so two
 //     256-thread blocks share an SM; at (40, 10), the deep checkpoints'
 //     width, 193,664 bytes, so that instance asks for one block per SM
-//     (MinGrids); a grid that does not fit is refused (the wrapper raises),
-//     never run elsewhere;
+//     (MinGrids). This is plan 0, for H <= 32 wherever a grid fits it;
+//   * past that, one grid is still one block, in one of two wide plans
+//     (megakernel<L, H, true>, built beside plan 0 in every library):
+//     plan 1 reads each step's weight tiles from global memory
+//     (ld.global.nc: a step's tiles are shared by every grid and stay in
+//     the 50 MB L2; 651 KB at (128, 128)) and runs the three phi heads one
+//     at a time, each followed by the L head that reads its aggregate, so a
+//     warp's scratch holds one head's outputs and aggregates (Dims::
+//     kWarpWide, LE columns, not 3 LE) and one head's fragments are live
+//     at a time (KH up to 8 k-tiles at H = 128); a first layer runs k-tile
+//     by k-tile, its n-tiles' accumulators live and one k-tile of its input
+//     (up to 17 at L = 128), not the whole input; plan 2 is plan 1 with the
+//     grid's state rows (v, theta, dp, dq, m: N x NBW floats) in a
+//     per-grid workspace in global memory that the wrapper allocates, the
+//     rest of the grid staying in shared memory. A case300 grid takes
+//     157,184 bytes at (64, 32) (plan 1), 226,048 at (97, 40) (plan 1)
+//     and 131,392 at (128, 128) (plan 2, whose 158 KB of state rows a grid
+//     stay in L2: 132 resident grids hold 21 MB). The library picks the
+//     first plan that fits (gns_megakernel_plan); a grid no plan holds is
+//     refused (the wrapper raises with its bytes), never run elsewhere.
+//     The wide plans do every operation plan 0 does, in the same order, so
+//     at one width all three give the same bits. A thread-block cluster
+//     that splits a grid's buses over 2-8 blocks (distributed shared
+//     memory) was the other way past one block: its physics would read
+//     v / theta at both ends of every line and its CSR sums rows written
+//     by any block, remotely, with a cluster barrier at each phase and
+//     cluster-wide reductions for the loss and the lambda dispatch. The
+//     workspace keeps one block a grid, one code path for the physics and
+//     the twin's order of adds;
 //   * the aggregate's 3L columns are spread over a warp's lanes, lane c
 //     summing columns c, c + 32, ... (Dims::NA of them: 2 at L = 20, 4 at
 //     L = 40);
@@ -76,9 +103,10 @@
 //     input's m and each aggregate block carry one zero column (Dims::LE),
 //     which the tile plan gives zero weights;
 //   * one library per width: ops/segment_kernels.py builds this file for
-//     each (L, H) in [1, 64] x [1, 32] a caller needs, with GNS_LATENT,
-//     GNS_HIDDEN and GNS_MIN_BLOCKS (grids per SM __launch_bounds__ asks
-//     for: 2 up to L = 20 with H <= 16, else 1) on the command line;
+//     each (L, H) in [1, 128] x [1, 128] a caller needs, with GNS_LATENT,
+//     GNS_HIDDEN and GNS_MIN_BLOCKS (grids per SM plan 0's __launch_bounds__
+//     asks for: 2 up to L = 20 with H <= 16, else 1; the wide plans ask
+//     for 1) on the command line;
 //   * physics, CSR sums and scalar block reductions in float32, in the
 //     twin's order, deterministic; each line's results are written at its
 //     rows of the dst and src CSRs, so a bus sums a contiguous run.
@@ -102,8 +130,8 @@
 namespace {
 
 constexpr int kLatent = GNS_LATENT, kHidden = GNS_HIDDEN;
-static_assert(kLatent >= 1 && kLatent <= 64 && kHidden >= 1 && kHidden <= 32,
-              "K4 takes L in [1, 64], H in [1, 32]");
+static_assert(kLatent >= 1 && kLatent <= 128 && kHidden >= 1 && kHidden <= 128,
+              "K4 takes L in [1, 128], H in [1, 128]");
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -150,22 +178,33 @@ struct Dims {
   // rows' aggregate slots (16 ints), the item's buses' aggregates and a
   // spare row (17 x AW bf16)
   static constexpr int kWarp = kRows * AW + kRows + (kRows + 1) * AW / 2;
+  // the wide plans' per-warp scratch, one head at a time: the same with LE
+  // columns for AW, and NA1 aggregate columns a lane
+  static constexpr int kWarpWide = kRows * LE + kRows + (kRows + 1) * LE / 2;
+  static constexpr int NA1 = (LE + 31) / 32;
+  // whether plan 0 (tiles and three heads' scratch in shared memory) is
+  // built: for H <= 32, where its tiles and scratch can fit a block at all
+  static constexpr bool kPlan0 = H <= 32 && kTiles * 256LL + kWarps * kWarp * 4LL <= kMaxShared;
   static_assert(kBias % 4 == 0, "biases are copied as float4");
   static_assert(bPB2 % 2 == 0 && bPB4 % 2 == 0 && bLB1 % 2 == 0 && bLB2 % 2 == 0 && HP % 2 == 0,
                 "bias pairs are read as float2");
 };
 
-// Byte offsets of one grid's shared memory.
+// Byte offsets of one grid's shared memory under a plan: 0, the step's
+// tiles, the three heads' warp scratch and the state rows in shared memory;
+// 1, tiles read from L2, one head's scratch; 2, as 1 with the state rows in
+// the global workspace (none in shared memory).
 template <int L, int H>
 struct Layout {
   long long b, u, m, f, lf, total;
-  __host__ __device__ Layout(int N, int E, int G) {
+  __host__ __device__ Layout(int N, int E, int G, int plan) {
     using D = Dims<L, H>;
-    b = (long long)D::kTiles * 256;  // the step's tiles come first
+    b = plan == 0 ? (long long)D::kTiles * 256 : 0;  // plan 0: the step's tiles come first
     u = b + upll(D::kBias * 4LL, 16);
-    const long long warps = (long long)kWarps * D::kWarp * 4, phys = 5LL * E * 4;
+    const long long warps = (long long)kWarps * (plan == 0 ? D::kWarp : D::kWarpWide) * 4;
+    const long long phys = 5LL * E * 4;
     m = u + upll(warps > phys ? warps : phys, 16);
-    f = m + upll((long long)N * D::NBW * 4, 16);
+    f = m + (plan == 2 ? 0 : upll((long long)N * D::NBW * 4, 16));
     lf = f + upll((6LL * N + 5LL * E + 5LL * G + kRed) * 4, 16);
     total = lf + upll(6LL * E * 2, 16);
   }
@@ -241,23 +280,27 @@ struct Topo {
 // at L = 20 (114,176 bytes per case300 grid), one at L = 40 (193,664).
 constexpr int kMinGrids = GNS_MIN_BLOCKS;
 
-template <int L, int H>
-__global__ void __launch_bounds__(kThreads, kMinGrids) megakernel(
+// Wide = false: plan 0; true: plans 1 (ws null) and 2 (ws the workspace,
+// (S, N, NBW) float32).
+template <int L, int H, bool Wide>
+__global__ void __launch_bounds__(kThreads, Wide ? 1 : kMinGrids) megakernel(
     const float* __restrict__ buses, const float* __restrict__ lines,
     const float* __restrict__ gens, const float* __restrict__ bus_mask,
     const float* __restrict__ line_mask, const float* __restrict__ gen_mask, Topo tp,
     const __nv_bfloat16* __restrict__ wpack, const float* __restrict__ bpack,
     const float* __restrict__ disc, float* __restrict__ v_out, float* __restrict__ th_out,
     float* __restrict__ dp_out, float* __restrict__ dq_out, float* __restrict__ loss_out,
-    long long* __restrict__ clocks, int N, int E, int G, int K, float slope) {
+    long long* __restrict__ clocks, float* ws, int N, int E, int G, int K, float slope) {
   using D = Dims<L, H>;
   extern __shared__ uint4 smem16[];
-  const Layout<L, H> lay(N, E, G);
+  const Layout<L, H> lay(N, E, G, Wide ? (ws != nullptr ? 2 : 1) : 0);
   char* base = reinterpret_cast<char*>(smem16);
   const uint2* WT = reinterpret_cast<const uint2*>(base);  // tile t, lane l: WT[t * 32 + l]
   float* BIAS = reinterpret_cast<float*>(base + lay.b);
   float* U = reinterpret_cast<float*>(base + lay.u);       // staging, then physics rows
   float* NB = reinterpret_cast<float*>(base + lay.m);  // (N, 4 + L): v, theta, dp, dq, m
+  if constexpr (Wide)
+    if (ws != nullptr) NB = ws + blockIdx.x * (long long)N * D::NBW;  // plan 2: in the workspace
   const auto V = [NB](int n) -> float& { return NB[n * D::NBW]; };
   const auto TH = [NB](int n) -> float& { return NB[n * D::NBW + 1]; };
   const auto DP = [NB](int n) -> float& { return NB[n * D::NBW + 2]; };
@@ -366,8 +409,10 @@ __global__ void __launch_bounds__(kThreads, kMinGrids) megakernel(
   for (int k = 0; k < K; ++k) {
     // ---- this step's tiles and biases, as packed ----
     {
-      const uint4* wsrc = reinterpret_cast<const uint4*>(wpack + (long long)k * D::kTiles * 128);
-      for (int i = threadIdx.x; i < D::kTiles * 16; i += kThreads) smem16[i] = wsrc[i];
+      if constexpr (!Wide) {  // the wide plans read the tiles from global memory
+        const uint4* wsrc = reinterpret_cast<const uint4*>(wpack + (long long)k * D::kTiles * 128);
+        for (int i = threadIdx.x; i < D::kTiles * 16; i += kThreads) smem16[i] = wsrc[i];
+      }
       const float4* bsrc = reinterpret_cast<const float4*>(bpack + (long long)k * D::kBias);
       for (int i = threadIdx.x; i < D::kBias / 4; i += kThreads)
         reinterpret_cast<float4*>(BIAS)[i] = bsrc[i];
@@ -379,7 +424,199 @@ __global__ void __launch_bounds__(kThreads, kMinGrids) megakernel(
     // Bus n's messages read m[n] only (phi's input is m[dst]), so a warp runs
     // the phi heads over its buses' edges, sums them, then runs the L heads
     // on the same buses and updates their state, with no block barrier.
-    {
+    if constexpr (Wide) {
+      // ---- the wide plans: per phi head, then the L head reading its
+      // aggregate; tiles from global memory (L2) ----
+      const uint2* WG = reinterpret_cast<const uint2*>(wpack + (long long)k * D::kTiles * 128);
+      const auto tile = [WG, lane](int t) { return __ldg(WG + t * 32 + lane); };
+      float* stage = U + warp * D::kWarpWide;  // (16, LE) f32: a tile's masked outputs of one phi head
+      int* sofs = reinterpret_cast<int*>(stage + kRows * D::LE);  // (16,): slot of the bus ending at row r, or -1
+      // (16 + 1, LE): the buses' bf16(agg) of one head, then a spare row
+      __nv_bfloat16* aggw = reinterpret_cast<__nv_bfloat16*>(sofs + kRows);
+      for (int it = warp; it < tp.n_items; it += kWarps) {
+        const int4 item = tp.items[it];
+        const int b0 = item.x, b1 = item.y, r0 = item.z, r1 = item.w;
+        const int sa = b0 + g, sb = sa + 8;  // the L tile's buses: rows g, g + 8
+        const bool ua = sa < b1, ub = sb < b1;
+        float o0[2], o1[2];  // column 0 of L_theta's and L_v's outputs
+#pragma unroll 1
+        for (int p = 0; p < 3; ++p) {  // phi_v, phi_theta, phi_m
+          __syncwarp();  // the last reads of aggw (an L head's inputs) are done
+          for (int i = lane; i < kRows * D::LE / 2; i += 32) reinterpret_cast<uint32_t*>(aggw)[i] = 0u;
+          float acc[D::NA1];  // columns lane + 32 j: the bus in progress
+#pragma unroll
+          for (int j = 0; j < D::NA1; ++j) acc[j] = 0.0f;
+          for (int row0 = r0; row0 < r1; row0 += kRows) {
+            const int rows = min(kRows, r1 - row0);
+            const int my_e = lane < rows ? tp.dst_order[row0 + lane] : 0;
+            const int my_be = lane < rows ? tp.row_bus[row0 + lane] : 0;
+            if (lane < kRows) sofs[lane] = lane < rows && (my_be & 1) ? (my_be >> 1) - b0 : -1;
+            const bool va = g < rows, vb = g + 8 < rows;
+            const int ea = __shfl_sync(0xffffffffu, my_e, g), eb = __shfl_sync(0xffffffffu, my_e, g + 8);
+            const int na = __shfl_sync(0xffffffffu, my_be, g) >> 1;
+            const int nb = __shfl_sync(0xffffffffu, my_be, g + 8) >> 1;
+            const float lma = va ? LM[ea] : 0.0f, lmb = vb ? LM[eb] : 0.0f;
+            // layer 1 k-tile by k-tile, every n-tile's accumulators live and
+            // one k-tile of the input (as plan 0: bf16(m[dst]), bf16(line
+            // features)): each sum still adds its k-tiles in order
+            float acc1[D::NH][4];
+#pragma unroll
+            for (int nt = 0; nt < D::NH; ++nt)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc1[nt][q] = 0.0f;
+#pragma unroll
+            for (int kt = 0; kt < D::KP; ++kt) {
+              uint32_t x[4];
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const bool hi = r & 1;
+                const int n = hi ? nb : na, e = hi ? eb : ea;
+                const int c = kt * 16 + (r >> 1) * 8 + 2 * tq;
+                uint32_t w = 0u;
+                if (c < D::LE) {
+                  const float2 q = *reinterpret_cast<const float2*>(&M(n, c));
+                  w = pack2(q.x, q.y);
+                } else if (c < D::LE + 6) {
+                  w = *reinterpret_cast<const uint32_t*>(LF + e * 6 + c - D::LE);
+                }
+                x[r] = (hi ? vb : va) ? w : 0u;
+              }
+#pragma unroll
+              for (int nt = 0; nt < D::NH; ++nt)
+                mma(acc1[nt], x, tile(D::tPW1 + (p * D::NH + nt) * D::KP + kt));
+            }
+            uint32_t h1[D::KH][4], h2[D::KH][4];
+#pragma unroll
+            for (int nt = 0; nt < D::NH; ++nt)
+              act(h1[nt / 2], nt % 2, acc1[nt], BIAS + D::bPB1 + p * D::HP, nt * 8 + 2 * tq, slope);
+#pragma unroll
+            for (int nt = 0; nt < D::NH; ++nt) {
+              float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+              for (int kt = 0; kt < D::KH; ++kt) mma(c, h1[kt], tile(D::tPW2 + (p * D::NH + nt) * D::KH + kt));
+              act(h2[nt / 2], nt % 2, c, BIAS + D::bPB2 + p * D::HP, nt * 8 + 2 * tq, slope);
+            }
+            const float* b4 = BIAS + D::bPB4 + p * D::LP;
+#pragma unroll
+            for (int nt = 0; nt < D::NL; ++nt) {
+              float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+              for (int kt = 0; kt < D::KH; ++kt) mma(c, h2[kt], tile(D::tPW4 + (p * D::NL + nt) * D::KH + kt));
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int col = nt * 8 + 2 * tq + j;
+                if (col < D::LE) {
+                  stage[g * D::LE + col] = (c[j] + b4[col]) * lma;
+                  stage[(g + 8) * D::LE + col] = (c[2 + j] + b4[col]) * lmb;
+                }
+              }
+            }
+            __syncwarp();
+            // the aggregate of this head, as plan 0's scan over its block
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              const int slot = sofs[r];
+              const int at = (slot >= 0 ? slot : kRows) * D::LE;
+#pragma unroll
+              for (int j = 0; j < D::NA1; ++j) {
+                const int col = 32 * j + lane;
+                if (32 * (j + 1) <= D::LE || col < D::LE) {
+                  acc[j] += stage[r * D::LE + col];
+                  aggw[at + col] = __float2bfloat16_rn(acc[j]);
+                  acc[j] = slot >= 0 ? 0.0f : acc[j];
+                }
+              }
+            }
+            __syncwarp();
+          }
+          __syncwarp();  // the aggregates (zero for a bus with no line) are in
+
+          // the L head that reads this phi head's aggregate block
+          const int h = p == 0 ? 1 : (p == 1 ? 0 : 2);  // L_v <- phi_v, L_theta <- phi_theta, L_m <- phi_m
+          // layer 1 k-tile by k-tile, as the phi head's: one k-tile of the
+          // input (the state row, then the head's aggregate block) at a time
+          float acc1[D::NH][4];
+#pragma unroll
+          for (int nt = 0; nt < D::NH; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc1[nt][q] = 0.0f;
+#pragma unroll
+          for (int kt = 0; kt < D::KL; ++kt) {
+            uint32_t x[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int c = kt * 16 + (r >> 1) * 8 + 2 * tq;
+              const int n = r & 1 ? sb : sa, slot = r & 1 ? g + 8 : g;
+              uint32_t w = 0u;
+              if (c < D::NBW) {
+                if (r & 1 ? ub : ua) {
+                  const float2 q = *reinterpret_cast<const float2*>(NB + n * D::NBW + c);
+                  w = pack2(q.x, q.y);
+                }
+              } else if (c < D::LI) {  // rows past the item's buses hold zeros
+                w = *reinterpret_cast<const uint32_t*>(aggw + slot * D::LE + c - D::NBW);
+              }
+              x[r] = w;
+            }
+#pragma unroll
+            for (int nt = 0; nt < D::NH; ++nt)
+              mma(acc1[nt], x, tile(D::tLW1 + (h * D::NH + nt) * D::KL + kt));
+          }
+          __syncwarp();  // every lane has read its rows' state before L_m updates m
+          uint32_t h1[D::KH][4], h2[D::KH][4];
+#pragma unroll
+          for (int nt = 0; nt < D::NH; ++nt)
+            act(h1[nt / 2], nt % 2, acc1[nt], BIAS + D::bLB1 + h * D::HP, nt * 8 + 2 * tq, slope);
+#pragma unroll
+          for (int nt = 0; nt < D::NH; ++nt) {
+            float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int kt = 0; kt < D::KH; ++kt) mma(c, h1[kt], tile(D::tLW2 + (h * D::NH + nt) * D::KH + kt));
+            act(h2[nt / 2], nt % 2, c, BIAS + D::bLB2 + h * D::HP, nt * 8 + 2 * tq, slope);
+          }
+          if (h < 2) {
+            float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int kt = 0; kt < D::KH; ++kt) mma(c, h2[kt], tile(D::tLW4 + h * D::KH + kt));
+            if (h == 0) {
+              o0[0] = c[0];
+              o0[1] = c[2];
+            } else {
+              o1[0] = c[0];
+              o1[1] = c[2];
+            }
+          } else {  // L_m, the last head: m is read no more in this item
+            const float* b4 = BIAS + D::bLB4;
+#pragma unroll
+            for (int nt = 0; nt < D::NL; ++nt) {
+              float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+              for (int kt = 0; kt < D::KH; ++kt) mma(c, h2[kt], tile(D::tLW4 + (2 + nt) * D::KH + kt));
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int col = nt * 8 + 2 * tq + j;
+                if (col < L) {
+                  const float b = b4[16 + col];
+                  if (ua) M(sa, col) = M(sa, col) + (c[j] + b);
+                  if (ub) M(sb, col) = M(sb, col) + (c[2 + j] + b);
+                }
+              }
+            }
+          }
+        }
+        const float* b4 = BIAS + D::bLB4;
+        if (tq == 0) {  // column 0 of L_theta's and L_v's outputs; PV freeze
+          if (ua) {
+            TH(sa) = TH(sa) + (o0[0] + b4[0]);
+            if (ISG[sa] == 0.0f) V(sa) = V(sa) + (o1[0] + b4[8]);
+          }
+          if (ub) {
+            TH(sb) = TH(sb) + (o0[1] + b4[0]);
+            if (ISG[sb] == 0.0f) V(sb) = V(sb) + (o1[1] + b4[8]);
+          }
+        }
+      }
+    } else {
       float* stage = U + warp * D::kWarp;  // (16, AW) f32: a tile's masked phi outputs
       int* sofs = reinterpret_cast<int*>(stage + kRows * D::AW);  // (16,): slot of the bus ending at row r, or -1
       // (16 + 1, AW): the buses' bf16(agg), then a spare row the scan writes
@@ -688,40 +925,85 @@ __global__ void __launch_bounds__(kThreads, kMinGrids) megakernel(
     for (int i = 0; i < kStages; ++i) clocks[s * kStages + i] = cyc[i];
 }
 
+// The first plan that holds an N, E, G grid in a block's shared memory, or
+// -1.
 template <int L, int H>
+int choose_plan(int N, int E, int G) {
+  if (Dims<L, H>::kPlan0 && Layout<L, H>(N, E, G, 0).total <= kMaxShared) return 0;
+  for (int plan = 1; plan <= 2; ++plan)
+    if (Layout<L, H>(N, E, G, plan).total <= kMaxShared) return plan;
+  return -1;
+}
+
+// `want` (0, 1, 2) if it holds the grid, the library's choice for -1, else
+// -1.
+template <int L, int H>
+int resolve_plan(int N, int E, int G, int want) {
+  if (want < 0) return choose_plan<L, H>(N, E, G);
+  if (want > 2 || (want == 0 && !Dims<L, H>::kPlan0)) return -1;
+  return Layout<L, H>(N, E, G, want).total <= kMaxShared ? want : -1;
+}
+
+template <int L, int H, bool Wide>
 cudaError_t prepare(long long shared) {
   if (shared > kMaxShared) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(megakernel<L, H>,
+  cudaError_t err = cudaFuncSetAttribute(megakernel<L, H, Wide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(megakernel<L, H>, cudaFuncAttributePreferredSharedMemoryCarveout,
+  return cudaFuncSetAttribute(megakernel<L, H, Wide>, cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int L, int H, bool Wide>
+int launch_plan(const float* buses, const float* lines, const float* gens, const float* bm,
+                const float* lm, const float* gm, const Topo& tp, const void* wpack,
+                const float* bpack, const float* disc, float* v, float* th, float* dp, float* dq,
+                float* loss, long long* clocks, float* ws, long long S, int N, int E, int G, int K,
+                float slope, long long shared, cudaStream_t stream) {
+  const cudaError_t err = prepare<L, H, Wide>(shared);
+  if (err != cudaSuccess) return (int)err;
+  megakernel<L, H, Wide><<<(unsigned int)S, kThreads, (size_t)shared, stream>>>(
+      buses, lines, gens, bm, lm, gm, tp, static_cast<const __nv_bfloat16*>(wpack), bpack,
+      disc, v, th, dp, dq, loss, clocks, ws, N, E, G, K, slope);
+  return (int)cudaGetLastError();
 }
 
 template <int L, int H>
 int launch(const float* buses, const float* lines, const float* gens, const float* bm,
            const float* lm, const float* gm, const Topo& tp, const void* wpack,
            const float* bpack, const float* disc, float* v, float* th, float* dp, float* dq,
-           float* loss, long long* clocks, long long S, int N, int E, int G, int K, float slope,
-           cudaStream_t stream) {
-  const long long shared = Layout<L, H>(N, E, G).total;
-  const cudaError_t err = prepare<L, H>(shared);
-  if (err != cudaSuccess) return (int)err;
-  megakernel<L, H><<<(unsigned int)S, kThreads, (size_t)shared, stream>>>(
-      buses, lines, gens, bm, lm, gm, tp, static_cast<const __nv_bfloat16*>(wpack), bpack,
-      disc, v, th, dp, dq, loss, clocks, N, E, G, K, slope);
-  return (int)cudaGetLastError();
+           float* loss, long long* clocks, float* ws, long long S, int N, int E, int G, int K,
+           float slope, int want, cudaStream_t stream) {
+  const int plan = resolve_plan<L, H>(N, E, G, want);
+  if (plan < 0 || (plan == 2) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
+  const long long shared = Layout<L, H>(N, E, G, plan).total;
+  if (plan > 0)
+    return launch_plan<L, H, true>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th,
+                                   dp, dq, loss, clocks, ws, S, N, E, G, K, slope, shared, stream);
+  if constexpr (Dims<L, H>::kPlan0)
+    return launch_plan<L, H, false>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th,
+                                    dp, dq, loss, clocks, ws, S, N, E, G, K, slope, shared, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int L, int H>
-int blocks_per_sm(int N, int E, int G) {
-  const long long shared = Layout<L, H>(N, E, G).total;
-  if (shared > kMaxShared) return 0;
-  cudaError_t err = prepare<L, H>(shared);
+int blocks_per_sm(int N, int E, int G, int want) {
+  const int plan = resolve_plan<L, H>(N, E, G, want);
+  if (plan < 0) return 0;
+  const long long shared = Layout<L, H>(N, E, G, plan).total;
   int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel<L, H>, kThreads,
-                                                        (size_t)shared);
+  cudaError_t err = cudaSuccess;
+  if (plan > 0) {
+    err = prepare<L, H, true>(shared);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel<L, H, true>, kThreads,
+                                                          (size_t)shared);
+  } else if constexpr (Dims<L, H>::kPlan0) {
+    err = prepare<L, H, false>(shared);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel<L, H, false>, kThreads,
+                                                          (size_t)shared);
+  }
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
@@ -733,18 +1015,33 @@ bool built_for(int L, int H) { return L == kLatent && H == kHidden; }
 
 extern "C" {
 
-// Bytes of shared memory one grid needs, or -1 for another width.
-long long gns_megakernel_shared_bytes(int N, int E, int G, int L, int H) {
-  if (!built_for(L, H)) return -1;
-  return Layout<kLatent, kHidden>(N, E, G).total;
+// The plan for an N, E, G grid: `want` (0, 1 or 2) if it holds the grid,
+// the library's choice (the first that holds it) for -1. out (4 int64):
+// the plan (0: tiles, three heads' scratch and the state rows in shared
+// memory; 1: tiles read from L2, one head's scratch, the state rows in
+// shared memory; 2: as 1, the state rows in a global workspace), shared
+// bytes a block, blocks a grid (1), workspace bytes a grid (plan 2's N x
+// NBW floats, else 0). Returns the plan; -1 where no plan holds the grid
+// (out then describes plan 2, the leanest) or `want` is not built at this
+// width (plan 0 only for H <= 32); -2 for another width.
+int gns_megakernel_plan(int N, int E, int G, int L, int H, int want, long long* out) {
+  if (!built_for(L, H)) return -2;
+  const int plan = resolve_plan<kLatent, kHidden>(N, E, G, want);
+  const int shown = plan < 0 ? 2 : plan;
+  out[0] = plan;
+  out[1] = Layout<kLatent, kHidden>(N, E, G, shown).total;
+  out[2] = 1;
+  out[3] = shown == 2 ? (long long)N * Dims<kLatent, kHidden>::NBW * 4 : 0;
+  return plan;
 }
 
-// Blocks (grids) the card keeps resident per SM at this grid size, from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 if a grid does not fit,
+// Blocks (grids) the card keeps resident per SM at this grid size under
+// `want` (-1: the library's plan), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 if no plan holds a grid,
 // -1 for another width, -(cudaError) if the query fails.
-int gns_megakernel_blocks_per_sm(int N, int E, int G, int L, int H) {
+int gns_megakernel_blocks_per_sm(int N, int E, int G, int L, int H, int want) {
   if (!built_for(L, H)) return -1;
-  return blocks_per_sm<kLatent, kHidden>(N, E, G);
+  return blocks_per_sm<kLatent, kHidden>(N, E, G, want);
 }
 
 // Sizes of one packed step: bf16 tile elements (biases 0) or f32 biases
@@ -764,9 +1061,12 @@ long long gns_megakernel_step_sizes(int L, int H, int biases) {
 // bus (E,); wpack (K, tiles x 128) bf16 and bpack (K, kBias) f32
 // as ops/megakernel.py pack_step_weights lays them out, 16-byte aligned;
 // disc (K,) the loss discounts. Outputs v, theta, dp, dq (S, N), loss (S, 2);
-// clocks, when not null, (S, 5) int64: each grid's SM cycles per stage
-// (kStages), an instrument for chip_smoke.py; null in serving. (L, H) must
-// be the library's width.
+// clocks, when not null, (S, 4) int64: each grid's SM cycles per stage
+// (kStages), an instrument for chip_smoke.py; null in serving. ws: null, or
+// for plan 2 the (S, N, NBW) float32 workspace of the grids' state rows
+// (gns_megakernel_plan's bytes a grid). plan: -1 for the library's plan
+// for the grid, or 0, 1, 2 to run that one (chip_smoke.py holds the plans
+// to each other). (L, H) must be the library's width.
 int gns_megakernel(const float* buses, const float* lines, const float* gens, const float* bm,
                    const float* lm, const float* gm, const int* src, const int* dst,
                    const int* srcq, const int* dstq, const int* dst_order,
@@ -774,15 +1074,16 @@ int gns_megakernel(const float* buses, const float* lines, const float* gens, co
                    const int* gen_indptr, const int* dst_pos, const int* src_pos,
                    const int* gen_pos, const int* items, const int* row_bus, int n_items,
                    const void* wpack, const float* bpack, const float* disc, float* v,
-                   float* th, float* dp, float* dq, float* loss, long long* clocks, long long S,
-                   int N, int E, int G, int K, int L, int H, float slope, void* stream) {
+                   float* th, float* dp, float* dq, float* loss, long long* clocks, float* ws,
+                   long long S, int N, int E, int G, int K, int L, int H, float slope, int plan,
+                   void* stream) {
   if (!built_for(L, H)) return (int)cudaErrorInvalidValue;
   if (S == 0) return 0;
   const Topo tp{src,     dst,        srcq,    dstq,    dst_order,
                 dst_indptr, src_indptr, gen_order, gen_indptr, dst_pos,
                 src_pos, gen_pos,    reinterpret_cast<const int4*>(items), row_bus, n_items};
   return launch<kLatent, kHidden>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th,
-                                  dp, dq, loss, clocks, S, N, E, G, K, slope,
+                                  dp, dq, loss, clocks, ws, S, N, E, G, K, slope, plan,
                                   static_cast<cudaStream_t>(stream));
 }
 

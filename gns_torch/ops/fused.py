@@ -18,17 +18,22 @@ SegmentIndex over the dst ids (E,), shared by the batch; heads
 
 On a CUDA tensor the forward is one launch of the kernel in
 gns_torch/csrc/fused_edge.cu (`fused_edge_cuda`), in exact float32: no TF32
-and no bf16 operands. The kernel takes every (L, H) in [1, 64] x [1, 32]
+and no bf16 operands. The kernel takes every (L, H) in [1, 128] x [1, 128]
 (ops/segment_kernels.py check_width; another width raises): each width is
 a library of its own, built from the source at the first call that needs
-it. What the kernel reads beside the inputs is laid out here, in Python,
-so the CPU tests reach it:
+it, in one of two designs (segment_kernels.k3_rows): up to (33, 24)'s
+register footprint a lane holds two edges' inputs and activations in
+registers (64-row tiles); past it the tile's inputs and activations sit
+in shared memory and each row's outputs are split over lanes (16-row
+tiles). What the kernel reads beside the inputs is laid out here, in
+Python, so the CPU tests reach it:
   pack_weights    the 18 weights as one vector, each matrix transposed
                   with its rows padded to 16-byte words (pack_index);
   _schedule       its warps' work items over the dst CSR (ops/segment.py
-                  schedule_items at ROWS = 64: runs of whole buses in at
-                  most 64 rows, or one bus with more) and each row's bus,
-                  made once per SegmentIndex.
+                  schedule_items at the design's rows, ROWS = 64 or
+                  WIDE_ROWS = 16: runs of whole buses in at most that many
+                  rows, or one bus with more) and each row's bus, made
+                  once per SegmentIndex and row count.
 The compiled Pallas kernel truncated its operands to bf16
 (pallas_fused.py:22-28); that was Mosaic's doing and is not copied.
 The backward recomputes the edge stage from the saved inputs through the
@@ -56,6 +61,7 @@ from gns_torch.ops.segment import SegmentIndex, gather, schedule_items, segment_
 
 _PARAMS = ("w1", "b1", "w2", "b2", "w4", "b4")
 ROWS = 64  # fused_edge.cu kRows: dst-CSR rows per warp tile, two per lane
+WIDE_ROWS = 16  # the wide design's rows per warp tile
 
 
 def _weights(heads: Dict[str, Dict[str, torch.Tensor]]):
@@ -104,19 +110,20 @@ def pack_weights(weights, latent: int, hidden: int) -> torch.Tensor:
     return flat.index_select(0, idx)
 
 
-_SCHEDULES: "weakref.WeakKeyDictionary[SegmentIndex, tuple]" = weakref.WeakKeyDictionary()
+_SCHEDULES: "weakref.WeakKeyDictionary[SegmentIndex, dict]" = weakref.WeakKeyDictionary()
 
 
-def _schedule(index: SegmentIndex):
-    """K3's work items over the index's CSR (schedule_items at ROWS) as a
+def _schedule(index: SegmentIndex, rows: int = ROWS):
+    """K3's work items over the index's CSR (schedule_items at `rows`) as a
     (T, 4) int32 tensor and its row_bus (E,), on the index's device, made
-    once per index."""
-    hit = _SCHEDULES.get(index)
+    once per index and row count."""
+    made = _SCHEDULES.setdefault(index, {})
+    hit = made.get(rows)
     if hit is None:
-        items, row_bus = schedule_items(index.indptr.cpu().numpy(), ROWS)
+        items, row_bus = schedule_items(index.indptr.cpu().numpy(), rows)
         dev = index.indptr.device
-        hit = _SCHEDULES[index] = (torch.as_tensor(items, device=dev).contiguous(),
-                                   torch.as_tensor(row_bus, device=dev))
+        hit = made[rows] = (torch.as_tensor(items, device=dev).contiguous(),
+                            torch.as_tensor(row_bus, device=dev))
     return hit
 
 
@@ -179,7 +186,7 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
     packed = pack_weights(weights, latent, hidden)
     if packed.numel() != floats:
         raise ValueError(f"packed weights hold {packed.numel()} floats, the kernel reads {floats}")
-    items, row_bus = _schedule(index)
+    items, row_bus = _schedule(index, kern.k3_rows(latent, hidden))
     outs = [m.new_empty((s, n, latent)) for _ in range(3)]
     if clocks is not None:
         kern._check_cuda("clocks", clocks, (torch.int64,), 2, m.device)

@@ -8,11 +8,16 @@ discounted loss and the v clamp, one grid per block
 (gns_torch/csrc/megakernel.cu). Serving only, for multiple_phi +
 reference_parity (every shipped K4/L20/H10 checkpoint, and the K8/L40/H10
 `300-deep`) and a shared topology. The kernel takes every (latent, hidden)
-in [1, 64] x [1, 32] (ops/segment_kernels.py check_width), each width a
-library of its own built at the first call that needs it, as long as one
-grid fits in a block's shared memory: at (40, 10) a case300 grid takes
-193,664 of the 232,448 bytes, one grid per SM; a grid that does not fit
-raises with its bytes.
+in [1, 128] x [1, 128] (ops/segment_kernels.py check_width), each width a
+library of its own built at the first call that needs it; the plain twin
+takes any width. One grid is one block, under the first of three plans
+the library finds a grid fits (megakernel_occupancy, gns_megakernel_plan):
+0, the step's weight tiles, the three heads' scratch and the state rows in
+shared memory (at (40, 10) a case300 grid takes 193,664 of a block's
+232,448 bytes); 1, the tiles read from L2 and one head's scratch at a
+time; 2, as 1 with the grid's state rows in a global workspace that the
+wrapper allocates. Every grid of case9 to case300 fits at every width of
+the range; one that fits no plan raises with its bytes.
 
   megakernel_forward_batch(model, cfg, batch, topo) -> GNSOutput
       on the model's device, from a host (numpy) GridBatch and its shared
@@ -51,6 +56,7 @@ CPU tests reach it:
 
 from __future__ import annotations
 
+import ctypes
 import weakref
 from typing import Dict, List, NamedTuple, Tuple
 
@@ -135,7 +141,8 @@ class TileDims(NamedTuple):
 
 
 def tile_dims(latent: int, hidden: int) -> TileDims:
-    kern.check_width(latent, hidden)
+    if latent < 1 or hidden < 1:
+        raise ValueError(f"K4 takes latent and hidden of at least 1, got ({latent}, {hidden})")
     le, hp, lp = latent + latent % 2, -(-hidden // 16) * 16, -(-latent // 8) * 8
     kh, nh, nl = hp // 16, hp // 8, lp // 8
     nbw = 4 + le
@@ -304,11 +311,41 @@ STAGES = ("inputs and state init", "step weights",
           "edge and node stages (phi heads, aggregate, L heads)", "physics refresh and loss")
 
 
-def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None) -> Tuple[torch.Tensor, ...]:
+class K4Plan(NamedTuple):
+    """How K4 holds one grid (megakernel.cu gns_megakernel_plan)."""
+
+    plan: int  # 0, 1 or 2 (the module docstring), -1 where none holds the grid
+    shared_bytes: int  # per block (of plan 2 where none holds the grid)
+    blocks_per_grid: int
+    workspace_bytes: int  # per grid, in global memory (plan 2)
+    grids_per_sm: int  # resident, cudaOccupancyMaxActiveBlocksPerMultiprocessor (0 if none)
+
+    @property
+    def tiles(self) -> str:
+        """Where a step's weight tiles sit: "shared" memory or read from "L2"."""
+        return "shared" if self.plan == 0 else "L2"
+
+
+def _plan(n: int, e: int, g: int, latent: int, hidden: int, want: int) -> Tuple[int, int, int, int]:
+    """(plan, shared bytes a block, blocks a grid, workspace bytes a grid)
+    from the width's library, with `want` as gns_megakernel_plan takes it."""
+    out = (ctypes.c_longlong * 4)()
+    rc = kern.function("gns_megakernel_plan", (latent, hidden))(n, e, g, latent, hidden, want,
+                                                                ctypes.addressof(out))
+    if rc == -2:
+        raise RuntimeError(f"K4's library for latent {latent}, hidden {hidden} is built for "
+                           f"another width")
+    return tuple(out)
+
+
+def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None,
+                    plan: int = -1) -> Tuple[torch.Tensor, ...]:
     """One launch of K4. Returns v, theta, delta_p, delta_q (S, N) and the
     (total, last) loss (S, 2), float32 on the card. With `clocks`, an
     (S, len(STAGES)) int64 tensor on the card, the kernel also records each
-    grid's SM clock cycles per stage (chip_smoke.py reads them)."""
+    grid's SM clock cycles per stage (chip_smoke.py reads them). `plan`:
+    -1, the library's plan for the grid; 0, 1 or 2 runs that plan, which
+    must hold the grid (chip_smoke.py holds the plans to each other)."""
     dev = inp.buses.device
     kern._check_cuda("buses", inp.buses, (torch.float32,), 3)
     for name in ("lines", "gens"):
@@ -352,24 +389,27 @@ def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None) -> Tuple
             or inp.discounts.numel() != k:
         raise ValueError(f"weight packs {tuple(inp.wpack.shape)} / {tuple(inp.bpack.shape)} "
                          f"do not match K={k} steps of {want}")
-    shared = kern.function("gns_megakernel_shared_bytes", width)(n, e, g, inp.latent, inp.hidden)
-    if shared > kern.MAX_SHARED_BYTES:
+    chosen, shared, _, ws_bytes = _plan(n, e, g, inp.latent, inp.hidden, plan)
+    if chosen < 0:
+        which = "no plan" if plan < 0 else f"plan {plan}"
         raise ValueError(f"a grid of N={n}, E={e}, G={g} at latent {inp.latent}, hidden "
-                         f"{inp.hidden} needs {shared} bytes of shared memory, more than the "
-                         f"{kern.MAX_SHARED_BYTES} a block can hold")
+                         f"{inp.hidden} fits {which} of K4: it needs {shared} bytes of shared "
+                         f"memory, more than the {kern.MAX_SHARED_BYTES} a block can hold")
     if clocks is not None:
         kern._check_cuda("clocks", clocks, (torch.int64,), 2, dev)
         if clocks.shape != (s, len(STAGES)):
             raise ValueError(f"clocks must be ({s}, {len(STAGES)}), got {tuple(clocks.shape)}")
     outs = [torch.empty((s, n), dtype=torch.float32, device=dev) for _ in range(4)]
     loss = torch.empty((s, 2), dtype=torch.float32, device=dev)
+    ws = torch.empty((s * ws_bytes // 4,), dtype=torch.float32, device=dev) if ws_bytes else None
     rc = kern.function("gns_megakernel", width)(
         inp.buses.data_ptr(), inp.lines.data_ptr(), inp.gens.data_ptr(),
         inp.bus_mask.data_ptr(), inp.line_mask.data_ptr(), inp.gen_mask.data_ptr(),
         *(t.data_ptr() for t in ints), inp.items.shape[0],
         inp.wpack.data_ptr(), inp.bpack.data_ptr(),
         inp.discounts.data_ptr(), *(o.data_ptr() for o in outs), loss.data_ptr(),
-        None if clocks is None else clocks.data_ptr(), s, n, e, g, k, inp.latent, inp.hidden, inp.slope, kern._stream_of(dev.index),
+        None if clocks is None else clocks.data_ptr(), None if ws is None else ws.data_ptr(),
+        s, n, e, g, k, inp.latent, inp.hidden, inp.slope, chosen, kern._stream_of(dev.index),
     )
     if rc != 0:
         raise RuntimeError(f"K4 megakernel launch failed: cudaError {rc}")
@@ -380,13 +420,15 @@ def megakernel_cuda(inp: MegakernelInputs, clocks: torch.Tensor = None) -> Tuple
 megakernel_cuda.launches = 0
 
 
-def megakernel_occupancy(inp: MegakernelInputs) -> Tuple[int, int]:
-    """(shared bytes one grid needs, grids the card keeps resident per SM)
-    for this batch's grid size, from the kernel library."""
+def megakernel_occupancy(inp: MegakernelInputs, plan: int = -1) -> K4Plan:
+    """How K4 holds a grid of this batch's size under `plan` (-1: the
+    library's choice), from the width's library: the plan, shared bytes a
+    block, blocks and workspace bytes a grid, grids resident per SM."""
+    kern.check_width(inp.latent, inp.hidden)
     n, e, g = inp.buses.shape[1], inp.lines.shape[1], inp.gens.shape[1]
     width = (inp.latent, inp.hidden)
-    return (kern.function("gns_megakernel_shared_bytes", width)(n, e, g, *width),
-            kern.function("gns_megakernel_blocks_per_sm", width)(n, e, g, *width))
+    per_sm = kern.function("gns_megakernel_blocks_per_sm", width)(n, e, g, *width, plan)
+    return K4Plan(*_plan(n, e, g, *width, plan), per_sm)
 
 
 def megakernel_plain(inp: MegakernelInputs) -> Tuple[torch.Tensor, ...]:

@@ -88,31 +88,53 @@ def _nvcc() -> str:
 
 
 # K3 and K4 are built per (latent, hidden) width, for every width in
-# [1, MAX_LATENT] x [1, MAX_HIDDEN].
+# [1, MAX_LATENT] x [1, MAX_HIDDEN]: up to 128, where gns_tpu's kernels
+# first change shape (a last dimension past 128 spans two of the TPU's
+# 128-lane tiles). Their plain twins take any width.
 WIDTHED = ("fused_edge", "megakernel")
-MAX_LATENT, MAX_HIDDEN = 64, 32
+MAX_LATENT, MAX_HIDDEN = 128, 128
 
 
 def check_width(latent: int, hidden: int) -> None:
-    """Raises unless K3 and K4 take (latent, hidden)."""
+    """Raises unless the CUDA kernels K3 and K4 take (latent, hidden)."""
     if not (1 <= latent <= MAX_LATENT and 1 <= hidden <= MAX_HIDDEN):
         raise ValueError(f"K3 and K4 take latent in [1, {MAX_LATENT}] and hidden in "
                          f"[1, {MAX_HIDDEN}], got ({latent}, {hidden})")
 
 
+# K3 keeps a lane's two edges' inputs and hidden activations, 2 (L + 5) +
+# 4 H floats, in registers while they stay within (33, 24)'s 172, the
+# widest width measured with no spill (198 registers at 2 blocks per SM);
+# past it, the tile's inputs and activations sit in shared memory and a
+# row's outputs are split over lanes (fused_edge.cu's wide design).
+K3_REGISTER_FLOATS = 172
+
+
+def k3_rows(latent: int, hidden: int) -> int:
+    """dst-CSR rows per warp tile of K3's design at this width: 64 for the
+    register design (two rows a lane), 16 for the wide one (its -DGNS_ROWS,
+    and the rows of its work items, ops/fused.py _schedule)."""
+    return 64 if 2 * (latent + 5) + 4 * hidden <= K3_REGISTER_FLOATS else 16
+
+
 def min_blocks(name: str, latent: int, hidden: int) -> int:
     """Blocks per SM the width's __launch_bounds__ asks for, which caps
     its registers a thread (65,536 / (threads x blocks), at most 255).
-    K3 (128 threads): 3 (170 registers) while a lane's two edges' inputs
-    and hidden activations, 2 (L + 5) + 4 H floats, stay within the (20,
-    10) instance's 90 and L <= 25, else 2 (255). ptxas's registers grow
-    with L about three times as fast as with H: at 90 floats (30, 5)
-    spills at 3 where (24, 8) does not. python3 probe_k3_blocks.py prints
-    ptxas's registers and spills at 2 and at 3 for the five tested
-    widths, this rule's boundary and the range's ends. K4 (256
-    threads): 2 grids (128 registers) up to latent 20 with one k-tile of
-    hidden units, else 1."""
+    K3 (128 threads), register design: 3 (170 registers) while a lane's
+    two edges' inputs and hidden activations, 2 (L + 5) + 4 H floats, stay
+    within the (20, 10) instance's 90 and L <= 25, else 2 (255). ptxas's
+    registers grow with L about three times as fast as with H: at 90
+    floats (30, 5) spills at 3 where (24, 8) does not. Wide design (k3_rows
+    16): 4 (128 registers); its lanes hold 8 x 4 accumulators, and shared
+    memory, not registers, sets its blocks per SM. python3
+    probe_k3_blocks.py prints ptxas's registers and spills at 2, at 3 and
+    at the choice for chip_smoke's widths, the rules' boundaries and the
+    range's ends. K4 (256 threads): 2 grids (128 registers) up to latent
+    20 with one k-tile of hidden units, else 1; the asked blocks are those
+    of its plan-0 instance (megakernel.cu), its wide instance asks for 1."""
     if name == "fused_edge":
+        if k3_rows(latent, hidden) == 16:
+            return 4
         return 3 if 2 * (latent + 5) + 4 * hidden <= 90 and latent <= 25 else 2
     return 2 if latent <= 20 and hidden <= 16 else 1
 
@@ -129,8 +151,11 @@ def _flags(name: str, width=None, blocks: int | None = None):
     check_width(latent, hidden)
     if blocks is None:
         blocks = min_blocks(name, latent, hidden)
-    return flags + [f"-DGNS_LATENT={latent}", f"-DGNS_HIDDEN={hidden}",
-                    f"-DGNS_MIN_BLOCKS={blocks}"]
+    flags = flags + [f"-DGNS_LATENT={latent}", f"-DGNS_HIDDEN={hidden}",
+                     f"-DGNS_MIN_BLOCKS={blocks}"]
+    if name == "fused_edge":
+        flags.append(f"-DGNS_ROWS={k3_rows(latent, hidden)}")
+    return flags
 
 
 _PROBES = {}  # argv -> its output: each host probe runs once per process
@@ -268,9 +293,10 @@ SIGNATURES = {
         "gns_fused_edge_occupancy": ([_i, _i, _p], _i),
     },
     "megakernel": {
-        "gns_megakernel": ([_p] * 20 + [_i] + [_p] * 9 + [_ll, _i, _i, _i, _i, _i, _i, _f, _p], _i),
-        "gns_megakernel_shared_bytes": ([_i, _i, _i, _i, _i], _ll),
-        "gns_megakernel_blocks_per_sm": ([_i, _i, _i, _i, _i], _i),
+        "gns_megakernel": ([_p] * 20 + [_i] + [_p] * 10 + [_ll, _i, _i, _i, _i, _i, _i, _f, _i, _p],
+                           _i),
+        "gns_megakernel_plan": ([_i, _i, _i, _i, _i, _i, _p], _i),
+        "gns_megakernel_blocks_per_sm": ([_i, _i, _i, _i, _i, _i], _i),
         "gns_megakernel_step_sizes": ([_i, _i, _i], _ll),
     },
 }

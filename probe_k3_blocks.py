@@ -4,14 +4,15 @@
     python3 probe_k3_blocks.py
 
 Builds gns_torch/csrc/fused_edge.cu with nvcc (the flags of
-gns_torch/ops/segment_kernels.py) at each (latent, hidden) of WIDTHS twice:
-asking for 3 resident blocks per SM (at most 170 registers a thread) and
-for 2 (at most 255), all builds started together. Prints ptxas's
-registers and spills of each build's default and clocks instances beside
-the choice of segment_kernels.min_blocks, and exits non-zero where that
-choice is 3 and spills while 2 does not (at 2 the cap is already 255, so
-fewer blocks buy no registers). Needs nvcc (the CUDA toolkit), not a GPU;
-the builds go to build/probe_k3/.
+gns_torch/ops/segment_kernels.py, the width's design included) at each
+(latent, hidden) of WIDTHS asking for 2 resident blocks per SM (at most
+255 registers a thread), for 3 (170) and for the choice of
+segment_kernels.min_blocks where that is another (4, 128 registers, for
+the wide design), all builds started together. Prints ptxas's registers
+and spills of each build's default and clocks instances beside the
+choice, and exits non-zero where the choice spills while fewer blocks do
+not (fewer blocks buy registers up to 255). Needs nvcc (the CUDA
+toolkit), not a GPU; the builds go to build/probe_k3/.
 """
 
 from __future__ import annotations
@@ -21,11 +22,14 @@ import re
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# chip_smoke.py's five widths; then min_blocks' boundary, where a lane's
+# chip_smoke.py's eight widths; then min_blocks' boundary, where a lane's
 # 2 (L + 5) + 4 H input and hidden floats reach 90 (3 blocks at L <= 25)
-# or just pass it, or L passes 25 (2); then the range's ends
-WIDTHS = ((20, 10), (40, 10), (8, 8), (10, 10), (33, 24),
-          (24, 8), (16, 12), (25, 7), (30, 5), (26, 6), (25, 8), (21, 10), (1, 1), (64, 32))
+# or just pass it, or L passes 25 (2); k3_rows' boundary, where they reach
+# 172 (the register design) or just pass it (the wide one); then the
+# range's ends
+WIDTHS = ((20, 10), (40, 10), (8, 8), (10, 10), (33, 24), (64, 32), (97, 40), (128, 128),
+          (24, 8), (16, 12), (25, 7), (30, 5), (26, 6), (25, 8), (21, 10),
+          (41, 20), (42, 20), (34, 24), (1, 41), (1, 1), (128, 1), (1, 128))
 
 
 def report(log: str) -> dict:
@@ -56,9 +60,10 @@ def main() -> int:
 
     out_dir = os.path.join(HERE, "build", "probe_k3")
     os.makedirs(out_dir, exist_ok=True)
-    jobs = {}
+    jobs, counts = {}, {}
     for width in WIDTHS:
-        for blocks in (2, 3):
+        counts[width] = sorted({2, 3, kern.min_blocks("fused_edge", *width)})
+        for blocks in counts[width]:
             path = os.path.join(out_dir, "fused_edge_L{}_H{}_{}.so".format(*width, blocks))
             if os.path.exists(path):
                 os.remove(path)  # build anew, so that ptxas reports
@@ -73,21 +78,22 @@ def main() -> int:
     wrong = []
     for width in WIDTHS:
         chosen = kern.min_blocks("fused_edge", *width)
+        design = "wide" if kern.k3_rows(*width) == 16 else "registers"
         spills = {}
-        for blocks in (2, 3):
+        for blocks in counts[width]:
             seen = report(info[(width, blocks)]["log"])
             spills[blocks] = any(s for _, s in seen.values())
-            print(f"[probe] (L, H) = {width} at {blocks} blocks per SM"
+            print(f"[probe] (L, H) = {width}, {design} design, at {blocks} blocks per SM"
                   f"{' (the choice)' if blocks == chosen else ''}: "
                   + "; ".join(f"{name} instance {regs} registers, {spill} bytes spilled"
                               for name, (regs, spill) in sorted(seen.items())))
-        if chosen == 3 and spills[3] and not spills[2]:
+        if spills[chosen] and any(not spills[b] for b in counts[width] if b < chosen):
             wrong.append(width)
     if wrong:
-        print(f"[probe] min_blocks asks for 3 blocks per SM at {wrong}, which spill at 3 "
-              f"and not at 2", file=sys.stderr)
+        print(f"[probe] min_blocks' choice spills at {wrong}, where fewer blocks per SM do "
+              f"not", file=sys.stderr)
         return 1
-    print("[probe] min_blocks' choice spills nowhere that 2 blocks per SM would not")
+    print("[probe] min_blocks' choice spills nowhere that fewer blocks per SM would not")
     return 0
 
 

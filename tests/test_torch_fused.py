@@ -1,8 +1,10 @@
 """gns_torch K3, the fused edge stage, on the CPU against gns_tpu's
 `fused_edge_stage` in interpret mode (tests/test_fused.py's problem: S3,
 N14, E20), at every (L, H) of WIDTHS: gns_tpu's own test width (8, 8), the
-reference's default (10, 10), an odd L with H > 16 (33, 24) and the
-shipped checkpoints' (20, 10) and (40, 10).
+reference's default (10, 10), an odd L with H > 16 (33, 24), the shipped
+checkpoints' (20, 10) and (40, 10), and three widths of the kernel's wide
+design: (64, 32), (97, 40) (an odd L over 64, H over two k-tiles) and the
+range's corner (128, 128).
 
 On the CPU the port's fused_edge_stage is its plain twin (gather_plain,
 F.linear, segment_sum_plain). The CUDA kernel runs only on the card, where
@@ -27,7 +29,7 @@ from gns_torch.ops.segment import SegmentIndex
 
 torch.set_num_threads(1)
 S, N, E = 3, 14, 20
-WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10)]
+WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10), (64, 32), (97, 40), (128, 128)]
 SLOPE = 0.01
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=2e-4, atol=1e-5)
@@ -174,26 +176,38 @@ def test_k3_cuda_wrapper_and_index_checks(problem):
 
 
 def test_k3_width_range():
-    """K3 takes every (L, H) in [1, 64] x [1, 32] (segment_kernels.check_width)
-    and refuses the rest before anything is built. On CPU tensors
-    fused_edge_cuda raises at its device check, before the width, and no
-    library is built or loaded either way; fused_edge_occupancy checks the
-    width before it loads its library."""
+    """K3's CUDA path takes every (L, H) in [1, 128] x [1, 128]
+    (segment_kernels.check_width) and refuses the rest before anything is
+    built: fused_edge_occupancy and the library's build check the width
+    before they load or build, and on CPU tensors fused_edge_cuda raises at
+    its device check. The plain twin, the CPU path, takes any width: (136,
+    8) against jax's interpret-mode kernel."""
     libs = dict(fused.kern._libs)
-    for latent, hidden in ((1, 1), (64, 32), (33, 24), (7, 17)):
+    for latent, hidden in ((1, 1), (128, 128), (97, 40), (7, 17), (128, 1), (1, 128)):
         fused.kern.check_width(latent, hidden)
-    for latent, hidden in ((0, 8), (65, 8), (8, 0), (8, 33), (80, 40)):
-        with pytest.raises(ValueError, match=r"latent in \[1, 64\] and hidden in \[1, 32\]"):
+    for latent, hidden in ((0, 8), (129, 8), (8, 0), (8, 129), (136, 8)):
+        with pytest.raises(ValueError, match=r"latent in \[1, 128\] and hidden in \[1, 128\]"):
             fused.kern.check_width(latent, hidden)
         with pytest.raises(ValueError, match="latent in"):
             fused.fused_edge_occupancy(latent, hidden)
         with pytest.raises(ValueError, match="latent in"):
             fused.kern._library_path("fused_edge", width=(latent, hidden))
-    wide = {h: jax.tree.map(np.asarray, init_learning_block(jax.random.key(i), 70, 8, 65))
+    wide = {h: jax.tree.map(np.asarray, init_learning_block(jax.random.key(i), 141, 8, 136))
             for i, h in enumerate(HEADS)}
+    rng = np.random.default_rng(2)
+    m = rng.standard_normal((S, N, 136)).astype(np.float32)
+    feats = rng.standard_normal((S, E, 5)).astype(np.float32)
+    mask = np.ones((S, E), np.float32)
     seg = np.arange(E, dtype=np.int32) % N
+    heads = heads_from_jax(wide, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        fused_edge_cuda(torch.zeros((S, N, 65)), torch.zeros((S, E, 5)), torch.ones((S, E)),
-                        SegmentIndex(seg, N), fused._weights(heads_from_jax(wide, device="cpu")),
-                        SLOPE)
+        fused_edge_cuda(torch.tensor(m), torch.tensor(feats), torch.tensor(mask),
+                        SegmentIndex(seg, N), fused._weights(heads), SLOPE)
     assert fused.kern._libs == libs  # nothing built or loaded
+    ref = j_fused_edge_stage(jnp.asarray(m), jnp.asarray(feats), jnp.asarray(mask),
+                             jnp.asarray(seg), wide, SLOPE, True)
+    out = fused_edge_stage(torch.tensor(m), torch.tensor(feats), torch.tensor(mask),
+                           SegmentIndex(seg, N), heads, SLOPE)
+    for o, r in zip(out, ref):
+        assert o.shape == (S, N, 136)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **FWD)

@@ -195,21 +195,17 @@ def test_build_log_kept_beside_the_library(tmp_path, monkeypatch):
 
 # ---- K3: schedule, order of adds, weight layout --------------------------
 
-@pytest.mark.parametrize("case", [14, 30, 300, "hub"])
-def test_k3_schedule_covers_the_dst_csr(case):
-    """K3's work items cover every dst-CSR row exactly once, in CSR order,
-    each bus in one item; an item holds at most 64 rows (two per lane) and
-    64 buses, unless it is a single bus with more rows."""
+def _check_schedule(case, rows_per_tile):
     dst, n = _dst(case)
     index = SegmentIndex(dst, n)
     indptr, order = index.indptr.numpy(), index.order.numpy()
-    items, row_bus = (t.numpy() for t in fused._schedule(index))
+    items, row_bus = (t.numpy() for t in fused._schedule(index, rows_per_tile))
     bounds = np.append(items[:, 0], items[-1, 1])
     assert np.array_equal(items[:, 2:], np.stack([indptr[bounds[:-1]], indptr[bounds[1:]]], 1))
     assert bounds[0] == 0 and bounds[-1] == n and np.all(np.diff(bounds) > 0)
     rows = indptr[bounds[1:]] - indptr[bounds[:-1]]
     buses = np.diff(bounds)
-    assert np.all(((rows <= fused.ROWS) & (buses <= fused.ROWS)) | (buses == 1))
+    assert np.all(((rows <= rows_per_tile) & (buses <= rows_per_tile)) | (buses == 1))
     # the items' row ranges tile [0, E) in order, and each row's bus is its own
     covered = np.concatenate([np.arange(indptr[b0], indptr[b1])
                               for b0, b1 in zip(bounds[:-1], bounds[1:])])
@@ -219,19 +215,42 @@ def test_k3_schedule_covers_the_dst_csr(case):
     last[indptr[1:][np.diff(indptr) > 0] - 1] = True
     assert np.array_equal(row_bus & 1, last.astype(np.int32))
     if case == "hub":
-        assert rows.max() > fused.ROWS and buses[rows.argmax()] == 1
+        assert rows.max() > rows_per_tile and buses[rows.argmax()] == 1
 
 
-def _k3_aggregate(x, index: SegmentIndex):
+@pytest.mark.parametrize("case", [14, 30, 300, "hub"])
+def test_k3_schedule_covers_the_dst_csr(case):
+    """K3's work items cover every dst-CSR row exactly once, in CSR order,
+    each bus in one item; an item holds at most 64 rows (two per lane) and
+    64 buses, unless it is a single bus with more rows."""
+    _check_schedule(case, fused.ROWS)
+
+
+@pytest.mark.parametrize("case", [14, 30, 300, "hub"])
+def test_k3_wide_schedule_covers_the_dst_csr(case):
+    """The same for the wide design's work items (segment_kernels.k3_rows
+    16 past (33, 24)'s register footprint): at most 16 rows and 16 buses
+    an item, or one bus with more; made apart from the 64-row ones."""
+    _check_schedule(case, fused.WIDE_ROWS)
+    index = SegmentIndex(*_dst(case))
+    assert fused._schedule(index, fused.WIDE_ROWS)[0] is fused._schedule(index, fused.WIDE_ROWS)[0]
+    assert fused._schedule(index)[0].shape[0] <= fused._schedule(index, fused.WIDE_ROWS)[0].shape[0]
+    assert kern.k3_rows(33, 24) == fused.ROWS and kern.k3_rows(34, 24) == fused.WIDE_ROWS
+    assert kern.k3_rows(20, 10) == kern.k3_rows(40, 10) == fused.ROWS
+    assert {kern.k3_rows(*w) for w in ((64, 32), (97, 40), (128, 128))} == {fused.WIDE_ROWS}
+
+
+def _k3_aggregate(x, index: SegmentIndex, rows_per_tile=fused.ROWS):
     """fused_edge.cu's sums, emulated: per item, a one-tile item stages its
     rows and each bus's lanes add the bus's rows in row order from 0.0f;
     a hub item adds its tiles' rows in order, carrying the sum across
-    tiles. float32 throughout, as the kernel."""
-    items, _ = fused._schedule(index)
+    tiles. float32 throughout, as the kernel (either design: the register
+    one at 64 rows, a lane a bus; the wide one at 16, a lane a column)."""
+    items, _ = fused._schedule(index, rows_per_tile)
     order, indptr = index.order.numpy(), index.indptr.numpy()
     out = torch.zeros((x.shape[0], index.n, x.shape[2]), dtype=torch.float32)
     for b0, b1, r0, r1 in items.tolist():
-        if r1 - r0 <= fused.ROWS:
+        if r1 - r0 <= rows_per_tile:
             buf = x[:, order[r0:r1]]
             for b in range(b0, b1):
                 acc = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32)
@@ -240,8 +259,8 @@ def _k3_aggregate(x, index: SegmentIndex):
                 out[:, b] = acc
         else:
             acc = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32)
-            for t in range(r0, r1, fused.ROWS):
-                buf = x[:, order[t:min(t + fused.ROWS, r1)]]
+            for t in range(r0, r1, rows_per_tile):
+                buf = x[:, order[t:min(t + rows_per_tile, r1)]]
                 for k in range(buf.shape[1]):
                     acc = acc + buf[:, k]
             out[:, b0] = acc
@@ -260,8 +279,20 @@ def test_k3_order_of_adds_equals_segment_sum(case):
                        kern.segment_sum_plain(x, index.order, index.indptr, index.n))
 
 
+@pytest.mark.parametrize("case", [14, 30, 300, "hub"])
+def test_k3_wide_order_of_adds_equals_segment_sum(case):
+    """The same for the wide design's 16-row items at an odd width past 32
+    columns (97: a lane sums columns c, c + 32, c + 64 and c + 96 < 97)."""
+    dst, n = _dst(case)
+    index = SegmentIndex(dst, n)
+    x = torch.as_tensor(np.random.default_rng(12).standard_normal((2, len(dst), 97)),
+                        dtype=torch.float32)
+    assert torch.equal(_k3_aggregate(x, index, fused.WIDE_ROWS),
+                       kern.segment_sum_plain(x, index.order, index.indptr, index.n))
+
+
 @pytest.mark.parametrize("latent, hidden", [(20, 10), (8, 8), (12, 6), (40, 10), (10, 10),
-                                            (33, 24)])
+                                            (33, 24), (97, 40), (128, 128)])
 def test_k3_packed_weights_unpack_exactly(latent, hidden):
     """pack_weights lays the 18 weights out as fused_edge.cu's Pack reads
     them: per head w1, b1, w2, b2, w4, b4, each matrix transposed to (in,

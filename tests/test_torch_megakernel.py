@@ -5,10 +5,13 @@ the port's own float32 forward.
 The weights are gns_tpu's `init_gns_params` carried across with
 module_from_jax_params. The twin is held to gns_tpu at every (latent,
 hidden) of WIDTHS: gns_tpu's K3 test width (8, 8), the reference's default
-(10, 10), an odd latent with hidden > 16 (33, 24), and the shipped
-checkpoints' (20, 10) and (40, 10). On the CPU megakernel_forward_batch is the plain
-twin; the CUDA kernel runs only on the card, where chip_smoke.py holds it
-against this twin.
+(10, 10), an odd latent with hidden > 16 (33, 24), the shipped
+checkpoints' (20, 10) and (40, 10), and widths past one block's shared
+memory on the card: (64, 32), (97, 40) and the range's corner (128, 128);
+also at (136, 8) and (72, 40), which the plain twin takes and the kernel
+does not. On the CPU megakernel_forward_batch is the plain twin; the CUDA
+kernel runs only on the card, where chip_smoke.py holds it against this
+twin.
 
 Tolerance against gns_tpu's megakernel: both round the MLP operands to
 bf16 at the same places, but gns_tpu's gathers and sums go through hi + lo
@@ -23,7 +26,11 @@ the twin's segment-sums taken as gns_tpu takes them (hi + lo bf16 halves,
 `_gns_tpu_sums`), it is within VS_JAX. So every width holds the twin
 with gns_tpu's sums to VS_JAX, and the twin as it is to VS_JAX but for
 those widths' last_loss, which VS_JAX_WIDTH bounds at about 2.5x its
-reading."""
+reading. The same holds at (97, 40): the twin as it is reads theta
+6.24e-4, total_loss 9.72e-3 and last_loss 1.27e-2 relative, delta_p
+3.06e-2, which VS_JAX_WIDTH bounds at about 2.5x, while the twin with
+gns_tpu's sums reads 2.59e-4, 1.12e-3, 1.08e-3 and 7.18e-3, within
+VS_JAX."""
 
 import contextlib
 
@@ -52,8 +59,10 @@ from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
 torch.set_num_threads(1)
 CFG = GNSConfig(K=4, latent_dim=20, hidden_dim=10, multiple_phi=True, reference_parity=True)
 JCFG = JConfig(K=4, latent_dim=20, hidden_dim=10, multiple_phi=True, reference_parity=True)
-WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10)]
-VS_JAX_WIDTH = {(10, 10): {"last_loss": (4e-2, 1e-5)}, (33, 24): {"last_loss": (4e-2, 1e-5)}}
+WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10), (64, 32), (97, 40), (128, 128)]
+VS_JAX_WIDTH = {(10, 10): {"last_loss": (4e-2, 1e-5)}, (33, 24): {"last_loss": (4e-2, 1e-5)},
+                (97, 40): {"theta": (0.0, 1.6e-3), "total_loss": (2.5e-2, 1e-5),
+                           "last_loss": (3.2e-2, 1e-5), "delta_p": (0.0, 7.6e-2)}}
 VS_JAX = {  # output -> (rtol, atol)
     "v": (0.0, 1e-3), "theta": (0.0, 6e-4), "total_loss": (5e-3, 1e-5),
     "last_loss": (7e-3, 1e-5), "delta_p": (0.0, 3e-2), "delta_q": (0.0, 2e-6),
@@ -179,26 +188,53 @@ def test_k4_cuda_wrapper_raises_on_cpu():
 
 
 def test_k4_width_range():
-    """K4 takes every (latent, hidden) in [1, 64] x [1, 32]: its packing
-    (so its twin too) refuses the rest before anything is built, and its
-    CUDA wrapper refuses CPU tensors before any library is built or
-    loaded. Whether a grid fits a block's shared memory is the library's
-    answer (megakernel.cu's Layout), read on the card: chip_smoke.py holds
-    K4 at (64, 32) on case300 to raise there."""
+    """K4's CUDA path takes every (latent, hidden) in [1, 128] x [1, 128]:
+    the library's build and megakernel_occupancy refuse the rest before
+    anything is built, and its CUDA wrapper refuses CPU tensors before any
+    library is built or loaded. Its packing, so its plain twin, takes any
+    width of at least 1. Whether a grid fits one of the kernel's plans is
+    the library's answer (megakernel.cu's Layout), read on the card:
+    chip_smoke.py runs K4 at (64, 32), (97, 40) and (128, 128) on case300
+    and holds it at (129, 8) to raise there."""
+    from gns_torch.models.gns import GNS
     from gns_torch.ops import megakernel as mk
 
     libs = dict(kern._libs)
-    for width in ((0, 10), (65, 10), (20, 0), (20, 33)):
-        with pytest.raises(ValueError, match=r"latent in \[1, 64\] and hidden in \[1, 32\]"):
-            mk.pack_step_weights([], *width)
-        with pytest.raises(ValueError, match="latent in"):
+    for width in ((129, 8), (8, 129), (0, 10), (136, 8)):
+        with pytest.raises(ValueError, match=r"latent in \[1, 128\] and hidden in \[1, 128\]"):
             kern._library_path("megakernel", width=width)
-    from gns_torch.models.gns import GNS
-
+    for width in ((0, 10), (20, 0)):
+        with pytest.raises(ValueError, match="at least 1"):
+            mk.pack_step_weights([], *width)
     _, model, batch, topo = _setup(14, width=(8, 8))
-    wide = CFG.replace(latent_dim=65, hidden_dim=8)
-    with pytest.raises(ValueError, match="latent in"):
-        megakernel_inputs(GNS(wide, seed=0, device="cpu"), wide, batch, topo)
+    for width in ((129, 8), (8, 129)):
+        wide = CFG.replace(latent_dim=width[0], hidden_dim=width[1])
+        inp = megakernel_inputs(GNS(wide, seed=0, device="cpu"), wide, batch, topo)
+        with pytest.raises(ValueError, match="latent in"):
+            mk.megakernel_occupancy(inp)
+        with pytest.raises(ValueError, match="CUDA"):
+            megakernel_cuda(inp)
     with pytest.raises(ValueError, match="CUDA"):
         megakernel_cuda(megakernel_inputs(model, _cfgs((8, 8))[0], batch, topo))
     assert kern._libs == libs
+
+
+@pytest.mark.parametrize("width", [(136, 8), (72, 40)], ids=lambda w: f"L{w[0]}_H{w[1]}")
+def test_k4_cpu_twin_takes_any_width(width):
+    """megakernel_forward_batch on a CPU model runs the plain twin at
+    widths the kernel does not take (a latent past 128) or was never held
+    at (72, 40), against gns_tpu's interpret-mode megakernel on case14, at
+    test_k4_plain_matches_pallas_interpret's tolerances (the twin with
+    gns_tpu's sums within VS_JAX; as it is, within VS_JAX)."""
+    cfg, jcfg = _cfgs(width)
+    params, model, batch, topo = _setup(14, width=width)
+    ref = j_megakernel(params, jcfg, batch, topo, interpret=True)
+    out = megakernel_forward_batch(model, cfg, batch, topo)
+    with _gns_tpu_sums():
+        same_sums = megakernel_forward_plain(model, cfg, batch, topo)
+    for name, (rtol, atol) in VS_JAX.items():
+        got, want = getattr(out, name).numpy(), np.asarray(getattr(ref, name))
+        assert np.isfinite(got).all() and got.shape == want.shape
+        np.testing.assert_allclose(getattr(same_sums, name).numpy(), want, rtol=rtol, atol=atol,
+                                   err_msg=f"{name}, the twin with gns_tpu's sums")
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)

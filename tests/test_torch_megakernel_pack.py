@@ -10,8 +10,8 @@ module_from_jax_params.
 Tolerance of the tile products: the emulation multiplies the same bf16
 operands as the twin's dense-layout `mlp`, per head and zero-padded, in
 float32; only the order of the adds differs, so each output agrees within
-1e-6 of the sum of its terms' magnitudes (float32 rounding over <= 48
-adds)."""
+1e-6 of the sum of its terms' magnitudes (float32 rounding; the longest
+sums, L's first layer at (128, 128), add 260 terms)."""
 
 import numpy as np
 import pytest
@@ -42,8 +42,15 @@ DIMS = {
     # L = 33: m and each aggregate block padded to 34 columns; H = 24: two
     # k-tiles and four n-tiles of hidden units per head
     (33, 24): ((0, 36, 60, 90, 150, 174, 188), (0, 96, 192, 312, 408, 504, 560)),
+    # the widths past one block's shared memory on the card (the kernel
+    # reads their tiles from L2, one head at a time, in the same layout):
+    # H = 40, three k-tiles; H = 128, eight; L = 128, phi's first layer
+    # over 9 k-tiles and L's over 17
+    (64, 32): ((0, 60, 84, 132, 240, 264, 284), (0, 96, 192, 384, 480, 576, 656)),
+    (97, 40): ((0, 126, 180, 297, 531, 585, 630), (0, 144, 288, 600, 744, 888, 1008)),
+    (128, 128): ((0, 432, 816, 1200, 2016, 2400, 2544), (0, 384, 768, 1152, 1536, 1920, 2064)),
 }
-WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10)]
+WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10), (64, 32), (97, 40), (128, 128)]
 RTOL = 1e-6
 
 

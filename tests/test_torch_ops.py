@@ -251,7 +251,7 @@ def test_kernel_source_and_build_dir():
     symbols = {
         "segment": ("gns_segment_sum", "gns_gather"),
         "fused_edge": ("gns_fused_edge",),
-        "megakernel": ("gns_megakernel", "gns_megakernel_shared_bytes"),
+        "megakernel": ("gns_megakernel", "gns_megakernel_plan"),
     }
     assert set(kern.SOURCES) == set(symbols)
     assert kern.BUILD_DIR.endswith(os.path.join("build", "torch_kernels"))
