@@ -48,18 +48,40 @@
 //     57,408 bytes of shared memory, so the instance asks for 2 blocks per
 //     SM, which leaves it up to 255 registers.
 //   * One library per width: ops/segment_kernels.py builds this file for
-//     each (L, H) in [1, 128] x [1, 128] a caller needs, with GNS_LATENT,
-//     GNS_HIDDEN, GNS_MIN_BLOCKS (the blocks per SM __launch_bounds__
-//     asks for, segment_kernels.min_blocks: 3 while 2 (L + 5) + 4 H <= 90
-//     and L <= 25, else 2; 4 for the wide design) and GNS_ROWS (the
-//     design, segment_kernels.k3_rows) defined on the command line.
+//     each (L, H) a caller needs (any L, H >= 1, segment_kernels.
+//     check_width), with GNS_LATENT, GNS_HIDDEN, GNS_MIN_BLOCKS (the blocks
+//     per SM __launch_bounds__ asks for, segment_kernels.min_blocks: 3
+//     while 2 (L + 5) + 4 H <= 90 and L <= 25, else 2; 4 for the wide
+//     design, 3 for the workspace one), GNS_ROWS (64 for this design, 16
+//     for the other two, segment_kernels.k3_rows) and, for the workspace
+//     design, GNS_WORKSPACE=1, defined on the command line.
 //   * Two edges' 2 (L + 5) inputs and 4 H activations stay in a lane's
 //     registers up to (33, 24)'s 172 floats (198 registers, no spill); at
 //     (64, 32) they would be 266. Past 172 the library is the wide design
 //     (GNS_ROWS 16, fused_edge_kernel_wide below): 16-row tiles whose
-//     inputs and activations sit in the warp's shared memory, each row's
-//     outputs split over lanes, the weights read from L2 through L1, the
-//     sums taken a lane per output column; the same bits as this design.
+//     inputs and activations sit in the warp's scratch, each row's outputs
+//     split over lanes, the weights read from L2 through L1, the sums taken
+//     a lane per output column; the same bits as this design. Its lanes'
+//     registers do not grow with the width: a layer runs in passes of 64
+//     output columns, each a loop over its inputs, and every other loop
+//     over L or H is rolled past a fixed count. Its scratch does: a warp's
+//     16 x (L + 5 + max(H, L) + H) floats, 106,304 bytes for a block's four
+//     warps at (128, 128), 210,752 at (256, 256), 304,960 at (512, 64).
+//     So the scratch sits in shared memory (the wide design) while four
+//     warps' fit a block, and past that (the workspace design,
+//     GNS_WORKSPACE) in a global workspace the wrapper allocates, a warp's
+//     slice for every warp of the persistent grid, the block taking no
+//     shared memory: that holds any width. Of the other ways past a block,
+//     fewer rows a tile would cut the 8 rows that each weight word a lane
+//     reads feeds (8 x 4 FMAs a word), and fewer warps a block (down to
+//     one, 105 KB at (512, 512)) would hold 1-2 warps an SM and still stop
+//     near (1,200, 1,200); the workspace keeps 4 warps a block, and
+//     registers, not memory, set its blocks per SM (3: at 4, 128 registers,
+//     ptxas spilled at some widths).
+//     Its scratch is written and read back by the same warp, so it stays
+//     in L1 / L2 while the warps' slices fit there (104,912 bytes a warp,
+//     166 MB for the grid's 1,584 warps at (512, 512): past L2, slow, not
+//     wrong).
 //   * Shared memory is dynamic (SharedLayout): at L = 40 it is over the 48
 //     KB a block may hold statically.
 //   * Per head, each lane writes its two rows of masked outputs into the
@@ -98,18 +120,23 @@
 
 #if !defined(GNS_LATENT) || !defined(GNS_HIDDEN) || !defined(GNS_MIN_BLOCKS) || !defined(GNS_ROWS)
 #error "built per width: nvcc -DGNS_LATENT=L -DGNS_HIDDEN=H -DGNS_MIN_BLOCKS=B -DGNS_ROWS=R \
-(ops/segment_kernels.py)"
+[-DGNS_WORKSPACE=1] (ops/segment_kernels.py)"
+#endif
+#ifndef GNS_WORKSPACE
+#define GNS_WORKSPACE 0
 #endif
 
 namespace {
 
 constexpr int kLatent = GNS_LATENT, kHidden = GNS_HIDDEN;
-static_assert(kLatent >= 1 && kLatent <= 128 && kHidden >= 1 && kHidden <= 128,
-              "K3 takes L in [1, 128], H in [1, 128]");
+static_assert(kLatent >= 1 && kHidden >= 1, "K3 takes L >= 1, H >= 1");
 static_assert(GNS_ROWS == 64 || GNS_ROWS == 16, "rows per warp tile: 64 (registers) or 16 (wide)");
-// The design this library's width takes (segment_kernels.k3_rows): two
-// edges a lane in registers (64-row tiles), or the wide one (16-row tiles).
+// The design this library's width takes (segment_kernels.k3_design): two
+// edges a lane in registers (64-row tiles), or the wide one (16-row tiles)
+// with its warps' scratch in shared memory or, kGlobal, in the workspace.
 constexpr bool kWide = GNS_ROWS == 16;
+constexpr bool kGlobal = GNS_WORKSPACE != 0;
+static_assert(kWide || !kGlobal, "the workspace holds the wide design's scratch");
 
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
@@ -473,14 +500,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel_wide(
     const int* __restrict__ indptr, const int4* __restrict__ items,
     const int* __restrict__ row_bus, const float* __restrict__ weights,
     float* __restrict__ out0, float* __restrict__ out1, float* __restrict__ out2,
-    long long S, int N, int E, int T, float slope, long long* __restrict__ clocks) {
+    long long S, int N, int E, int T, float slope, long long* __restrict__ clocks,
+    float* __restrict__ workspace) {
   using P = Pack<L, H>;
   using WL = WideLayout<L, H>;
   constexpr int W = row_word<L>();  // floats per word of an m row
   constexpr int NA = (L + 31) / 32;  // output columns a lane sums
   extern __shared__ float4 smem[];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  float* const ws = reinterpret_cast<float*>(smem) + wid * WL::kWarp;
+  // the warp's scratch: in shared memory, or its slice of the workspace
+  float* const ws = kGlobal ? workspace + ((long long)blockIdx.x * kWarps + wid) * WL::kWarp
+                            : reinterpret_cast<float*>(smem) + wid * WL::kWarp;
   float* in = ws + WL::kIn;
   float* xa = ws + WL::kA;
   float* xb = ws + WL::kB;
@@ -507,8 +537,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel_wide(
         if (j < t1) {
           const int e = __ldg(order + j), bus = __ldg(row_bus + j) >> 1;
           const float* mr = m + (s * N + bus) * L;
+          // staging loops unrolled whole up to L = 128, by 8 past it (where
+          // a 32-deep unroll spilled at 128 registers)
           if (m_vec && W == 4) {
-#pragma unroll
+#pragma unroll (L <= 128 ? 32 : 8)
             for (int q = 0; q < L / 4; ++q) {
               const float4 t = __ldg(reinterpret_cast<const float4*>(mr) + q);
               in[(4 * q) * kWideRows + lane] = t.x;
@@ -517,7 +549,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel_wide(
               in[(4 * q + 3) * kWideRows + lane] = t.w;
             }
           } else if (m_vec && W == 2) {
-#pragma unroll
+#pragma unroll (L <= 128 ? 64 : 8)
             for (int q = 0; q < L / 2; ++q) {
               const float2 t = __ldg(reinterpret_cast<const float2*>(mr) + q);
               in[(2 * q) * kWideRows + lane] = t.x;
@@ -562,7 +594,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_edge_kernel_wide(
         // item's last tile
         for (int i = 0; i < b1 - b0; ++i) {
           const int k0 = bp[i], k1 = bp[i + 1];
-#pragma unroll
+#pragma unroll 4
           for (int q = 0; q < NA; ++q) {
             const int col = lane + 32 * q;
             if (col < L) {
@@ -598,8 +630,17 @@ constexpr auto kernel_of() {
 
 template <int L, int H>
 constexpr int block_bytes() {
-  if constexpr (kWide) return WideLayout<L, H>::kBytes;
+  if constexpr (kGlobal) return 0;
+  else if constexpr (kWide) return WideLayout<L, H>::kBytes;
   else return SharedLayout<L, H>::kBytes;
+}
+
+// Workspace floats a warp of the grid takes: the workspace design's scratch,
+// else none.
+template <int L, int H>
+constexpr long long warp_workspace() {
+  if constexpr (kGlobal) return WideLayout<L, H>::kWarp;
+  else return 0;
 }
 
 // Blocks of the design's kernel (kernel_of<L, H, false>) the card keeps resident per SM,
@@ -637,11 +678,12 @@ template <int L, int H>
 int launch(const float* m, const float* feats, const float* mask, const int* order,
            const int* indptr, const int4* items, const int* row_bus, const float* weights,
            float* out0, float* out1, float* out2, long long S, int N, int E, int T, float slope,
-           long long* clocks, cudaStream_t stream) {
+           long long* clocks, float* workspace, cudaStream_t stream) {
   int per_sm = 0, sms = 0;
   cudaError_t err = residency<L, H>(&per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (kGlobal != (workspace != nullptr)) return (int)cudaErrorInvalidValue;
   const long long want = (S * T + kWarps - 1) / kWarps;
   const long long most = (long long)per_sm * sms;
   const unsigned int grid = (unsigned int)(want < most ? want : most);
@@ -650,9 +692,9 @@ int launch(const float* m, const float* feats, const float* mask, const int* ord
   m, feats, mask, order, indptr, items, row_bus, weights, out0, out1, out2, S, N, E, T, slope, clocks
   if constexpr (kWide) {
     if (clocks == nullptr)
-      fused_edge_kernel_wide<L, H, false><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS);
+      fused_edge_kernel_wide<L, H, false><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS, workspace);
     else
-      fused_edge_kernel_wide<L, H, true><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS);
+      fused_edge_kernel_wide<L, H, true><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS, workspace);
   } else {
     if (clocks == nullptr)
       fused_edge_kernel<L, H, false><<<grid, kThreads, bytes, stream>>>(GNS_K3_ARGS);
@@ -664,7 +706,7 @@ int launch(const float* m, const float* feats, const float* mask, const int* ord
 }
 
 template <int L, int H>
-int occupancy(int* out) {
+int occupancy(long long* out) {
   int per_sm = 0, sms = 0;
   const cudaError_t err = residency<L, H>(&per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
@@ -672,6 +714,7 @@ int occupancy(int* out) {
   out[1] = per_sm;
   out[2] = kThreads;
   out[3] = sms;
+  out[4] = warp_workspace<L, H>() * 4;
   return 0;
 }
 
@@ -686,11 +729,12 @@ int gns_fused_edge_weight_floats(int L, int H) {
   return 3 * Pack<kLatent, kHidden>::kSize;
 }
 
-// out: shared bytes per block, blocks resident per SM, threads per block,
-// SMs. At most out[1] * out[3] blocks run (a persistent grid), so a
-// `clocks` buffer of out[1] * out[3] * out[2] / 32 warps always suffices.
-// Returns a cudaError_t.
-int gns_fused_edge_occupancy(int L, int H, int* out) {
+// out (5 int64): shared bytes per block, blocks resident per SM, threads
+// per block, SMs, workspace bytes per warp (the workspace design's
+// scratch, else 0). At most out[1] * out[3] blocks run (a persistent
+// grid), so a `clocks` buffer, or a workspace, of out[1] * out[3] * out[2]
+// / 32 warps always suffices. Returns a cudaError_t.
+int gns_fused_edge_occupancy(int L, int H, long long* out) {
   if (L != kLatent || H != kHidden) return (int)cudaErrorInvalidValue;
   return occupancy<kLatent, kHidden>(out);
 }
@@ -701,18 +745,20 @@ int gns_fused_edge_occupancy(int L, int H, int* out) {
 // (ops/segment.py schedule_items); weights the
 // three heads packed as Pack, on the card; out0..2 (S, N, L), 16-byte
 // aligned; clocks null, or (warps of the grid, kPhases) int64 to receive
-// each warp's cycles per phase. (L, H) must be the library's width.
+// each warp's cycles per phase; workspace null, or for the workspace
+// design gns_fused_edge_occupancy's bytes per warp for every warp the grid
+// can hold. (L, H) must be the library's width.
 int gns_fused_edge(const float* m, const float* feats, const float* mask, const int* order,
                    const int* indptr, const int* items, const int* row_bus,
                    const float* weights, float* out0, float* out1, float* out2, long long S,
                    int N, int E, int T, int L, int H, float slope, long long* clocks,
-                   void* stream) {
+                   float* workspace, void* stream) {
   if (L != kLatent || H != kHidden) return (int)cudaErrorInvalidValue;
   if (S == 0 || N == 0) return 0;
   if (T < 1) return (int)cudaErrorInvalidValue;
   return launch<kLatent, kHidden>(m, feats, mask, order, indptr,
                                   reinterpret_cast<const int4*>(items), row_bus, weights, out0,
-                                  out1, out2, S, N, E, T, slope, clocks,
+                                  out1, out2, S, N, E, T, slope, clocks, workspace,
                                   static_cast<cudaStream_t>(stream));
 }
 

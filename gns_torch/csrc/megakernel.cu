@@ -95,6 +95,23 @@
 //     cluster-wide reductions for the loss and the lambda dispatch. The
 //     workspace keeps one block a grid, one code path for the physics and
 //     the twin's order of adds;
+//   * past (128, 128) on either axis (Dims::kPass) the wide instance is the
+//     pass instance, whose registers and code do not grow with the width:
+//     a layer's n-tiles run in passes of kPassTiles (8: 32 accumulators a
+//     lane), each pass reading its input k-tile by k-tile, a first layer's
+//     built as above, a hidden layer's from the bf16 tile the layer before
+//     wrote to the warp's scratch (16 x (HP + 8), two of them: act's
+//     rounding, stored rather than carried in registers); the aggregate's
+//     scan takes the lane's columns one at a time, its running sums in the
+//     scratch; every loop over L or H is rolled past a fixed count. Each
+//     sum adds its k-tiles and its rows in the register instances' order,
+//     so the same bits. Its scratch grows with the width (a warp's 16 x (LE
+//     + HS) + 8.5 LE floats, 344,576 bytes a block at (256, 256)), so it
+//     has plan 3 beside 1 and 2: as 2, with the warps' scratch and the
+//     step's biases in the per-grid workspace too, which leaves in shared
+//     memory only the grid's inputs and physics rows (about 30 KB at
+//     case300 at any width). A case300 grid takes plan 2 at (129, 8) and
+//     plan 3 at (200, 136) and past;
 //   * the aggregate's 3L columns are spread over a warp's lanes, lane c
 //     summing columns c, c + 32, ... (Dims::NA of them: 2 at L = 20, 4 at
 //     L = 40);
@@ -103,10 +120,10 @@
 //     input's m and each aggregate block carry one zero column (Dims::LE),
 //     which the tile plan gives zero weights;
 //   * one library per width: ops/segment_kernels.py builds this file for
-//     each (L, H) in [1, 128] x [1, 128] a caller needs, with GNS_LATENT,
-//     GNS_HIDDEN and GNS_MIN_BLOCKS (grids per SM plan 0's __launch_bounds__
-//     asks for: 2 up to L = 20 with H <= 16, else 1; the wide plans ask
-//     for 1) on the command line;
+//     each (L, H) a caller needs (any L, H >= 1, segment_kernels.
+//     check_width), with GNS_LATENT, GNS_HIDDEN and GNS_MIN_BLOCKS (grids
+//     per SM plan 0's __launch_bounds__ asks for: 2 up to L = 20 with H <=
+//     16, else 1; the wide plans ask for 1) on the command line;
 //   * physics, CSR sums and scalar block reductions in float32, in the
 //     twin's order, deterministic; each line's results are written at its
 //     rows of the dst and src CSRs, so a bus sums a contiguous run.
@@ -130,14 +147,14 @@
 namespace {
 
 constexpr int kLatent = GNS_LATENT, kHidden = GNS_HIDDEN;
-static_assert(kLatent >= 1 && kLatent <= 128 && kHidden >= 1 && kHidden <= 128,
-              "K4 takes L in [1, 128], H in [1, 128]");
+static_assert(kLatent >= 1 && kHidden >= 1, "K4 takes L >= 1, H >= 1");
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxShared = 232448;  // 227 KB, the most a block may use
 constexpr int kRed = 4 * 32 + 4;    // block-reduction scratch (floats)
 constexpr int kRows = 16;           // rows of an mma tile
+constexpr int kPassTiles = 8;       // n-tiles of a layer's pass in the pass instance
 // Stages whose SM clock cycles a launch with a clocks buffer records per
 // grid: inputs and state init, the step's weights, the edge and node stages,
 // the physics refresh and loss (the last three summed over K steps).
@@ -185,6 +202,18 @@ struct Dims {
   // whether plan 0 (tiles and three heads' scratch in shared memory) is
   // built: for H <= 32, where its tiles and scratch can fit a block at all
   static constexpr bool kPlan0 = H <= 32 && kTiles * 256LL + kWarps * kWarp * 4LL <= kMaxShared;
+  // whether the wide instance is the pass instance: past (128, 128) on
+  // either axis, a layer's n-tiles run in passes of kPassTiles and a hidden
+  // layer's bf16 output goes through the warp's scratch (16 x HS, HS = HP +
+  // 8 columns, a row padded off the banks of the next), which adds the
+  // running column sums (LE) and two such tiles to kWarpWide's
+  static constexpr bool kPass = L > 128 || H > 128;
+  static constexpr int HS = HP + 8;
+  static constexpr int kWarpPass = kRows * LE + kRows + (kRows + 1) * LE / 2 + LE + kRows * HS;
+  static constexpr int kWarpW = kPass ? kWarpPass : kWarpWide;  // the wide instance's scratch
+  // the last plan: 3, the warps' scratch and the biases in the workspace
+  // too, in the pass instance only
+  static constexpr int kLastPlan = kPass ? 3 : 2;
   static_assert(kBias % 4 == 0, "biases are copied as float4");
   static_assert(bPB2 % 2 == 0 && bPB4 % 2 == 0 && bLB1 % 2 == 0 && bLB2 % 2 == 0 && HP % 2 == 0,
                 "bias pairs are read as float2");
@@ -193,22 +222,33 @@ struct Dims {
 // Byte offsets of one grid's shared memory under a plan: 0, the step's
 // tiles, the three heads' warp scratch and the state rows in shared memory;
 // 1, tiles read from L2, one head's scratch; 2, as 1 with the state rows in
-// the global workspace (none in shared memory).
+// the global workspace (none in shared memory); 3 (the pass instance), as
+// 2 with the warps' scratch and the step's biases in global memory too.
 template <int L, int H>
 struct Layout {
   long long b, u, m, f, lf, total;
   __host__ __device__ Layout(int N, int E, int G, int plan) {
     using D = Dims<L, H>;
     b = plan == 0 ? (long long)D::kTiles * 256 : 0;  // plan 0: the step's tiles come first
-    u = b + upll(D::kBias * 4LL, 16);
-    const long long warps = (long long)kWarps * (plan == 0 ? D::kWarp : D::kWarpWide) * 4;
+    u = b + (plan == 3 ? 0 : upll(D::kBias * 4LL, 16));
+    const long long warps = plan == 3 ? 0 : (long long)kWarps * (plan == 0 ? D::kWarp : D::kWarpW) * 4;
     const long long phys = 5LL * E * 4;
     m = u + upll(warps > phys ? warps : phys, 16);
-    f = m + (plan == 2 ? 0 : upll((long long)N * D::NBW * 4, 16));
+    f = m + (plan >= 2 ? 0 : upll((long long)N * D::NBW * 4, 16));
     lf = f + upll((6LL * N + 5LL * E + 5LL * G + kRed) * 4, 16);
     total = lf + upll(6LL * E * 2, 16);
   }
 };
+
+// Floats of one grid's workspace under a plan: plan 2 its state rows (N x
+// NBW), plan 3 those (padded to 16 bytes), then its warps' scratch; else 0.
+template <int L, int H>
+__host__ __device__ long long workspace_floats(int N, int plan) {
+  using D = Dims<L, H>;
+  if (plan == 2) return (long long)N * D::NBW;
+  if (plan == 3) return upll((long long)N * D::NBW, 4) + upll((long long)kWarps * D::kWarpPass, 4);
+  return 0;
+}
 
 // LeakyReLU for a slope in [0, 1] (the wrapper checks): max(x, slope x)
 // picks x where x >= 0 and slope x below 0, as x >= 0 ? x : slope x does.
@@ -236,6 +276,63 @@ __device__ __forceinline__ void act(uint32_t (&a)[4], int half, const float (&c)
   const float2 bb = *reinterpret_cast<const float2*>(b + col);  // col is even, b 8-byte aligned
   a[2 * half] = pack2(lrelu(c[0] + bb.x, slope), lrelu(c[1] + bb.y, slope));
   a[2 * half + 1] = pack2(lrelu(c[2] + bb.x, slope), lrelu(c[3] + bb.y, slope));
+}
+
+// ---- the pass instance's layers (Dims::kPass) ----
+// A (16 x 16) A fragment of k-tile kt from a warp's bf16 scratch tile h (16
+// rows, row stride hs): rows g and g + 8, columns 16 kt + 2 tq (+ 8), as a
+// hidden layer's outputs are chained into the next layer in registers.
+__device__ __forceinline__ void frag(uint32_t (&x)[4], const __nv_bfloat16* h, int hs, int kt, int g,
+                                     int tq) {
+  const int c = kt * 16 + 2 * tq;
+  x[0] = *reinterpret_cast<const uint32_t*>(h + g * hs + c);
+  x[1] = *reinterpret_cast<const uint32_t*>(h + (g + 8) * hs + c);
+  x[2] = *reinterpret_cast<const uint32_t*>(h + g * hs + c + 8);
+  x[3] = *reinterpret_cast<const uint32_t*>(h + (g + 8) * hs + c + 8);
+}
+
+// One pass of a layer: for n-tiles nt0 + j < n_out (j < kPassTiles),
+// c[j] = the sum over k-tiles kt < k_in, in order, of A(kt) . tile(first +
+// (nt0 + j) k_in + kt), A(kt) read by in(kt, x): each sum adds its k-tiles
+// in the order the register instances do.
+template <class In, class Tile>
+__device__ __forceinline__ void pass_mma(float (&c)[kPassTiles][4], In in, Tile tile, int first,
+                                         int k_in, int nt0, int n_out) {
+#pragma unroll
+  for (int j = 0; j < kPassTiles; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[j][q] = 0.0f;
+#pragma unroll 2
+  for (int kt = 0; kt < k_in; ++kt) {
+    uint32_t x[4];
+    in(kt, x);
+#pragma unroll
+    for (int j = 0; j < kPassTiles; ++j)
+      if (nt0 + j < n_out) mma(c[j], x, tile(first + (nt0 + j) * k_in + kt));
+  }
+}
+
+// A hidden layer of n_out n-tiles in passes: each output through bias b,
+// LeakyReLU and bf16 (act) into the warp's scratch tile out (16 x hs).
+template <class In, class Tile>
+__device__ __forceinline__ void hidden_pass(In in, Tile tile, int first, int k_in, int n_out,
+                                            const float* b, float slope, __nv_bfloat16* out, int hs,
+                                            int g, int tq) {
+#pragma unroll 1
+  for (int nt0 = 0; nt0 < n_out; nt0 += kPassTiles) {
+    float c[kPassTiles][4];
+    pass_mma(c, in, tile, first, k_in, nt0, n_out);
+#pragma unroll
+    for (int j = 0; j < kPassTiles; ++j) {
+      if (nt0 + j < n_out) {
+        const int col = (nt0 + j) * 8 + 2 * tq;
+        uint32_t a[4];
+        act(a, 0, c[j], b, col, slope);
+        *reinterpret_cast<uint32_t*>(out + g * hs + col) = a[0];
+        *reinterpret_cast<uint32_t*>(out + (g + 8) * hs + col) = a[1];
+      }
+    }
+  }
 }
 
 // Sum NV per-thread values over the block; every thread gets the totals.
@@ -290,17 +387,22 @@ __global__ void __launch_bounds__(kThreads, Wide ? 1 : kMinGrids) megakernel(
     const __nv_bfloat16* __restrict__ wpack, const float* __restrict__ bpack,
     const float* __restrict__ disc, float* __restrict__ v_out, float* __restrict__ th_out,
     float* __restrict__ dp_out, float* __restrict__ dq_out, float* __restrict__ loss_out,
-    long long* __restrict__ clocks, float* ws, int N, int E, int G, int K, float slope) {
+    long long* __restrict__ clocks, float* ws, int N, int E, int G, int K, float slope, int plan) {
   using D = Dims<L, H>;
   extern __shared__ uint4 smem16[];
-  const Layout<L, H> lay(N, E, G, Wide ? (ws != nullptr ? 2 : 1) : 0);
+  const Layout<L, H> lay(N, E, G, plan);
   char* base = reinterpret_cast<char*>(smem16);
   const uint2* WT = reinterpret_cast<const uint2*>(base);  // tile t, lane l: WT[t * 32 + l]
   float* BIAS = reinterpret_cast<float*>(base + lay.b);
   float* U = reinterpret_cast<float*>(base + lay.u);       // staging, then physics rows
   float* NB = reinterpret_cast<float*>(base + lay.m);  // (N, 4 + L): v, theta, dp, dq, m
-  if constexpr (Wide)
-    if (ws != nullptr) NB = ws + blockIdx.x * (long long)N * D::NBW;  // plan 2: in the workspace
+  float* scratch = U;  // the wide instance's warps' scratch
+  if constexpr (Wide) {
+    if (plan >= 2) {  // plans 2 and 3: the state rows in the workspace
+      NB = ws + blockIdx.x * workspace_floats<L, H>(N, plan);
+      if (plan == 3) scratch = NB + upll((long long)N * D::NBW, 4);  // and the warps' scratch
+    }
+  }
   const auto V = [NB](int n) -> float& { return NB[n * D::NBW]; };
   const auto TH = [NB](int n) -> float& { return NB[n * D::NBW + 1]; };
   const auto DP = [NB](int n) -> float& { return NB[n * D::NBW + 2]; };
@@ -391,8 +493,12 @@ __global__ void __launch_bounds__(kThreads, Wide ? 1 : kMinGrids) megakernel(
     TH(n) = 0.0f;
     DP(n) = (a1 - PD[n]) - GS[n] * v2;
     DQ(n) = (a2 - QD[n]) + BSH[n] * v2;
+    if constexpr (D::kPass) {
+      for (int l = 0; l < D::LE; ++l) M(n, l) = 0.0f;  // a zero column past an odd L
+    } else {
 #pragma unroll
-    for (int l = 0; l < D::LE; ++l) M(n, l) = 0.0f;  // a zero column past an odd L
+      for (int l = 0; l < D::LE; ++l) M(n, l) = 0.0f;
+    }
   }
   float sums[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // n_real, s_set, s_min, s_max
   for (int n = threadIdx.x; n < N; n += kThreads) sums[0] += BM[n];
@@ -414,8 +520,9 @@ __global__ void __launch_bounds__(kThreads, Wide ? 1 : kMinGrids) megakernel(
         for (int i = threadIdx.x; i < D::kTiles * 16; i += kThreads) smem16[i] = wsrc[i];
       }
       const float4* bsrc = reinterpret_cast<const float4*>(bpack + (long long)k * D::kBias);
-      for (int i = threadIdx.x; i < D::kBias / 4; i += kThreads)
-        reinterpret_cast<float4*>(BIAS)[i] = bsrc[i];
+      if (!D::kPass || plan != 3)  // plan 3 reads the biases from global memory
+        for (int i = threadIdx.x; i < D::kBias / 4; i += kThreads)
+          reinterpret_cast<float4*>(BIAS)[i] = bsrc[i];
     }
     __syncthreads();
     mark(1);
@@ -424,7 +531,180 @@ __global__ void __launch_bounds__(kThreads, Wide ? 1 : kMinGrids) megakernel(
     // Bus n's messages read m[n] only (phi's input is m[dst]), so a warp runs
     // the phi heads over its buses' edges, sums them, then runs the L heads
     // on the same buses and updates their state, with no block barrier.
-    if constexpr (Wide) {
+    if constexpr (Wide && D::kPass) {
+      // ---- the pass instance (past (128, 128)): the wide plans' order of
+      // work, each layer's n-tiles in passes of kPassTiles, a hidden layer's
+      // output through the warp's scratch; tiles from global memory (L2),
+      // the biases from global memory too under plan 3 ----
+      const uint2* WG = reinterpret_cast<const uint2*>(wpack + (long long)k * D::kTiles * 128);
+      const auto tile = [WG, lane](int t) { return __ldg(WG + t * 32 + lane); };
+      const float* bias = plan == 3 ? bpack + (long long)k * D::kBias : BIAS;
+      float* stage = scratch + warp * D::kWarpPass;  // (16, LE) f32: a tile's masked outputs of one phi head
+      int* sofs = reinterpret_cast<int*>(stage + kRows * D::LE);  // (16,): slot of the bus ending at row r, or -1
+      // (16 + 1, LE): the buses' bf16(agg) of one head, then a spare row
+      __nv_bfloat16* aggw = reinterpret_cast<__nv_bfloat16*>(sofs + kRows);
+      float* carry = reinterpret_cast<float*>(aggw + (kRows + 1) * D::LE);  // (LE,): the bus in progress
+      __nv_bfloat16* hA = reinterpret_cast<__nv_bfloat16*>(carry + D::LE);  // (16, HS): layer 1's output
+      __nv_bfloat16* hB = hA + kRows * D::HS;                               // (16, HS): layer 2's output
+      const auto from_a = [hA, g, tq](int kt, uint32_t (&x)[4]) { frag(x, hA, D::HS, kt, g, tq); };
+      const auto from_b = [hB, g, tq](int kt, uint32_t (&x)[4]) { frag(x, hB, D::HS, kt, g, tq); };
+      for (int it = warp; it < tp.n_items; it += kWarps) {
+        const int4 item = tp.items[it];
+        const int b0 = item.x, b1 = item.y, r0 = item.z, r1 = item.w;
+        const int sa = b0 + g, sb = sa + 8;  // the L tile's buses: rows g, g + 8
+        const bool ua = sa < b1, ub = sb < b1;
+        float o0[2], o1[2];  // column 0 of L_theta's and L_v's outputs
+#pragma unroll 1
+        for (int p = 0; p < 3; ++p) {  // phi_v, phi_theta, phi_m
+          __syncwarp();  // the last reads of aggw (an L head's inputs) are done
+          for (int i = lane; i < kRows * D::LE / 2; i += 32) reinterpret_cast<uint32_t*>(aggw)[i] = 0u;
+          for (int c = lane; c < D::LE; c += 32) carry[c] = 0.0f;
+          for (int row0 = r0; row0 < r1; row0 += kRows) {
+            const int rows = min(kRows, r1 - row0);
+            const int my_e = lane < rows ? tp.dst_order[row0 + lane] : 0;
+            const int my_be = lane < rows ? tp.row_bus[row0 + lane] : 0;
+            if (lane < kRows) sofs[lane] = lane < rows && (my_be & 1) ? (my_be >> 1) - b0 : -1;
+            const bool va = g < rows, vb = g + 8 < rows;
+            const int ea = __shfl_sync(0xffffffffu, my_e, g), eb = __shfl_sync(0xffffffffu, my_e, g + 8);
+            const int na = __shfl_sync(0xffffffffu, my_be, g) >> 1;
+            const int nb = __shfl_sync(0xffffffffu, my_be, g + 8) >> 1;
+            const float lma = va ? LM[ea] : 0.0f, lmb = vb ? LM[eb] : 0.0f;
+            // layer 1's input k-tile kt, as plan 0 builds it: bf16(m[dst]),
+            // bf16(line features), zero-padded
+            const auto phi_in = [&](int kt, uint32_t (&x)[4]) {
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const bool hi = r & 1;
+                const int n = hi ? nb : na, e = hi ? eb : ea;
+                const int c = kt * 16 + (r >> 1) * 8 + 2 * tq;
+                uint32_t w = 0u;
+                if (c < D::LE) {
+                  const float2 q = *reinterpret_cast<const float2*>(&M(n, c));
+                  w = pack2(q.x, q.y);
+                } else if (c < D::LE + 6) {
+                  w = *reinterpret_cast<const uint32_t*>(LF + e * 6 + c - D::LE);
+                }
+                x[r] = (hi ? vb : va) ? w : 0u;
+              }
+            };
+            hidden_pass(phi_in, tile, D::tPW1 + p * D::NH * D::KP, D::KP, D::NH,
+                        bias + D::bPB1 + p * D::HP, slope, hA, D::HS, g, tq);
+            __syncwarp();
+            hidden_pass(from_a, tile, D::tPW2 + p * D::NH * D::KH, D::KH, D::NH,
+                        bias + D::bPB2 + p * D::HP, slope, hB, D::HS, g, tq);
+            __syncwarp();
+            const float* b4 = bias + D::bPB4 + p * D::LP;
+#pragma unroll 1
+            for (int nt0 = 0; nt0 < D::NL; nt0 += kPassTiles) {
+              float c[kPassTiles][4];
+              pass_mma(c, from_b, tile, D::tPW4 + p * D::NL * D::KH, D::KH, nt0, D::NL);
+#pragma unroll
+              for (int j = 0; j < kPassTiles; ++j) {
+#pragma unroll
+                for (int jj = 0; jj < 2; ++jj) {
+                  const int col = (nt0 + j) * 8 + 2 * tq + jj;
+                  if (nt0 + j < D::NL && col < D::LE) {
+                    stage[g * D::LE + col] = (c[j][jj] + b4[col]) * lma;
+                    stage[(g + 8) * D::LE + col] = (c[j][2 + jj] + b4[col]) * lmb;
+                  }
+                }
+              }
+            }
+            __syncwarp();
+            // the aggregate of this head, as plan 0's scan over its block,
+            // a column of the lane's at a time, the bus in progress carried
+#pragma unroll 1
+            for (int c = lane; c < D::LE; c += 32) {
+              float acc = carry[c];
+#pragma unroll
+              for (int r = 0; r < kRows; ++r) {
+                const int slot = sofs[r];
+                const int at = (slot >= 0 ? slot : kRows) * D::LE;
+                acc += stage[r * D::LE + c];
+                aggw[at + c] = __float2bfloat16_rn(acc);
+                acc = slot >= 0 ? 0.0f : acc;
+              }
+              carry[c] = acc;
+            }
+            __syncwarp();
+          }
+          __syncwarp();  // the aggregates (zero for a bus with no line) are in
+
+          // the L head that reads this phi head's aggregate block
+          const int h = p == 0 ? 1 : (p == 1 ? 0 : 2);  // L_v <- phi_v, L_theta <- phi_theta, L_m <- phi_m
+          // layer 1's input k-tile kt: the state row, then the head's aggregate block
+          const auto l_in = [&](int kt, uint32_t (&x)[4]) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int c = kt * 16 + (r >> 1) * 8 + 2 * tq;
+              const int n = r & 1 ? sb : sa, slot = r & 1 ? g + 8 : g;
+              uint32_t w = 0u;
+              if (c < D::NBW) {
+                if (r & 1 ? ub : ua) {
+                  const float2 q = *reinterpret_cast<const float2*>(NB + n * D::NBW + c);
+                  w = pack2(q.x, q.y);
+                }
+              } else if (c < D::LI) {  // rows past the item's buses hold zeros
+                w = *reinterpret_cast<const uint32_t*>(aggw + slot * D::LE + c - D::NBW);
+              }
+              x[r] = w;
+            }
+          };
+          hidden_pass(l_in, tile, D::tLW1 + h * D::NH * D::KL, D::KL, D::NH,
+                      bias + D::bLB1 + h * D::HP, slope, hA, D::HS, g, tq);
+          __syncwarp();  // every lane has read its rows' state before L_m updates m
+          hidden_pass(from_a, tile, D::tLW2 + h * D::NH * D::KH, D::KH, D::NH,
+                      bias + D::bLB2 + h * D::HP, slope, hB, D::HS, g, tq);
+          __syncwarp();
+          if (h < 2) {
+            float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 2
+            for (int kt = 0; kt < D::KH; ++kt) {
+              uint32_t x[4];
+              from_b(kt, x);
+              mma(c, x, tile(D::tLW4 + h * D::KH + kt));
+            }
+            if (h == 0) {
+              o0[0] = c[0];
+              o0[1] = c[2];
+            } else {
+              o1[0] = c[0];
+              o1[1] = c[2];
+            }
+          } else {  // L_m, the last head: m is read no more in this item
+            const float* b4 = bias + D::bLB4;
+#pragma unroll 1
+            for (int nt0 = 0; nt0 < D::NL; nt0 += kPassTiles) {
+              float c[kPassTiles][4];
+              pass_mma(c, from_b, tile, D::tLW4 + 2 * D::KH, D::KH, nt0, D::NL);
+#pragma unroll
+              for (int j = 0; j < kPassTiles; ++j) {
+#pragma unroll
+                for (int jj = 0; jj < 2; ++jj) {
+                  const int col = (nt0 + j) * 8 + 2 * tq + jj;
+                  if (nt0 + j < D::NL && col < L) {
+                    const float b = b4[16 + col];
+                    if (ua) M(sa, col) = M(sa, col) + (c[j][jj] + b);
+                    if (ub) M(sb, col) = M(sb, col) + (c[j][2 + jj] + b);
+                  }
+                }
+              }
+            }
+          }
+        }
+        const float* b4 = bias + D::bLB4;
+        if (tq == 0) {  // column 0 of L_theta's and L_v's outputs; PV freeze
+          if (ua) {
+            TH(sa) = TH(sa) + (o0[0] + b4[0]);
+            if (ISG[sa] == 0.0f) V(sa) = V(sa) + (o1[0] + b4[8]);
+          }
+          if (ub) {
+            TH(sb) = TH(sb) + (o0[1] + b4[0]);
+            if (ISG[sb] == 0.0f) V(sb) = V(sb) + (o1[1] + b4[8]);
+          }
+        }
+      }
+    } else if constexpr (Wide) {
       // ---- the wide plans: per phi head, then the L head reading its
       // aggregate; tiles from global memory (L2) ----
       const uint2* WG = reinterpret_cast<const uint2*>(wpack + (long long)k * D::kTiles * 128);
@@ -930,17 +1210,17 @@ __global__ void __launch_bounds__(kThreads, Wide ? 1 : kMinGrids) megakernel(
 template <int L, int H>
 int choose_plan(int N, int E, int G) {
   if (Dims<L, H>::kPlan0 && Layout<L, H>(N, E, G, 0).total <= kMaxShared) return 0;
-  for (int plan = 1; plan <= 2; ++plan)
+  for (int plan = 1; plan <= Dims<L, H>::kLastPlan; ++plan)
     if (Layout<L, H>(N, E, G, plan).total <= kMaxShared) return plan;
   return -1;
 }
 
-// `want` (0, 1, 2) if it holds the grid, the library's choice for -1, else
-// -1.
+// `want` (0 to kLastPlan) if it holds the grid, the library's choice for
+// -1, else -1.
 template <int L, int H>
 int resolve_plan(int N, int E, int G, int want) {
   if (want < 0) return choose_plan<L, H>(N, E, G);
-  if (want > 2 || (want == 0 && !Dims<L, H>::kPlan0)) return -1;
+  if (want > Dims<L, H>::kLastPlan || (want == 0 && !Dims<L, H>::kPlan0)) return -1;
   return Layout<L, H>(N, E, G, want).total <= kMaxShared ? want : -1;
 }
 
@@ -959,12 +1239,12 @@ int launch_plan(const float* buses, const float* lines, const float* gens, const
                 const float* lm, const float* gm, const Topo& tp, const void* wpack,
                 const float* bpack, const float* disc, float* v, float* th, float* dp, float* dq,
                 float* loss, long long* clocks, float* ws, long long S, int N, int E, int G, int K,
-                float slope, long long shared, cudaStream_t stream) {
+                float slope, int plan, long long shared, cudaStream_t stream) {
   const cudaError_t err = prepare<L, H, Wide>(shared);
   if (err != cudaSuccess) return (int)err;
   megakernel<L, H, Wide><<<(unsigned int)S, kThreads, (size_t)shared, stream>>>(
       buses, lines, gens, bm, lm, gm, tp, static_cast<const __nv_bfloat16*>(wpack), bpack,
-      disc, v, th, dp, dq, loss, clocks, ws, N, E, G, K, slope);
+      disc, v, th, dp, dq, loss, clocks, ws, N, E, G, K, slope, plan);
   return (int)cudaGetLastError();
 }
 
@@ -975,14 +1255,16 @@ int launch(const float* buses, const float* lines, const float* gens, const floa
            float* loss, long long* clocks, float* ws, long long S, int N, int E, int G, int K,
            float slope, int want, cudaStream_t stream) {
   const int plan = resolve_plan<L, H>(N, E, G, want);
-  if (plan < 0 || (plan == 2) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
+  if (plan < 0 || (plan >= 2) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
   const long long shared = Layout<L, H>(N, E, G, plan).total;
   if (plan > 0)
     return launch_plan<L, H, true>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th,
-                                   dp, dq, loss, clocks, ws, S, N, E, G, K, slope, shared, stream);
+                                   dp, dq, loss, clocks, ws, S, N, E, G, K, slope, plan, shared,
+                                   stream);
   if constexpr (Dims<L, H>::kPlan0)
     return launch_plan<L, H, false>(buses, lines, gens, bm, lm, gm, tp, wpack, bpack, disc, v, th,
-                                    dp, dq, loss, clocks, ws, S, N, E, G, K, slope, shared, stream);
+                                    dp, dq, loss, clocks, ws, S, N, E, G, K, slope, plan, shared,
+                                    stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1015,23 +1297,25 @@ bool built_for(int L, int H) { return L == kLatent && H == kHidden; }
 
 extern "C" {
 
-// The plan for an N, E, G grid: `want` (0, 1 or 2) if it holds the grid,
-// the library's choice (the first that holds it) for -1. out (4 int64):
-// the plan (0: tiles, three heads' scratch and the state rows in shared
+// The plan for an N, E, G grid: `want` (0 to 3) if it holds the grid, the
+// library's choice (the first that holds it) for -1. out (4 int64): the
+// plan (0: tiles, three heads' scratch and the state rows in shared
 // memory; 1: tiles read from L2, one head's scratch, the state rows in
-// shared memory; 2: as 1, the state rows in a global workspace), shared
-// bytes a block, blocks a grid (1), workspace bytes a grid (plan 2's N x
-// NBW floats, else 0). Returns the plan; -1 where no plan holds the grid
-// (out then describes plan 2, the leanest) or `want` is not built at this
-// width (plan 0 only for H <= 32); -2 for another width.
+// shared memory; 2: as 1, the state rows in a global workspace; 3, past
+// (128, 128) only: as 2, with the warps' scratch and the biases in global
+// memory too), shared bytes a block, blocks a grid (1), workspace bytes a
+// grid (workspace_floats, 0 for plans 0 and 1). Returns the plan; -1
+// where no plan holds the grid (out then describes the last plan, the
+// leanest) or `want` is not built at this width (plan 0 only for H <= 32,
+// plan 3 only past (128, 128)); -2 for another width.
 int gns_megakernel_plan(int N, int E, int G, int L, int H, int want, long long* out) {
   if (!built_for(L, H)) return -2;
   const int plan = resolve_plan<kLatent, kHidden>(N, E, G, want);
-  const int shown = plan < 0 ? 2 : plan;
+  const int shown = plan < 0 ? Dims<kLatent, kHidden>::kLastPlan : plan;
   out[0] = plan;
   out[1] = Layout<kLatent, kHidden>(N, E, G, shown).total;
   out[2] = 1;
-  out[3] = shown == 2 ? (long long)N * Dims<kLatent, kHidden>::NBW * 4 : 0;
+  out[3] = workspace_floats<kLatent, kHidden>(N, shown) * 4;
   return plan;
 }
 
@@ -1063,10 +1347,10 @@ long long gns_megakernel_step_sizes(int L, int H, int biases) {
 // disc (K,) the loss discounts. Outputs v, theta, dp, dq (S, N), loss (S, 2);
 // clocks, when not null, (S, 4) int64: each grid's SM cycles per stage
 // (kStages), an instrument for chip_smoke.py; null in serving. ws: null, or
-// for plan 2 the (S, N, NBW) float32 workspace of the grids' state rows
-// (gns_megakernel_plan's bytes a grid). plan: -1 for the library's plan
-// for the grid, or 0, 1, 2 to run that one (chip_smoke.py holds the plans
-// to each other). (L, H) must be the library's width.
+// for plans 2 and 3 the float32 workspace, gns_megakernel_plan's bytes a
+// grid for each of the S grids. plan: -1 for the library's plan for the
+// grid, or 0 to 3 to run that one (chip_smoke.py holds the plans to each
+// other). (L, H) must be the library's width.
 int gns_megakernel(const float* buses, const float* lines, const float* gens, const float* bm,
                    const float* lm, const float* gm, const int* src, const int* dst,
                    const int* srcq, const int* dstq, const int* dst_order,

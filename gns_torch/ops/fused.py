@@ -18,22 +18,26 @@ SegmentIndex over the dst ids (E,), shared by the batch; heads
 
 On a CUDA tensor the forward is one launch of the kernel in
 gns_torch/csrc/fused_edge.cu (`fused_edge_cuda`), in exact float32: no TF32
-and no bf16 operands. The kernel takes every (L, H) in [1, 128] x [1, 128]
-(ops/segment_kernels.py check_width; another width raises): each width is
-a library of its own, built from the source at the first call that needs
-it, in one of two designs (segment_kernels.k3_rows): up to (33, 24)'s
-register footprint a lane holds two edges' inputs and activations in
-registers (64-row tiles); past it the tile's inputs and activations sit
-in shared memory and each row's outputs are split over lanes (16-row
-tiles). What the kernel reads beside the inputs is laid out here, in
-Python, so the CPU tests reach it:
+and no bf16 operands. The kernel takes every (L, H) of at least (1, 1)
+(ops/segment_kernels.py check_width refuses a width below 1, or one whose
+32-bit offsets would overflow): each width is a library of its own, built
+from the source at the first call that needs it, in one of three designs
+(segment_kernels.k3_design): up to (33, 24)'s register footprint a lane
+holds two edges' inputs and activations in registers (64-row tiles); past
+it the tile's inputs and activations sit in each warp's scratch and each
+row's outputs are split over lanes (16-row tiles), the scratch in shared
+memory while a block's four warps' fits ("wide"), else in a global
+workspace this module allocates ("workspace"). What the kernel reads
+beside the inputs is laid out here, in Python, so the CPU tests reach it:
   pack_weights    the 18 weights as one vector, each matrix transposed
                   with its rows padded to 16-byte words (pack_index);
   _schedule       its warps' work items over the dst CSR (ops/segment.py
                   schedule_items at the design's rows, ROWS = 64 or
                   WIDE_ROWS = 16: runs of whole buses in at most that many
                   rows, or one bus with more) and each row's bus, made
-                  once per SegmentIndex and row count.
+                  once per SegmentIndex and row count;
+  the workspace   for the workspace design, a warp's scratch for every
+                  warp of the persistent grid (fused_edge_occupancy).
 The compiled Pallas kernel truncated its operands to bf16
 (pallas_fused.py:22-28); that was Mosaic's doing and is not copied.
 The backward recomputes the edge stage from the saved inputs through the
@@ -49,7 +53,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +65,7 @@ from gns_torch.ops.segment import SegmentIndex, gather, schedule_items, segment_
 
 _PARAMS = ("w1", "b1", "w2", "b2", "w4", "b4")
 ROWS = 64  # fused_edge.cu kRows: dst-CSR rows per warp tile, two per lane
-WIDE_ROWS = 16  # the wide design's rows per warp tile
+WIDE_ROWS = 16  # the wide and workspace designs' rows per warp tile
 
 
 def _weights(heads: Dict[str, Dict[str, torch.Tensor]]):
@@ -151,10 +155,11 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
     `_weights`, float32 on the same device. Returns the three (S, N, L)
     float32 sums. With `clocks`, an int64 (warps, len(CLOCK_PHASES))
     tensor on the card with a row for every warp the grid can hold
-    (fused_edge_occupancy), the launch takes the kernel's instrumented
-    instance, whose warps also record their SM cycles per phase and their
-    unit counts there (chip_smoke.py reads them); without, the kernel
-    reads no clock."""
+    (fused_edge_occupancy(...).warps), the launch takes the kernel's
+    instrumented instance, whose warps also record their SM cycles per
+    phase and their unit counts there (chip_smoke.py reads them); without,
+    the kernel reads no clock. For the workspace design it allocates the
+    warps' scratch (fused_edge_occupancy's bytes per warp, every warp)."""
     kern._check_cuda("m", m, (torch.float32,), 3)
     kern._check_cuda("feats", feats, (torch.float32,), 3, m.device)
     kern._check_cuda("line_mask", line_mask, (torch.float32,), 2, m.device)
@@ -165,7 +170,7 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
     if feats.shape != (s, e, 5) or line_mask.shape != (s, e):
         raise ValueError(f"feats {tuple(feats.shape)} / line_mask {tuple(line_mask.shape)} "
                          f"do not match ({s}, {e}, 5) / ({s}, {e})")
-    kern.check_width(latent, hidden)
+    kern.check_width(latent, hidden, s * n, s * e)
     width = (latent, hidden)
     dev = m.get_device()
     shapes = _weight_shapes(latent, hidden)
@@ -188,19 +193,24 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
         raise ValueError(f"packed weights hold {packed.numel()} floats, the kernel reads {floats}")
     items, row_bus = _schedule(index, kern.k3_rows(latent, hidden))
     outs = [m.new_empty((s, n, latent)) for _ in range(3)]
+    occ = fused_edge_occupancy(latent, hidden) if clocks is not None or \
+        kern.k3_design(latent, hidden) == "workspace" else None
     if clocks is not None:
         kern._check_cuda("clocks", clocks, (torch.int64,), 2, m.device)
-        _, per_sm, threads, sms = fused_edge_occupancy(latent, hidden)
-        if clocks.shape != (per_sm * sms * threads // 32, len(CLOCK_PHASES)):
-            raise ValueError(f"clocks must be ({per_sm * sms * threads // 32}, {len(CLOCK_PHASES)}), "
+        if clocks.shape != (occ.warps, len(CLOCK_PHASES)):
+            raise ValueError(f"clocks must be ({occ.warps}, {len(CLOCK_PHASES)}), "
                              f"got {tuple(clocks.shape)}")
+    ws = None
+    if occ is not None and occ.workspace_bytes_per_warp:
+        ws = m.new_empty((occ.warps * occ.workspace_bytes_per_warp // 4,))
     if any(t.data_ptr() % 16 for t in (packed, items, *outs)):
         raise ValueError("K3's packed weights, work items and outputs must be 16-byte aligned")
     rc = kern.function("gns_fused_edge", width)(
         m.data_ptr(), feats.data_ptr(), line_mask.data_ptr(), index.order.data_ptr(),
         index.indptr.data_ptr(), items.data_ptr(), row_bus.data_ptr(), packed.data_ptr(),
         *(o.data_ptr() for o in outs), s, n, e, items.shape[0], latent, hidden,
-        float(slope), None if clocks is None else clocks.data_ptr(), kern._stream_of(dev),
+        float(slope), None if clocks is None else clocks.data_ptr(),
+        None if ws is None else ws.data_ptr(), kern._stream_of(dev),
     )
     if rc != 0:
         raise RuntimeError(f"K3 fused edge stage launch failed: cudaError {rc}")
@@ -211,16 +221,33 @@ def fused_edge_cuda(m, feats, line_mask, index: SegmentIndex, weights, slope: fl
 fused_edge_cuda.launches = 0
 
 
-def fused_edge_occupancy(latent: int, hidden: int) -> Tuple[int, int, int, int]:
-    """(shared bytes per block, blocks resident per SM, threads per block,
-    SMs) of K3 at this width on the current device, from its library."""
+class K3Occupancy(NamedTuple):
+    """How K3's library at one width runs on the current device."""
+
+    shared_bytes: int  # per block (0 for the workspace design)
+    blocks_per_sm: int  # resident, cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    threads: int  # per block
+    sms: int
+    workspace_bytes_per_warp: int  # the workspace design's scratch, else 0
+
+    @property
+    def warps(self) -> int:
+        """Warps of the persistent grid at most: a clocks row, or a
+        workspace slice, each."""
+        return self.blocks_per_sm * self.sms * self.threads // 32
+
+
+def fused_edge_occupancy(latent: int, hidden: int) -> K3Occupancy:
+    """K3's shared bytes per block, blocks resident per SM, threads per
+    block, SMs and workspace bytes per warp at this width on the current
+    device, from its library."""
     kern.check_width(latent, hidden)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_longlong * 5)()
     rc = kern.function("gns_fused_edge_occupancy", (latent, hidden))(latent, hidden,
                                                                      ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"K3 occupancy query failed: cudaError {rc}")
-    return tuple(out)
+    return K3Occupancy(*out)
 
 
 def _edge_stage(m, feats, line_mask, weights, slope, gather_m, segsum):

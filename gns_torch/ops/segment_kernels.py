@@ -44,6 +44,7 @@ gather id lies in [0, R).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -87,34 +88,116 @@ def _nvcc() -> str:
     )
 
 
-# K3 and K4 are built per (latent, hidden) width, for every width in
-# [1, MAX_LATENT] x [1, MAX_HIDDEN]: up to 128, where gns_tpu's kernels
-# first change shape (a last dimension past 128 spans two of the TPU's
-# 128-lane tiles). Their plain twins take any width.
+# K3 and K4 are built per (latent, hidden) width, for every width gns_tpu's
+# kernels take: any latent and hidden of at least 1, short of where the
+# kernels' 32-bit index arithmetic would overflow (check_width). Their
+# plain twins take any width.
 WIDTHED = ("fused_edge", "megakernel")
-MAX_LATENT, MAX_HIDDEN = 128, 128
+INDEX_LIMIT = 1 << 31  # where a 32-bit index overflows
 
 
-def check_width(latent: int, hidden: int) -> None:
-    """Raises unless the CUDA kernels K3 and K4 take (latent, hidden)."""
-    if not (1 <= latent <= MAX_LATENT and 1 <= hidden <= MAX_HIDDEN):
-        raise ValueError(f"K3 and K4 take latent in [1, {MAX_LATENT}] and hidden in "
-                         f"[1, {MAX_HIDDEN}], got ({latent}, {hidden})")
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def k3_pack_floats(latent: int, hidden: int) -> int:
+    """Floats of K3's three packed heads (fused_edge.cu Pack, ops/fused.py
+    pack_index): per layer the (in, out) matrix and the bias, each row
+    padded to 4 floats."""
+    f, hp, lp = latent + 5, _round4(hidden), _round4(latent)
+    return 3 * ((f + 1) * hp + (hidden + 1) * hp + (hidden + 1) * lp)
+
+
+def k4_step_tiles(latent: int, hidden: int) -> int:
+    """16 x 8 bf16 tiles of one of K4's packed steps (megakernel.cu Dims
+    kTiles, ops/megakernel.py tile_dims)."""
+    le, hp, lp = latent + latent % 2, -(-hidden // 16) * 16, -(-latent // 8) * 8
+    kh, nh, nl = hp // 16, hp // 8, lp // 8
+    kp, kl = -(-(le + 5) // 16), -(-(4 + 2 * le) // 16)
+    return 3 * nh * kp + 3 * nh * kh + 3 * nl * kh + 3 * nh * kl + 3 * nh * kh + (2 + nl) * kh
+
+
+@functools.lru_cache(maxsize=None)
+def _width_sizes(latent: int, hidden: int):
+    """What K3 and K4 index with 32 bits at a width: (what, elements)."""
+    return (("K3's packed weights", k3_pack_floats(latent, hidden)),
+            ("K4's packed step", k4_step_tiles(latent, hidden) * 128))
+
+
+def check_width(latent: int, hidden: int, *extents: int) -> None:
+    """Raises unless the CUDA kernels K3 and K4 take (latent, hidden): each
+    at least 1, with the weight packs' 32-bit offsets (K3's packed floats,
+    K4's step of bf16 tiles) under 2^31; and each of `extents` (a launch's
+    S x N and S x E rows) times latent under 2^31, as K1 (segment.cu
+    gns_segment_sum) refuses E x D or N x D at 2^31. Checked before any
+    build or launch."""
+    if latent < 1 or hidden < 1:
+        raise ValueError(f"K3 and K4 take latent and hidden of at least 1, got "
+                         f"({latent}, {hidden})")
+    sizes = _width_sizes(latent, hidden)
+    for rows in extents:
+        if rows * latent >= INDEX_LIMIT:
+            sizes += ((f"{rows} rows x latent {latent}", rows * latent),)
+    for what, size in sizes:
+        if size >= INDEX_LIMIT:
+            raise ValueError(f"K3 and K4 index with 32 bits: {what} at (latent, hidden) = "
+                             f"({latent}, {hidden}) is {size} elements, 2^31 or more")
 
 
 # K3 keeps a lane's two edges' inputs and hidden activations, 2 (L + 5) +
 # 4 H floats, in registers while they stay within (33, 24)'s 172, the
 # widest width measured with no spill (198 registers at 2 blocks per SM);
-# past it, the tile's inputs and activations sit in shared memory and a
-# row's outputs are split over lanes (fused_edge.cu's wide design).
+# past it, the tile's inputs and activations sit in each warp's scratch
+# and a row's outputs are split over lanes (fused_edge.cu's wide design):
+# in shared memory while a block's four warps' scratch fits one block,
+# past that in a global workspace (the workspace design).
 K3_REGISTER_FLOATS = 172
+K3_WARPS = 4  # warps per block, every design
+K3_DESIGNS = {"registers": 64, "wide": 16, "workspace": 16}  # design -> rows per warp tile
+
+
+def k3_warp_floats(latent: int, hidden: int) -> int:
+    """One warp's scratch in the wide and workspace designs, in floats
+    (fused_edge.cu WideLayout kWarp): a 16-row tile's inputs and two
+    layers' activations, a hub bus's sums, the row masks and pointers."""
+    f, hl = latent + 5, max(hidden, latent)
+    return _round4(16 * (f + hl + hidden) + _round4(3 * latent) + 16 + 17)
+
+
+@functools.lru_cache(maxsize=None)
+def k3_design(latent: int, hidden: int) -> str:
+    """K3's design at this width: "registers" (two edges a lane, 64-row
+    tiles) within K3_REGISTER_FLOATS, else "wide" (16-row tiles, scratch
+    in shared memory) while K3_WARPS warps' scratch fits a block, else
+    "workspace" (the wide design's scratch in global memory)."""
+    if 2 * (latent + 5) + 4 * hidden <= K3_REGISTER_FLOATS:
+        return "registers"
+    if K3_WARPS * k3_warp_floats(latent, hidden) * 4 <= MAX_SHARED_BYTES:
+        return "wide"
+    return "workspace"
 
 
 def k3_rows(latent: int, hidden: int) -> int:
     """dst-CSR rows per warp tile of K3's design at this width: 64 for the
-    register design (two rows a lane), 16 for the wide one (its -DGNS_ROWS,
-    and the rows of its work items, ops/fused.py _schedule)."""
-    return 64 if 2 * (latent + 5) + 4 * hidden <= K3_REGISTER_FLOATS else 16
+    register design (two rows a lane), 16 for the wide and workspace ones
+    (its -DGNS_ROWS, and the rows of its work items, ops/fused.py
+    _schedule)."""
+    return K3_DESIGNS[k3_design(latent, hidden)]
+
+
+def k3_block_bytes(latent: int, hidden: int) -> int:
+    """Shared bytes a block of K3's design takes (fused_edge.cu
+    block_bytes): the register design's packed weights, staging rows, hub
+    sums and row pointers; the wide design's four warps' scratch; none for
+    the workspace design."""
+    design = k3_design(latent, hidden)
+    if design == "registers":
+        rows = K3_DESIGNS[design]
+        return 4 * (k3_pack_floats(latent, hidden) + K3_WARPS * rows * _round4(latent)
+                    + K3_WARPS * 3 * latent + K3_WARPS * (rows + 1))
+    if design == "wide":
+        return K3_WARPS * k3_warp_floats(latent, hidden) * 4
+    return 0
 
 
 def min_blocks(name: str, latent: int, hidden: int) -> int:
@@ -124,17 +207,22 @@ def min_blocks(name: str, latent: int, hidden: int) -> int:
     two edges' inputs and hidden activations, 2 (L + 5) + 4 H floats, stay
     within the (20, 10) instance's 90 and L <= 25, else 2 (255). ptxas's
     registers grow with L about three times as fast as with H: at 90
-    floats (30, 5) spills at 3 where (24, 8) does not. Wide design (k3_rows
-    16): 4 (128 registers); its lanes hold 8 x 4 accumulators, and shared
-    memory, not registers, sets its blocks per SM. python3
-    probe_k3_blocks.py prints ptxas's registers and spills at 2, at 3 and
-    at the choice for chip_smoke's widths, the rules' boundaries and the
-    range's ends. K4 (256 threads): 2 grids (128 registers) up to latent
-    20 with one k-tile of hidden units, else 1; the asked blocks are those
-    of its plan-0 instance (megakernel.cu), its wide instance asks for 1."""
+    floats (30, 5) spills at 3 where (24, 8) does not. Wide design: 4 (128
+    registers); its lanes hold 8 x 4 accumulators and loop over inputs and
+    64-column passes (109-119 registers up to (282, 282)), and shared
+    memory, not registers, sets its blocks per SM. Workspace design: 3
+    (170 registers): at 4 its global addressing spilled 20-84 bytes at
+    (512, 64), (512, 512), (283, 283) and (1, 1024), at 3 none (135-151
+    registers). python3 probe_k3_blocks.py prints ptxas's registers and
+    spills at 2, at 3 and at the choice for chip_smoke's widths, the
+    rules' boundaries and wide ends. K4 (256 threads): 2 grids (128
+    registers) up to latent 20 with one k-tile of hidden units, else 1;
+    the asked blocks are those of its plan-0 instance (megakernel.cu), its
+    wide instance asks for 1."""
     if name == "fused_edge":
-        if k3_rows(latent, hidden) == 16:
-            return 4
+        design = k3_design(latent, hidden)
+        if design != "registers":
+            return 4 if design == "wide" else 3
         return 3 if 2 * (latent + 5) + 4 * hidden <= 90 and latent <= 25 else 2
     return 2 if latent <= 20 and hidden <= 16 else 1
 
@@ -155,6 +243,8 @@ def _flags(name: str, width=None, blocks: int | None = None):
                      f"-DGNS_MIN_BLOCKS={blocks}"]
     if name == "fused_edge":
         flags.append(f"-DGNS_ROWS={k3_rows(latent, hidden)}")
+        if k3_design(latent, hidden) == "workspace":
+            flags.append("-DGNS_WORKSPACE=1")
     return flags
 
 
@@ -288,7 +378,7 @@ SIGNATURES = {
         "gns_gather_plan": ([_ll, _ll, _ll, _p, _p, _p], _i),
     },
     "fused_edge": {
-        "gns_fused_edge": ([_p] * 11 + [_ll, _i, _i, _i, _i, _i, _f, _p, _p], _i),
+        "gns_fused_edge": ([_p] * 11 + [_ll, _i, _i, _i, _i, _i, _f, _p, _p, _p], _i),
         "gns_fused_edge_weight_floats": ([_i, _i], _i),
         "gns_fused_edge_occupancy": ([_i, _i, _p], _i),
     },

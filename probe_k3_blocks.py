@@ -8,7 +8,7 @@ gns_torch/ops/segment_kernels.py, the width's design included) at each
 (latent, hidden) of WIDTHS asking for 2 resident blocks per SM (at most
 255 registers a thread), for 3 (170) and for the choice of
 segment_kernels.min_blocks where that is another (4, 128 registers, for
-the wide design), all builds started together. Prints ptxas's registers
+the wide and workspace designs), all builds started together. Prints ptxas's registers
 and spills of each build's default and clocks instances beside the
 choice, and exits non-zero where the choice spills while fewer blocks do
 not (fewer blocks buy registers up to 255). Needs nvcc (the CUDA
@@ -22,14 +22,17 @@ import re
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# chip_smoke.py's eight widths; then min_blocks' boundary, where a lane's
-# 2 (L + 5) + 4 H input and hidden floats reach 90 (3 blocks at L <= 25)
-# or just pass it, or L passes 25 (2); k3_rows' boundary, where they reach
-# 172 (the register design) or just pass it (the wide one); then the
-# range's ends
+# chip_smoke.py's fourteen widths; then min_blocks' boundary, where a
+# lane's 2 (L + 5) + 4 H input and hidden floats reach 90 (3 blocks at L
+# <= 25) or just pass it, or L passes 25 (2); k3_design's boundaries, where
+# they reach 172 (the register design) or just pass it (the wide one), and
+# where four warps' scratch just fits a block (282, 282: the wide design)
+# or just does not (283, 283: the workspace); then narrow and wide ends
 WIDTHS = ((20, 10), (40, 10), (8, 8), (10, 10), (33, 24), (64, 32), (97, 40), (128, 128),
+          (129, 8), (200, 136), (256, 256), (512, 64), (64, 512), (512, 512),
           (24, 8), (16, 12), (25, 7), (30, 5), (26, 6), (25, 8), (21, 10),
-          (41, 20), (42, 20), (34, 24), (1, 41), (1, 1), (128, 1), (1, 128))
+          (41, 20), (42, 20), (34, 24), (282, 282), (283, 283),
+          (1, 41), (1, 1), (128, 1), (1, 128), (1024, 1), (1, 1024))
 
 
 def report(log: str) -> dict:
@@ -78,7 +81,7 @@ def main() -> int:
     wrong = []
     for width in WIDTHS:
         chosen = kern.min_blocks("fused_edge", *width)
-        design = "wide" if kern.k3_rows(*width) == 16 else "registers"
+        design = kern.k3_design(*width)
         spills = {}
         for blocks in counts[width]:
             seen = report(info[(width, blocks)]["log"])

@@ -2,9 +2,9 @@
 `fused_edge_stage` in interpret mode (tests/test_fused.py's problem: S3,
 N14, E20), at every (L, H) of WIDTHS: gns_tpu's own test width (8, 8), the
 reference's default (10, 10), an odd L with H > 16 (33, 24), the shipped
-checkpoints' (20, 10) and (40, 10), and three widths of the kernel's wide
-design: (64, 32), (97, 40) (an odd L over 64, H over two k-tiles) and the
-range's corner (128, 128).
+checkpoints' (20, 10) and (40, 10), three widths of the kernel's wide
+design: (64, 32), (97, 40) (an odd L over 64, H over two k-tiles) and
+(128, 128), and (160, 136), past 128 on both axes.
 
 On the CPU the port's fused_edge_stage is its plain twin (gather_plain,
 F.linear, segment_sum_plain). The CUDA kernel runs only on the card, where
@@ -29,7 +29,8 @@ from gns_torch.ops.segment import SegmentIndex
 
 torch.set_num_threads(1)
 S, N, E = 3, 14, 20
-WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10), (64, 32), (97, 40), (128, 128)]
+WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10), (64, 32), (97, 40), (128, 128),
+          (160, 136)]
 SLOPE = 0.01
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=2e-4, atol=1e-5)
@@ -162,6 +163,7 @@ def test_k3_cuda_wrapper_and_index_checks(problem):
     # the work items over this index's dst CSR
     packed = fused.pack_weights(fused._weights(heads), L, H)
     assert packed.shape == (fused.pack_index(L, H).size,) and packed.dtype == torch.float32
+    assert packed.numel() == fused.kern.k3_pack_floats(L, H)
     items, row_bus = fused._schedule(idx)
     assert items.dtype == torch.int32 and items.shape[1] == 4 and items.is_contiguous()
     assert items[0, 0] == 0 and items[-1, 1] == N and row_bus.shape == (E,)
@@ -176,22 +178,31 @@ def test_k3_cuda_wrapper_and_index_checks(problem):
 
 
 def test_k3_width_range():
-    """K3's CUDA path takes every (L, H) in [1, 128] x [1, 128]
-    (segment_kernels.check_width) and refuses the rest before anything is
-    built: fused_edge_occupancy and the library's build check the width
-    before they load or build, and on CPU tensors fused_edge_cuda raises at
-    its device check. The plain twin, the CPU path, takes any width: (136,
-    8) against jax's interpret-mode kernel."""
+    """K3's CUDA path takes every (L, H) of at least (1, 1)
+    (segment_kernels.check_width): (129, 8), (136, 8) and (512, 512) among
+    them; it refuses a width below 1, and sizes whose 32-bit offsets would
+    overflow, before anything is built: fused_edge_occupancy and the
+    library's build check the width before they load or build, and on CPU
+    tensors fused_edge_cuda raises at its device check. The plain twin, the
+    CPU path, takes any width: (136, 8) against jax's interpret-mode
+    kernel."""
     libs = dict(fused.kern._libs)
-    for latent, hidden in ((1, 1), (128, 128), (97, 40), (7, 17), (128, 1), (1, 128)):
+    for latent, hidden in ((1, 1), (128, 128), (129, 8), (136, 8), (97, 40), (7, 17), (128, 1),
+                           (1, 128), (8, 129), (512, 64), (64, 512), (512, 512)):
         fused.kern.check_width(latent, hidden)
-    for latent, hidden in ((0, 8), (129, 8), (8, 0), (8, 129), (136, 8)):
-        with pytest.raises(ValueError, match=r"latent in \[1, 128\] and hidden in \[1, 128\]"):
+        fused.kern.check_width(latent, hidden, 1024 * 300, 1024 * 411)
+        fused.kern._library_path("fused_edge", width=(latent, hidden))
+    for latent, hidden in ((0, 8), (8, 0), (0, 0), (-1, 8)):
+        with pytest.raises(ValueError, match="latent and hidden of at least 1"):
             fused.kern.check_width(latent, hidden)
-        with pytest.raises(ValueError, match="latent in"):
+        with pytest.raises(ValueError, match="of at least 1"):
             fused.fused_edge_occupancy(latent, hidden)
-        with pytest.raises(ValueError, match="latent in"):
+        with pytest.raises(ValueError, match="of at least 1"):
             fused.kern._library_path("fused_edge", width=(latent, hidden))
+    with pytest.raises(ValueError, match="32 bits"):  # S x E x L at 2^31
+        fused.kern.check_width(20, 10, 1024 * 411, (1 << 31) // 20 + 1)
+    with pytest.raises(ValueError, match="32 bits"):  # K3's packed weights past 2^31 floats
+        fused.kern.check_width(20000, 20000)
     wide = {h: jax.tree.map(np.asarray, init_learning_block(jax.random.key(i), 141, 8, 136))
             for i, h in enumerate(HEADS)}
     rng = np.random.default_rng(2)

@@ -292,7 +292,7 @@ def test_k3_wide_order_of_adds_equals_segment_sum(case):
 
 
 @pytest.mark.parametrize("latent, hidden", [(20, 10), (8, 8), (12, 6), (40, 10), (10, 10),
-                                            (33, 24), (97, 40), (128, 128)])
+                                            (33, 24), (97, 40), (128, 128), (256, 256), (512, 64)])
 def test_k3_packed_weights_unpack_exactly(latent, hidden):
     """pack_weights lays the 18 weights out as fused_edge.cu's Pack reads
     them: per head w1, b1, w2, b2, w4, b4, each matrix transposed to (in,
@@ -317,7 +317,79 @@ def test_k3_packed_weights_unpack_exactly(latent, hidden):
             assert torch.equal(block[:inp, :out], w.t()) and torch.equal(block[inp, :out], b)
             assert torch.all(block[:, out:] == 0)
             off += (inp + 1) * r4(out)
-    assert off == packed.numel()
+    assert off == packed.numel() == kern.k3_pack_floats(latent, hidden)
     idx = fused.pack_index(latent, hidden)
     assert np.array_equal(np.sort(idx[idx >= 0]), np.arange(sum(w.numel() for w in
                                                                    fused._weights(heads))))
+
+
+# ---- K3 and K4: the design at each width fits a block --------------------
+
+GRID = (1, 2, 7, 8, 10, 20, 24, 33, 40, 41, 64, 97, 128, 129, 136, 160, 200, 256, 300, 384, 511,
+        512)
+
+
+@pytest.mark.parametrize("latent", GRID)
+def test_designs_fit_a_block_at_every_width(latent):
+    """At every (latent, hidden) of GRID x GRID, up to (512, 512), K3's
+    design (segment_kernels.k3_design: the register design up to 172
+    register floats, the wide one while four warps' scratch fits a block,
+    else the workspace, which takes no shared memory) takes at most a
+    block's 232,448 bytes, and K4's first plan that holds a case9-300 grid
+    (megakernel.choose_plan over megakernel.plan_layout, the mirror of
+    megakernel.cu's Layout) exists and fits: plan 0 only for H <= 32, plan
+    3 only past (128, 128), its workspace bytes a grid those of the state
+    rows (plans 2, 3) and warps' scratch (3)."""
+    from gns_torch.ops import megakernel as mk
+
+    sizes = [tuple(base_case_batch(c).buses.shape[1:2]) + (base_case_batch(c).lines.shape[1],
+                                                          base_case_batch(c).generators.shape[1])
+             for c in (9, 14, 30, 118, 300)]
+    for hidden in GRID:
+        design = kern.k3_design(latent, hidden)
+        block = kern.k3_block_bytes(latent, hidden)
+        assert block <= kern.MAX_SHARED_BYTES, (latent, hidden, design, block)
+        assert (design == "registers") == (2 * (latent + 5) + 4 * hidden <= kern.K3_REGISTER_FLOATS)
+        assert (design == "workspace") == (block == 0)
+        wide = kern.K3_WARPS * kern.k3_warp_floats(latent, hidden) * 4
+        if design != "registers":
+            assert (design == "wide") == (wide <= kern.MAX_SHARED_BYTES) and block in (0, wide)
+        assert kern.k3_rows(latent, hidden) == (fused.ROWS if design == "registers" else fused.WIDE_ROWS)
+        assert kern.min_blocks("fused_edge", latent, hidden) == {
+            "wide": 4, "workspace": 3}.get(design, kern.min_blocks("fused_edge", latent, hidden))
+        assert kern.min_blocks("fused_edge", latent, hidden) in (2, 3, 4)
+        kern.check_width(latent, hidden, 1024 * 300, 1024 * 411)
+        passes = latent > 128 or hidden > 128
+        assert mk.plans(latent, hidden)[-1] == (3 if passes else 2)
+        for n, e, g in sizes:
+            plan = mk.choose_plan(n, e, g, latent, hidden)
+            shared, ws = mk.plan_layout(n, e, g, latent, hidden, plan)
+            assert plan >= 0 and shared <= kern.MAX_SHARED_BYTES, (latent, hidden, n, plan, shared)
+            assert plan != 0 or hidden <= 32
+            d = mk.tile_dims(latent, hidden)
+            want_ws = {2: n * d.nbw * 4}.get(plan, 0)
+            if plan == 3:
+                assert ws > n * d.nbw * 4 and ws % 16 == 0
+            else:
+                assert ws == want_ws
+
+
+def test_k4_plan_layout_mirrors_the_library():
+    """megakernel.plan_layout gives the bytes K4's library read on the card
+    (NVIDIA H100 80GB HBM3, chip_smoke.py phases 7 and 7b) for a case300
+    grid, and choose_plan its plan: (20, 10) plan 0, 114,176 bytes; (40, 10)
+    plan 0, 193,664; (64, 32) plan 1, 157,184; (97, 40) plan 1, 226,048;
+    (128, 128) plan 2, 131,392 bytes and 158,400 of workspace a grid. And
+    K4's tile count per step is the same in segment_kernels' size check
+    and megakernel.tile_dims."""
+    from gns_torch.ops import megakernel as mk
+
+    batch = base_case_batch(300)
+    n, e, g = batch.buses.shape[1], batch.lines.shape[1], batch.generators.shape[1]
+    read = {(20, 10): (0, 114176, 0), (40, 10): (0, 193664, 0), (64, 32): (1, 157184, 0),
+            (97, 40): (1, 226048, 0), (128, 128): (2, 131392, 158400)}
+    for (latent, hidden), (plan, shared, ws) in read.items():
+        assert mk.choose_plan(n, e, g, latent, hidden) == plan
+        assert mk.plan_layout(n, e, g, latent, hidden, plan) == (shared, ws)
+    for latent, hidden in ((1, 1), (20, 10), (129, 8), (200, 136), (512, 512), (64, 512)):
+        assert kern.k4_step_tiles(latent, hidden) == mk.tile_dims(latent, hidden).tiles[-1]

@@ -188,42 +188,54 @@ def test_k4_cuda_wrapper_raises_on_cpu():
 
 
 def test_k4_width_range():
-    """K4's CUDA path takes every (latent, hidden) in [1, 128] x [1, 128]:
-    the library's build and megakernel_occupancy refuse the rest before
-    anything is built, and its CUDA wrapper refuses CPU tensors before any
-    library is built or loaded. Its packing, so its plain twin, takes any
-    width of at least 1. Whether a grid fits one of the kernel's plans is
-    the library's answer (megakernel.cu's Layout), read on the card:
-    chip_smoke.py runs K4 at (64, 32), (97, 40) and (128, 128) on case300
-    and holds it at (129, 8) to raise there."""
+    """K4's CUDA path takes every (latent, hidden) of at least (1, 1):
+    (129, 8), (8, 129), (136, 8) and (512, 512) among them, each built at
+    its first call. A width below 1 is refused before anything is built or
+    loaded: by the library's build, by megakernel_occupancy and by
+    megakernel_cuda (whose inputs at such a width reach it only by hand),
+    and megakernel_forward_batch at (0, 8) raises in the packing. Its CUDA
+    wrapper refuses CPU tensors before any library is built or loaded. Its
+    packing, so its plain twin, takes any width of at least 1. Whether a
+    grid fits one of the kernel's plans is the library's answer
+    (megakernel.cu's Layout, mirrored by megakernel.plan_layout), read on
+    the card: chip_smoke.py runs K4 up to (512, 512) on case300 and holds
+    it at (0, 8) and (8, 0) to raise there."""
     from gns_torch.models.gns import GNS
     from gns_torch.ops import megakernel as mk
 
     libs = dict(kern._libs)
-    for width in ((129, 8), (8, 129), (0, 10), (136, 8)):
-        with pytest.raises(ValueError, match=r"latent in \[1, 128\] and hidden in \[1, 128\]"):
-            kern._library_path("megakernel", width=width)
+    for width in ((129, 8), (8, 129), (136, 8), (512, 512)):
+        kern._library_path("megakernel", width=width)
     for width in ((0, 10), (20, 0)):
+        with pytest.raises(ValueError, match="latent and hidden of at least 1"):
+            kern._library_path("megakernel", width=width)
         with pytest.raises(ValueError, match="at least 1"):
             mk.pack_step_weights([], *width)
     _, model, batch, topo = _setup(14, width=(8, 8))
+    inp = megakernel_inputs(model, _cfgs((8, 8))[0], batch, topo)
+    for width in ((0, 8), (8, 0)):
+        low = inp._replace(latent=width[0], hidden=width[1])
+        with pytest.raises(ValueError, match="of at least 1"):
+            mk.megakernel_occupancy(low)
+    low = CFG.replace(latent_dim=0, hidden_dim=8)
+    with pytest.raises(ValueError, match="of at least 1"):
+        megakernel_forward_batch(GNS(low, seed=0, device="cpu"), low, batch, topo)
     for width in ((129, 8), (8, 129)):
         wide = CFG.replace(latent_dim=width[0], hidden_dim=width[1])
-        inp = megakernel_inputs(GNS(wide, seed=0, device="cpu"), wide, batch, topo)
-        with pytest.raises(ValueError, match="latent in"):
-            mk.megakernel_occupancy(inp)
+        wide_inp = megakernel_inputs(GNS(wide, seed=0, device="cpu"), wide, batch, topo)
         with pytest.raises(ValueError, match="CUDA"):
-            megakernel_cuda(inp)
+            megakernel_cuda(wide_inp)
     with pytest.raises(ValueError, match="CUDA"):
-        megakernel_cuda(megakernel_inputs(model, _cfgs((8, 8))[0], batch, topo))
+        megakernel_cuda(inp)
     assert kern._libs == libs
 
 
-@pytest.mark.parametrize("width", [(136, 8), (72, 40)], ids=lambda w: f"L{w[0]}_H{w[1]}")
+@pytest.mark.parametrize("width", [(136, 8), (72, 40), (160, 136)], ids=lambda w: f"L{w[0]}_H{w[1]}")
 def test_k4_cpu_twin_takes_any_width(width):
     """megakernel_forward_batch on a CPU model runs the plain twin at
-    widths the kernel does not take (a latent past 128) or was never held
-    at (72, 40), against gns_tpu's interpret-mode megakernel on case14, at
+    widths past 128 ((136, 8), (160, 136): the kernel's pass instance on
+    the card) or never held at (72, 40), against gns_tpu's interpret-mode
+    megakernel on case14, at
     test_k4_plain_matches_pallas_interpret's tolerances (the twin with
     gns_tpu's sums within VS_JAX; as it is, within VS_JAX)."""
     cfg, jcfg = _cfgs(width)

@@ -11,7 +11,7 @@ Tolerance of the tile products: the emulation multiplies the same bf16
 operands as the twin's dense-layout `mlp`, per head and zero-padded, in
 float32; only the order of the adds differs, so each output agrees within
 1e-6 of the sum of its terms' magnitudes (float32 rounding; the longest
-sums, L's first layer at (128, 128), add 260 terms)."""
+sums, L's first layer at (200, 136), add 404 terms)."""
 
 import numpy as np
 import pytest
@@ -49,8 +49,15 @@ DIMS = {
     (64, 32): ((0, 60, 84, 132, 240, 264, 284), (0, 96, 192, 384, 480, 576, 656)),
     (97, 40): ((0, 126, 180, 297, 531, 585, 630), (0, 144, 288, 600, 744, 888, 1008)),
     (128, 128): ((0, 432, 816, 1200, 2016, 2400, 2544), (0, 384, 768, 1152, 1536, 1920, 2064)),
+    # past 128, the kernel's pass instance (the same layout): L = 129, m in
+    # 130 columns, phi's first layer over 9 k-tiles and L's over 17, 17
+    # n-tiles of output; (200, 136), 9 k-tiles of hidden units, L's first
+    # layer over 26
+    (129, 8): ((0, 54, 60, 111, 213, 219, 238), (0, 48, 96, 504, 552, 600, 752)),
+    (200, 136): ((0, 702, 1188, 1863, 3267, 3753, 3996), (0, 432, 864, 1464, 1896, 2328, 2544)),
 }
-WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10), (64, 32), (97, 40), (128, 128)]
+WIDTHS = [(8, 8), (10, 10), (33, 24), (20, 10), (40, 10), (64, 32), (97, 40), (128, 128),
+          (129, 8), (200, 136)]
 RTOL = 1e-6
 
 
