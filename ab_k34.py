@@ -11,11 +11,16 @@ in a process of its own (`ab_k34.py --run TREE OUT`), K4 on the 1024
 case300 requests of `generate_cases(300, 1023, seed=0)` with the shipped
 case300 checkpoint (20, 10) and `300-deep` (40, 10), and K3 on step 0's phi
 heads of each at the case300 dst index, S=1024, from a seeded generator.
-The runs go parent, change, change, parent; every output must be equal
-bit for bit across the four, and each time (CUDA events, three means of
-20 launches of K4 and 50 of K3) is printed as the median and range of
-each tree with the change's median over the parent's. Needs a GPU; exits
-1 where an output differs.
+The runs go parent, change, change, parent, then again (ROUNDS rounds);
+every output must be equal bit for bit across them all. Each time is the
+mean of 20 launches of K4 or 50 of K3 between two CUDA events, the
+launches queued behind a spin on the card (torch.cuda._sleep) long enough
+that the host has issued them all before the card reaches the first, so
+the events read the card's time alone; beside it the host's time per
+call of the wrapper (megakernel_cuda, fused_edge_cuda) while it queues.
+Three such means per run; each is printed as the median and range of each
+tree with the change's median over the parent's. Needs a GPU; exits 1
+where an output differs.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ROUNDS = 2  # of parent, change, change, parent
+SPIN_CYCLES = 200_000_000  # about 0.1 s of the card's clock: longer than the host's queueing
 
 
 def run(root: str, out_path: str) -> int:
@@ -53,16 +60,24 @@ def run(root: str, out_path: str) -> int:
     topo = extract_shared_topology(batch)
 
     def ms(fn, reps):
+        """(card ms per launch, host ms per call) of `reps` queued calls."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        c, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        h0 = time.perf_counter()
+        c.record()
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        t1 = time.perf_counter()
         b.record()
         torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
+        if 1e3 * (t1 - h0) >= c.elapsed_time(a):
+            raise RuntimeError("the spin on the card ended before the host had queued every launch")
+        return a.elapsed_time(b) / reps, 1e3 * (t1 - t0) / reps
 
     res = {}
     for name in (300, "300-deep"):
@@ -72,8 +87,8 @@ def run(root: str, out_path: str) -> int:
             inp = mk.megakernel_inputs(model, cfg, batch, topo)
             for i, o in enumerate(mk.megakernel_cuda(inp)):
                 res[f"K4_{tag}_{i}"] = o.cpu().numpy()
-            res[f"K4_{tag}_ms"] = np.array([ms(lambda: mk.megakernel_cuda(inp), 20)
-                                            for _ in range(3)])
+            res[f"K4_{tag}_ms"], res[f"K4_{tag}_host_ms"] = np.array(
+                [ms(lambda: mk.megakernel_cuda(inp), 20) for _ in range(3)]).T
             n, e = batch.buses.shape[1], batch.lines.shape[1]
             gen = torch.Generator(device="cuda").manual_seed(1)
             m = torch.randn((1024, n, cfg.latent_dim), generator=gen, device="cuda")
@@ -85,29 +100,33 @@ def run(root: str, out_path: str) -> int:
             w = fused._weights(heads)
             for i, o in enumerate(fused.fused_edge_cuda(m, feats, mask, idx, w, 0.01)):
                 res[f"K3_{tag}_{i}"] = o.cpu().numpy()
-            res[f"K3_{tag}_ms"] = np.array([
+            res[f"K3_{tag}_ms"], res[f"K3_{tag}_host_ms"] = np.array([
                 ms(lambda: fused.fused_edge_cuda(m, feats, mask, idx, w, 0.01), 50)
-                for _ in range(3)])
-        print(f"[ab {root}] {tag}: K4 {res[f'K4_{tag}_ms']} ms, K3 {res[f'K3_{tag}_ms']} ms",
-              flush=True)
+                for _ in range(3)]).T
+        print(f"[ab {root}] {tag}: K4 {res[f'K4_{tag}_ms']} ms (host {res[f'K4_{tag}_host_ms']}), "
+              f"K3 {res[f'K3_{tag}_ms']} ms (host {res[f'K3_{tag}_host_ms']})", flush=True)
     np.savez(out_path, **res)
     return 0
 
 
 def compare(paths) -> int:
-    """parent, change, change, parent: outputs bit for bit, times."""
-    a1, b1, b2, a2 = (np.load(p) for p in paths)
+    """Runs of parent, change, change, parent (repeated): outputs bit for
+    bit, times."""
+    runs = [np.load(p) for p in paths]
+    parent = [r for i, r in enumerate(runs) if i % 4 in (0, 3)]
+    change = [r for i, r in enumerate(runs) if i % 4 in (1, 2)]
     differ = 0
-    for k in sorted(a1.files):
+    for k in sorted(runs[0].files):
         if k.endswith("_ms"):
-            pa, pb = np.concatenate([a1[k], a2[k]]), np.concatenate([b1[k], b2[k]])
+            pa = np.concatenate([r[k] for r in parent])
+            pb = np.concatenate([r[k] for r in change])
             print(f"[ab] {k}: parent median {np.median(pa):.4f} ms ({pa.min():.4f}-{pa.max():.4f}), "
                   f"change median {np.median(pb):.4f} ms ({pb.min():.4f}-{pb.max():.4f}), "
                   f"change / parent {np.median(pb) / np.median(pa):.4f}")
         else:
-            same = all(np.array_equal(a1[k], x[k]) for x in (b1, b2, a2))
+            same = all(np.array_equal(runs[0][k], r[k]) for r in runs[1:])
             differ += not same
-            print(f"[ab] {k} {a1[k].shape}: {'bit-equal' if same else 'DIFFERENT'} parent vs change")
+            print(f"[ab] {k} {runs[0][k].shape}: {'bit-equal' if same else 'DIFFERENT'} parent vs change")
     return 1 if differ else 0
 
 
@@ -122,7 +141,7 @@ def main() -> int:
     out_dir = os.path.join(HERE, "build", "ab")
     os.makedirs(out_dir, exist_ok=True)
     paths = []
-    for i, root in enumerate((parent, change, change, parent)):
+    for i, root in enumerate((parent, change, change, parent) * ROUNDS):
         out = os.path.join(out_dir, f"run{i}.npz")
         rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--run", root, out]).returncode
         if rc != 0:

@@ -79,9 +79,10 @@
 //     registers, not memory, set its blocks per SM (3: at 4, 128 registers,
 //     ptxas spilled at some widths).
 //     Its scratch is written and read back by the same warp, so it stays
-//     in L1 / L2 while the warps' slices fit there (104,912 bytes a warp,
-//     166 MB for the grid's 1,584 warps at (512, 512): past L2, slow, not
-//     wrong).
+//     in L1 / L2 while the warps' slices fit there (104,912 bytes a warp
+//     at (512, 512); ptxas used 125 registers there, so the H100's 132 SMs
+//     kept 4 blocks each, 2,112 warps and 221,574,144 bytes of workspace
+//     for the grid: past L2, slow, not wrong).
 //   * Shared memory is dynamic (SharedLayout): at L = 40 it is over the 48
 //     KB a block may hold statically.
 //   * Per head, each lane writes its two rows of masked outputs into the

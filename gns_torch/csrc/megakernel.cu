@@ -95,8 +95,12 @@
 //     cluster-wide reductions for the loss and the lambda dispatch. The
 //     workspace keeps one block a grid, one code path for the physics and
 //     the twin's order of adds;
-//   * past (128, 128) on either axis (Dims::kPass) the wide instance is the
-//     pass instance, whose registers and code do not grow with the width:
+//   * where the wide instance's footprint would grow without bound
+//     (Dims::kPass: a hidden layer past 16 n-tiles, H > 128, whose
+//     accumulators and fragments it keeps in registers, 4 NH floats a lane;
+//     or its eight warps' scratch past half a block, L > 146) the wide
+//     instance is the pass instance, whose registers and code do not grow
+//     with the width:
 //     a layer's n-tiles run in passes of kPassTiles (8: 32 accumulators a
 //     lane), each pass reading its input k-tile by k-tile, a first layer's
 //     built as above, a hidden layer's from the bf16 tile the layer before
@@ -105,13 +109,15 @@
 //     scan takes the lane's columns one at a time, its running sums in the
 //     scratch; every loop over L or H is rolled past a fixed count. Each
 //     sum adds its k-tiles and its rows in the register instances' order,
-//     so the same bits. Its scratch grows with the width (a warp's 16 x (LE
+//     so the same bits (probe_k4_pass.py builds the pass instance where the
+//     wide one is chosen, -DGNS_PASS=1, and holds the two to each other and
+//     times them). Its scratch grows with the width (a warp's 16 x (LE
 //     + HS) + 8.5 LE floats, 344,576 bytes a block at (256, 256)), so it
 //     has plan 3 beside 1 and 2: as 2, with the warps' scratch and the
 //     step's biases in the per-grid workspace too, which leaves in shared
 //     memory only the grid's inputs and physics rows (about 30 KB at
-//     case300 at any width). A case300 grid takes plan 2 at (129, 8) and
-//     plan 3 at (200, 136) and past;
+//     case300 at any width). A case300 grid takes the wide instance's plan
+//     2 at (129, 8) and the pass instance's plan 3 at (200, 136) and past;
 //   * the aggregate's 3L columns are spread over a warp's lanes, lane c
 //     summing columns c, c + 32, ... (Dims::NA of them: 2 at L = 20, 4 at
 //     L = 40);
@@ -202,12 +208,22 @@ struct Dims {
   // whether plan 0 (tiles and three heads' scratch in shared memory) is
   // built: for H <= 32, where its tiles and scratch can fit a block at all
   static constexpr bool kPlan0 = H <= 32 && kTiles * 256LL + kWarps * kWarp * 4LL <= kMaxShared;
-  // whether the wide instance is the pass instance: past (128, 128) on
-  // either axis, a layer's n-tiles run in passes of kPassTiles and a hidden
-  // layer's bf16 output goes through the warp's scratch (16 x HS, HS = HP +
-  // 8 columns, a row padded off the banks of the next), which adds the
-  // running column sums (LE) and two such tiles to kWarpWide's
-  static constexpr bool kPass = L > 128 || H > 128;
+  // whether the wide instance is the pass instance: where the wide one
+  // would keep more than 16 n-tiles of a hidden layer live (4 NH floats a
+  // lane of accumulators, as many of fragments: 64 at H = 128, where it
+  // already spills) or its warps' scratch would take more than half a
+  // block (L > 146), the other half left for the grid's own rows under
+  // plan 2. The pass instance runs a layer's n-tiles in passes of
+  // kPassTiles and puts a hidden layer's bf16 output in the warp's scratch
+  // (16 x HS, HS = HP + 8 columns, a row padded off the banks of the
+  // next), which adds the running column sums (LE) and two such tiles to
+  // kWarpWide's. -DGNS_PASS=1 builds the pass instance at any width
+  // (probe_k4_pass.py).
+#if defined(GNS_PASS) && GNS_PASS
+  static constexpr bool kPass = true;
+#else
+  static constexpr bool kPass = NH > 16 || kWarps * kWarpWide * 4 > kMaxShared / 2;
+#endif
   static constexpr int HS = HP + 8;
   static constexpr int kWarpPass = kRows * LE + kRows + (kRows + 1) * LE / 2 + LE + kRows * HS;
   static constexpr int kWarpW = kPass ? kWarpPass : kWarpWide;  // the wide instance's scratch
@@ -532,7 +548,7 @@ __global__ void __launch_bounds__(kThreads, Wide ? 1 : kMinGrids) megakernel(
     // the phi heads over its buses' edges, sums them, then runs the L heads
     // on the same buses and updates their state, with no block barrier.
     if constexpr (Wide && D::kPass) {
-      // ---- the pass instance (past (128, 128)): the wide plans' order of
+      // ---- the pass instance (Dims::kPass): the wide plans' order of
       // work, each layer's n-tiles in passes of kPassTiles, a hidden layer's
       // output through the warp's scratch; tiles from global memory (L2),
       // the biases from global memory too under plan 3 ----
@@ -1301,13 +1317,13 @@ extern "C" {
 // library's choice (the first that holds it) for -1. out (4 int64): the
 // plan (0: tiles, three heads' scratch and the state rows in shared
 // memory; 1: tiles read from L2, one head's scratch, the state rows in
-// shared memory; 2: as 1, the state rows in a global workspace; 3, past
-// (128, 128) only: as 2, with the warps' scratch and the biases in global
-// memory too), shared bytes a block, blocks a grid (1), workspace bytes a
+// shared memory; 2: as 1, the state rows in a global workspace; 3, the
+// pass instance only (Dims::kPass: H > 128 or L > 146): as 2, with the
+// warps' scratch and the biases in global memory too), shared bytes a block, blocks a grid (1), workspace bytes a
 // grid (workspace_floats, 0 for plans 0 and 1). Returns the plan; -1
 // where no plan holds the grid (out then describes the last plan, the
 // leanest) or `want` is not built at this width (plan 0 only for H <= 32,
-// plan 3 only past (128, 128)); -2 for another width.
+// plan 3 only in the pass instance); -2 for another width.
 int gns_megakernel_plan(int N, int E, int G, int L, int H, int want, long long* out) {
   if (!built_for(L, H)) return -2;
   const int plan = resolve_plan<kLatent, kHidden>(N, E, G, want);

@@ -12,16 +12,17 @@ of at least (1, 1) (ops/segment_kernels.py check_width refuses a width
 below 1, or one whose 32-bit offsets would overflow), each width a library
 of its own built at the first call that needs it; the plain twin takes
 any width. One grid is one block, under the first of four plans the
-library finds a grid fits (megakernel_occupancy, gns_megakernel_plan;
-`plan_layout` mirrors its bytes): 0, the step's weight tiles, the three
-heads' scratch and the state rows in shared memory (at (40, 10) a case300
-grid takes 193,664 of a block's 232,448 bytes); 1, the tiles read from L2
-and one head's scratch at a time; 2, as 1 with the grid's state rows in a
-global workspace that the wrapper allocates; 3, past (128, 128) only (the
-kernel's pass instance, whose layers run their n-tiles in passes), as 2
-with the warps' scratch and the biases in the workspace too. Every grid
-of case9 to case300 fits at every width; one that fits no plan raises
-with its bytes.
+library finds a grid fits (megakernel_occupancy, gns_megakernel_plan:
+megakernel.cu's Layout, the one source of the bytes): 0, the step's
+weight tiles, the three heads' scratch and the state rows in shared memory
+(at (40, 10) a case300 grid takes 193,664 of a block's 232,448 bytes); 1,
+the tiles read from L2 and one head's scratch at a time; 2, as 1 with the
+grid's state rows in a global workspace that the wrapper allocates; 3, in
+the kernel's pass instance only (H > 128 or L > 146, where the wide
+instance's registers or warps' scratch would outgrow their bounds; its
+layers run their n-tiles in passes), as 2 with the warps' scratch and the
+biases in the workspace too. Every grid of case9 to case300 fits at every
+width; one that fits no plan raises with its bytes.
 
   megakernel_forward_batch(model, cfg, batch, topo) -> GNSOutput
       on the model's device, from a host (numpy) GridBatch and its shared
@@ -155,64 +156,6 @@ def tile_dims(latent: int, hidden: int) -> TileDims:
     bias = [3 * hp, 3 * hp, 3 * lp, 3 * hp, 3 * hp, 16 + lp]
     return TileDims(le, hp, kh, nh, lp, nl, kp, nbw, kl, tuple(np.cumsum([0] + counts).tolist()),
                     tuple(np.cumsum([0] + bias).tolist()))
-
-
-_RED = 4 * 32 + 4  # megakernel.cu kRed: block-reduction scratch (floats)
-_WARPS = 8  # megakernel.cu kWarps
-
-
-def _up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def warp_floats(latent: int, hidden: int) -> Dict[str, int]:
-    """One warp's scratch in floats (megakernel.cu Dims): plan 0's three
-    heads ("plan0": kWarp), the wide instance's one head ("wide":
-    kWarpWide), the pass instance's ("pass": kWarpPass, which adds the
-    running column sums and two 16-row bf16 tiles of hidden units)."""
-    d = tile_dims(latent, hidden)
-    aw = 3 * d.le
-    return {"plan0": 16 * aw + 16 + 17 * aw // 2, "wide": 16 * d.le + 16 + 17 * d.le // 2,
-            "pass": 16 * d.le + 16 + 17 * d.le // 2 + d.le + 16 * (d.hp + 8)}
-
-
-def plans(latent: int, hidden: int) -> Tuple[int, ...]:
-    """The plans the width's library builds (megakernel.cu Dims kPlan0,
-    kLastPlan): 0 for H <= 32 where its tiles and scratch can fit a block;
-    1 and 2; 3 past (128, 128) on either axis, the pass instance."""
-    d, w = tile_dims(latent, hidden), warp_floats(latent, hidden)
-    plan0 = hidden <= 32 and d.tiles[-1] * 256 + _WARPS * w["plan0"] * 4 <= kern.MAX_SHARED_BYTES
-    passes = latent > 128 or hidden > 128
-    return (0,) * plan0 + (1, 2) + (3,) * passes
-
-
-def plan_layout(n: int, e: int, g: int, latent: int, hidden: int, plan: int) -> Tuple[int, int]:
-    """(shared bytes a block, workspace bytes a grid) of an (N, E, G) grid
-    under `plan` (megakernel.cu Layout, workspace_floats): the step's tiles
-    (plan 0), its biases (not plan 3), the warps' scratch or the physics
-    rows, whichever is larger (only the physics rows under plan 3), the
-    state rows (plans 0, 1), the per-grid inputs; the workspace holds the
-    state rows (plans 2, 3) and the warps' scratch (plan 3)."""
-    d, w = tile_dims(latent, hidden), warp_floats(latent, hidden)
-    wide = w["pass"] if latent > 128 or hidden > 128 else w["wide"]
-    b = d.tiles[-1] * 256 if plan == 0 else 0
-    u = b + (0 if plan == 3 else _up(d.biases[-1] * 4, 16))
-    warps = 0 if plan == 3 else _WARPS * (w["plan0"] if plan == 0 else wide) * 4
-    m = u + _up(max(warps, 5 * e * 4), 16)
-    f = m + (0 if plan >= 2 else _up(n * d.nbw * 4, 16))
-    lf = f + _up((6 * n + 5 * e + 5 * g + _RED) * 4, 16)
-    total = lf + _up(6 * e * 2, 16)
-    ws = {2: n * d.nbw, 3: _up(n * d.nbw, 4) + _up(_WARPS * w["pass"], 4)}.get(plan, 0)
-    return total, 4 * ws
-
-
-def choose_plan(n: int, e: int, g: int, latent: int, hidden: int) -> int:
-    """The first plan of the width's library that holds an (N, E, G) grid
-    in a block's shared memory (megakernel.cu choose_plan), or -1."""
-    for plan in plans(latent, hidden):
-        if plan_layout(n, e, g, latent, hidden, plan)[0] <= kern.MAX_SHARED_BYTES:
-            return plan
-    return -1
 
 
 def _tile_plan(latent: int, hidden: int) -> Tuple[np.ndarray, np.ndarray]:

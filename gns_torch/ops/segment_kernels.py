@@ -108,20 +108,13 @@ def k3_pack_floats(latent: int, hidden: int) -> int:
     return 3 * ((f + 1) * hp + (hidden + 1) * hp + (hidden + 1) * lp)
 
 
-def k4_step_tiles(latent: int, hidden: int) -> int:
-    """16 x 8 bf16 tiles of one of K4's packed steps (megakernel.cu Dims
-    kTiles, ops/megakernel.py tile_dims)."""
-    le, hp, lp = latent + latent % 2, -(-hidden // 16) * 16, -(-latent // 8) * 8
-    kh, nh, nl = hp // 16, hp // 8, lp // 8
-    kp, kl = -(-(le + 5) // 16), -(-(4 + 2 * le) // 16)
-    return 3 * nh * kp + 3 * nh * kh + 3 * nl * kh + 3 * nh * kl + 3 * nh * kh + (2 + nl) * kh
-
-
 @functools.lru_cache(maxsize=None)
 def _width_sizes(latent: int, hidden: int):
     """What K3 and K4 index with 32 bits at a width: (what, elements)."""
+    from gns_torch.ops.megakernel import tile_dims  # it imports this module
+
     return (("K3's packed weights", k3_pack_floats(latent, hidden)),
-            ("K4's packed step", k4_step_tiles(latent, hidden) * 128))
+            ("K4's packed step", tile_dims(latent, hidden).tiles[-1] * 128))
 
 
 def check_width(latent: int, hidden: int, *extents: int) -> None:

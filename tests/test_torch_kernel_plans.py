@@ -323,7 +323,7 @@ def test_k3_packed_weights_unpack_exactly(latent, hidden):
                                                                    fused._weights(heads))))
 
 
-# ---- K3 and K4: the design at each width fits a block --------------------
+# ---- K3: the design at each width fits a block --------------------------
 
 GRID = (1, 2, 7, 8, 10, 20, 24, 33, 40, 41, 64, 97, 128, 129, 136, 160, 200, 256, 300, 384, 511,
         512)
@@ -335,16 +335,11 @@ def test_designs_fit_a_block_at_every_width(latent):
     design (segment_kernels.k3_design: the register design up to 172
     register floats, the wide one while four warps' scratch fits a block,
     else the workspace, which takes no shared memory) takes at most a
-    block's 232,448 bytes, and K4's first plan that holds a case9-300 grid
-    (megakernel.choose_plan over megakernel.plan_layout, the mirror of
-    megakernel.cu's Layout) exists and fits: plan 0 only for H <= 32, plan
-    3 only past (128, 128), its workspace bytes a grid those of the state
-    rows (plans 2, 3) and warps' scratch (3)."""
-    from gns_torch.ops import megakernel as mk
-
-    sizes = [tuple(base_case_batch(c).buses.shape[1:2]) + (base_case_batch(c).lines.shape[1],
-                                                          base_case_batch(c).generators.shape[1])
-             for c in (9, 14, 30, 118, 300)]
+    block's 232,448 bytes, and the width passes check_width at case300's
+    S x N and S x E for S = 1024. K4's plans are its library's answer
+    (megakernel.cu Layout, gns_megakernel_plan), with no copy in Python:
+    chip_smoke.py holds that a case300 grid fits one at each of its
+    widths."""
     for hidden in GRID:
         design = kern.k3_design(latent, hidden)
         block = kern.k3_block_bytes(latent, hidden)
@@ -359,37 +354,20 @@ def test_designs_fit_a_block_at_every_width(latent):
             "wide": 4, "workspace": 3}.get(design, kern.min_blocks("fused_edge", latent, hidden))
         assert kern.min_blocks("fused_edge", latent, hidden) in (2, 3, 4)
         kern.check_width(latent, hidden, 1024 * 300, 1024 * 411)
-        passes = latent > 128 or hidden > 128
-        assert mk.plans(latent, hidden)[-1] == (3 if passes else 2)
-        for n, e, g in sizes:
-            plan = mk.choose_plan(n, e, g, latent, hidden)
-            shared, ws = mk.plan_layout(n, e, g, latent, hidden, plan)
-            assert plan >= 0 and shared <= kern.MAX_SHARED_BYTES, (latent, hidden, n, plan, shared)
-            assert plan != 0 or hidden <= 32
-            d = mk.tile_dims(latent, hidden)
-            want_ws = {2: n * d.nbw * 4}.get(plan, 0)
-            if plan == 3:
-                assert ws > n * d.nbw * 4 and ws % 16 == 0
-            else:
-                assert ws == want_ws
 
 
-def test_k4_plan_layout_mirrors_the_library():
-    """megakernel.plan_layout gives the bytes K4's library read on the card
-    (NVIDIA H100 80GB HBM3, chip_smoke.py phases 7 and 7b) for a case300
-    grid, and choose_plan its plan: (20, 10) plan 0, 114,176 bytes; (40, 10)
-    plan 0, 193,664; (64, 32) plan 1, 157,184; (97, 40) plan 1, 226,048;
-    (128, 128) plan 2, 131,392 bytes and 158,400 of workspace a grid. And
-    K4's tile count per step is the same in segment_kernels' size check
-    and megakernel.tile_dims."""
+def test_k4_step_offsets_are_checked():
+    """check_width counts K4's packed step from megakernel.tile_dims (16 x
+    8 bf16 tiles a step): at (40000, 4000) the step holds 2,176,448,000
+    elements, past 2^31, while K3's packed weights (1,008,204,000 floats)
+    are not, so the refusal names K4's step; at (12000, 12000) K4's step
+    (2,737,344,000) is refused first too."""
     from gns_torch.ops import megakernel as mk
 
-    batch = base_case_batch(300)
-    n, e, g = batch.buses.shape[1], batch.lines.shape[1], batch.generators.shape[1]
-    read = {(20, 10): (0, 114176, 0), (40, 10): (0, 193664, 0), (64, 32): (1, 157184, 0),
-            (97, 40): (1, 226048, 0), (128, 128): (2, 131392, 158400)}
-    for (latent, hidden), (plan, shared, ws) in read.items():
-        assert mk.choose_plan(n, e, g, latent, hidden) == plan
-        assert mk.plan_layout(n, e, g, latent, hidden, plan) == (shared, ws)
-    for latent, hidden in ((1, 1), (20, 10), (129, 8), (200, 136), (512, 512), (64, 512)):
-        assert kern.k4_step_tiles(latent, hidden) == mk.tile_dims(latent, hidden).tiles[-1]
+    for latent, hidden in ((40000, 4000), (12000, 12000)):
+        tiles = mk.tile_dims(latent, hidden).tiles[-1]
+        assert tiles * 128 >= kern.INDEX_LIMIT > kern.k3_pack_floats(latent, hidden)
+        with pytest.raises(ValueError, match=f"K4's packed step at .* is {tiles * 128} elements"):
+            kern.check_width(latent, hidden)
+    kern.check_width(60000, 1)  # both packs under 2^31
+    assert mk.tile_dims(60000, 1).tiles[-1] * 128 < kern.INDEX_LIMIT

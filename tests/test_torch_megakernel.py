@@ -197,9 +197,9 @@ def test_k4_width_range():
     wrapper refuses CPU tensors before any library is built or loaded. Its
     packing, so its plain twin, takes any width of at least 1. Whether a
     grid fits one of the kernel's plans is the library's answer
-    (megakernel.cu's Layout, mirrored by megakernel.plan_layout), read on
-    the card: chip_smoke.py runs K4 up to (512, 512) on case300 and holds
-    it at (0, 8) and (8, 0) to raise there."""
+    (megakernel.cu's Layout, gns_megakernel_plan), read on the card:
+    chip_smoke.py runs K4 up to (512, 512) on case300 and holds it at (0,
+    8) and (8, 0) to raise there."""
     from gns_torch.models.gns import GNS
     from gns_torch.ops import megakernel as mk
 
