@@ -89,8 +89,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      (after a 128 MB write), and K3's registers, shared bytes per block and
      blocks per SM; K3 and K4 at (40, 10) with `300-deep` against their
      bounds and plain twins.
-  9. train: the trainer (gns_torch/train/trainer.py) at bench.py's model,
-     case300 K=4 latent 20 hidden 10 multiple phi, batch 256 (the grids of
+  9. train: the trainer (gns_torch/train/trainer.py) at the benchmark's
+     model (benchmark/configs/gns-k4-l20-h10-c300.json), case300 K=4
+     latent 20 hidden 10 multiple phi, batch 256 (the grids of
      generate_cases(300, 255, seed=0), one shared topology, dense), from
      GNS(cfg, seed=0), in two configurations: A, float32 with reference
      parity (TF32 off); B, bench.py's default, bfloat16 MLPs with the paper
@@ -148,9 +149,6 @@ Phases, each printing its own lines; any failure exits non-zero:
      compact_after="auto" resolves to; then, in a process of its own
      (`chip_smoke.py --solve-timing CASES.npz`), the busy and idle share
      of one flat solve from one profiler trace.
- 12. bench: `python -m gns_torch.bench` in a process of its own; its one
-     JSON line must parse with bench.py's keys and finite values, and is
-     printed beside the train phase's replay reading of config B.
  13. screen: the contingency screens (gns_torch/eval/contingency.py,
      eval/n2.py) on the authentic case118 at full size: (a) screen_n1 over
      its 239 branch and generator outages, method "auto" and "nr",
@@ -2179,8 +2177,9 @@ def phase_timing(kern, seg, cases, model, cfg, card):
 
 
 def train_configs() -> dict:
-    """Config A: case300 K=4 latent 20 hidden 10 multiple phi (bench.py:35-84's
-    model), float32, reference parity; B: bench.py's default
+    """Config A: case300 K=4 latent 20 hidden 10 multiple phi (the model of
+    benchmark/configs/gns-k4-l20-h10-c300.json), float32, reference parity;
+    B: bench.py's default
     (bench.py:50-52, 78-82), bfloat16 MLPs and the paper physics, the fold
     on by "auto"."""
     from gns_torch.utils.config import GNSConfig
@@ -2964,28 +2963,6 @@ def solve_timing_child(path: str) -> int:
         f"solve in {len(spans) / 2:.1f} device activities; idle {100 * (1 - busy / sum(traced)):.1f}% "
         f"of the traced windows, {100 * (1 - busy / sum(untraced)):.1f}% of the untraced (card: {card})")
     return 0
-
-
-def phase_bench(train: dict, card) -> dict:
-    """`python -m gns_torch.bench` in a process of its own: its one JSON
-    line must parse with bench.py's keys and finite values; it is printed
-    beside the train phase's replay reading of config B, the same model,
-    batch and dtype."""
-    keys = {"metric", "value", "unit", "vs_baseline", "achieved_tflops", "mfu_bf16", "hbm_bw_util"}
-    t0 = time.perf_counter()
-    lines = run_child(["-m", "gns_torch.bench"], "bench", 600, module=True)
-    printed = [x for x in lines if x.startswith('{"metric"')]
-    check(len(printed) == 1, f"bench printed {len(printed)} JSON lines")
-    line = json.loads(printed[0])
-    check(set(line) == keys, f"bench printed keys {sorted(line)}")
-    check(line["metric"] == f"train_edges_per_sec_case{CASE}_K4_b{S_TRAIN}", f"bench metric {line['metric']}")
-    check(all(np.isfinite(line[k]) and line[k] > 0 for k in keys - {"metric", "unit"}),
-          f"bench values not finite and positive: {line}")
-    replay = train["B"]["replay_edges_per_s"]
-    log(f"[bench] python -m gns_torch.bench: {json.dumps(line)} in {time.perf_counter() - t0:.1f} s; "
-        f"the train phase's replay of config B (the same model, batch and dtype, {TRAIN_STEPS} steps): "
-        f"{replay:.4e} train edges/s (card: {card})")
-    return line
 
 
 class Compactions:
@@ -4488,7 +4465,6 @@ def main() -> int:
     phase_train_child(train)
     evals = phase_eval(kern, seg, card)
     solves = phase_solve(kern, seg, card)
-    phase_bench(train, card)
     screens = phase_screen(kern, seg, card)
     parallel = phase_parallel(card)
     data = phase_data(kern, seg, card)

@@ -36,6 +36,7 @@ from gns_torch.ops.segment import check_method
 from gns_torch.parallel.solver_dp import dp_block, dp_group, dp_size
 from gns_torch.physics.common import build_graph
 from gns_torch.physics.fused import stack_switches
+from gns_torch.utils import profiling
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
@@ -91,11 +92,13 @@ class GNSPredictor:
 
     def _graph_for(self, batch, topo):
         if topo is None:
+            profiling.count("serve.index_builds")
             return build_graph(batch.buses, batch.lines, batch.generators, None, self.device)
         key = (batch.buses.shape, batch.lines.shape, batch.generators.shape,
                topo.src.tobytes(), topo.dst.tobytes(), topo.gen_idx.tobytes(), stack_switches())
         graph = self._compiled.get(key)
         if graph is None:
+            profiling.count("serve.index_builds")
             graph = build_graph(batch.buses, batch.lines, batch.generators, topo, self.device)
             self._compiled[key] = graph
         return graph
@@ -120,34 +123,37 @@ class GNSPredictor:
         """
         if not cases:
             raise ValueError("empty request")
-        outs = []
-        for lo in range(0, len(cases), self.batch_size):
-            chunk = cases[lo:lo + self.batch_size]
-            padded = chunk + [chunk[-1]] * (self.batch_size - len(chunk))
-            batch = batch_from_cases(padded, paper_shunts=not self.cfg.true_shunts)
-            topo = extract_shared_topology(batch)
-            dense = batch.is_dense()
-            if self.mesh is not None:
-                lo, hi = dp_block(self.mesh, self.batch_size)
-                batch = type(batch)(*(a[lo:hi] for a in batch))
-            graph = self._graph_for(batch, topo)
-            with torch.no_grad():
-                out = gns_forward(
-                    self.steps, self.cfg, batch_tensors(batch, self.device), graph,
-                    dense=dense, method=self.method,
-                )
-            if self.mesh is not None:
-                out = self._gather(out)
-            outs.append((out, len(chunk)))
-        v = np.concatenate([o.v[:k].cpu().numpy() for o, k in outs])
-        theta = np.concatenate([o.theta[:k].cpu().numpy() for o, k in outs])
-        if self.align_slack:
-            theta = np.stack([align_slack_angle(t, c) for t, c in zip(theta, cases)])
-        return {
-            "v": v,
-            "theta": theta,
-            "last_loss": np.concatenate([o.last_loss[:k].cpu().numpy() for o, k in outs]),
-        }
+        span = profiling.span
+        with span("serve.predict"):
+            outs = []
+            for lo in range(0, len(cases), self.batch_size):
+                chunk = cases[lo:lo + self.batch_size]
+                padded = chunk + [chunk[-1]] * (self.batch_size - len(chunk))
+                batch = batch_from_cases(padded, paper_shunts=not self.cfg.true_shunts)
+                with span("pack.topology"):
+                    topo = extract_shared_topology(batch)
+                    dense = batch.is_dense()
+                if self.mesh is not None:
+                    lo, hi = dp_block(self.mesh, self.batch_size)
+                    batch = type(batch)(*(a[lo:hi] for a in batch))
+                with span("serve.graph"):
+                    graph = self._graph_for(batch, topo)
+                with span("serve.upload"):
+                    inputs = batch_tensors(batch, self.device)
+                with torch.no_grad(), span("serve.forward"):
+                    out = gns_forward(self.steps, self.cfg, inputs, graph, dense=dense,
+                                      method=self.method)
+                if self.mesh is not None:
+                    out = self._gather(out)
+                outs.append((out, len(chunk)))
+            with span("serve.readback"):
+                v = np.concatenate([o.v[:k].cpu().numpy() for o, k in outs])
+                theta = np.concatenate([o.theta[:k].cpu().numpy() for o, k in outs])
+                last_loss = np.concatenate([o.last_loss[:k].cpu().numpy() for o, k in outs])
+            if self.align_slack:
+                with span("serve.decode"):
+                    theta = np.stack([align_slack_angle(t, c) for t, c in zip(theta, cases)])
+        return {"v": v, "theta": theta, "last_loss": last_loss}
 
 
 def predict(

@@ -40,6 +40,7 @@ from gns_torch.physics.common import build_graph
 from gns_torch.physics.fused import stack_switches
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch, extract_shared_topology
+from gns_torch.utils.profiling import count, span
 
 # optax.adam's and optax.adagrad's defaults (gns_tpu calls both with them)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -367,6 +368,10 @@ def _epoch_fn(core, topo) -> Callable:
     per_batch = {}  # without a shared topology: the last stacked data's index sets
 
     def epoch_fn(state: TrainState, batches: GridBatch, *extra):
+        with span("train.epoch"):
+            return run_epoch(state, batches, *extra)
+
+    def run_epoch(state: TrainState, batches: GridBatch, *extra):
         device = _device(state)
         n = batches.buses.shape[0]
         if device.type != "cuda" or topo is None:
@@ -381,7 +386,8 @@ def _epoch_fn(core, topo) -> Callable:
             for i in range(n):
                 batch = GridBatch(*(a[i] for a in batches))
                 graph = per_batch["graphs"][i] if topo is None else graphs(batch, device)
-                loss, last = core(state, _on(batch, device), graph, *(x[i] for x in extra))
+                with span("train.step"):
+                    loss, last = core(state, _on(batch, device), graph, *(x[i] for x in extra))
                 losses.append(loss)
                 lasts.append(last)
             return state, {"loss": torch.stack(losses), "last_loss": torch.stack(lasts)}
@@ -394,14 +400,19 @@ def _epoch_fn(core, topo) -> Callable:
                tuple((a.shape, a.dtype) for a in sample), stack_switches())
         if key not in captured:
             captured.clear()  # a graph holds its state's tensors and its memory pool
-            captured[key] = _capture(core, state, graphs(GridBatch(*sample[:_NB]), device), sample)
+            with span("train.capture"):
+                captured[key] = _capture(core, state, graphs(GridBatch(*sample[:_NB]), device),
+                                         sample)
+            count("train.captures")
         cap = captured[key]
         losses = xs.buses.new_empty((n,))
         lasts = xs.buses.new_empty((n,))
         for i in range(n):
-            for dst, src in zip(cap.inputs, flat):
-                dst.copy_(src[i])
-            cap.graph.replay()
+            with span("train.copy_in"):
+                for dst, src in zip(cap.inputs, flat):
+                    dst.copy_(src[i])
+            with span("train.replay"):
+                cap.graph.replay()
             losses[i].copy_(cap.loss)
             lasts[i].copy_(cap.last_loss)
         return state, {"loss": losses, "last_loss": lasts}

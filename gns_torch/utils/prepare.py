@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 
 from gns_torch.utils import cases as case_tables
+from gns_torch.utils import profiling
 
 DEFAULT_DATA_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -242,10 +243,10 @@ def load_prepared(
 
 def batch_from_cases(case_dicts, pad_sizes=None, paper_shunts=True) -> GridBatch:
     """Build a (possibly mixed-size, padded) batch straight from case dicts."""
-    return _stack_to_batch(
-        [prepare_case(c, paper_shunts=paper_shunts) for c in case_dicts],
-        pad_sizes,
-    )
+    with profiling.span("pack.prepare"):
+        triples = [prepare_case(c, paper_shunts=paper_shunts) for c in case_dicts]
+    with profiling.span("pack.stack"):
+        return _stack_to_batch(triples, pad_sizes)
 
 
 def base_case_batch(case_nr: int) -> GridBatch:

@@ -1,37 +1,226 @@
 """Profiling and observability (port of gns_tpu/utils/profiling.py).
 
-A torch.profiler trace capture, a synchronised step timer, a roofline
-estimate of one training step against the H100's peaks, and a NaN guard.
-The reference's only instrumentation is perf_counter around inference
-(GNS/evaluate.py:33-36).
+The program's tracer: host spans and counters that the serving and training
+paths record around the calls where their work happens, a torch.profiler
+trace that puts them on one timeline with the device's kernels, and a NaN
+guard. The reference's only instrumentation is perf_counter around
+inference (GNS/evaluate.py:33-36).
+
+Spans and counters record only while `recording()` is open or a
+torch.profiler session is recording; otherwise a span is one flag check
+and a shared do-nothing context. They are host-only: no profiler
+annotation, no CUDA event, no synchronise, so they neither add device
+activity to a trace nor disturb a CUDA graph being captured. Each span
+records its name, its start and end on the profiler's clock (time.time_ns,
+unix ns), its parent span and its unit: the id of the root span that
+caused it (one per GNSPredictor.predict call, one per epoch call). The
+last RING spans and counts are kept in memory.
+
+Spans of the serving path (serve.py, utils/prepare.py):
+
+    serve.predict    the root, one per predict call
+      pack.prepare   the per-grid prepare_case calls of batch_from_cases
+      pack.stack     _stack_to_batch: the grids into one padded batch
+      pack.topology  extract_shared_topology and is_dense
+      serve.graph    the index sets (counter serve.index_builds on a build)
+      serve.upload   batch_tensors: the batch copied to the device
+      serve.forward  gns_forward, host side: the kernels queued
+      serve.readback v, theta and last_loss to the host (waits for the device)
+      serve.decode   align_slack_angle per grid
+
+and of the training epoch (train/trainer.py make_epoch_step):
+
+    train.epoch      the root, one per epoch call
+      train.capture  a CUDA graph captured (counter train.captures)
+      train.copy_in  a batch copied into the graph's static inputs
+      train.replay   CUDAGraph.replay
+      train.step     an eager update step (no shared topology, or the CPU)
+
+A request's or an epoch's breakdown:
+
+    from gns_torch.utils import profiling
+
+    with profiling.recording():
+        predictor.predict(cases)
+    rec = profiling.recorded()
+    rec.seconds()   # {"serve.predict": ..., "pack.prepare": ..., ...}
+    rec.counted()   # {"serve.index_builds": 0}
+
+and on one timeline with the device's kernels (Chrome / Perfetto):
+
+    with profiling.trace("build/torch_trace"):
+        predictor.predict(cases)
+
+writes trace.json with the program's spans on a track of their own.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
-from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-# NVIDIA H100 SXM peaks (data sheet, dense, at its 700 W limit), used for
-# speed-of-light estimates.
-H100_PEAK_BF16_TFLOPS = 989.0  # tensor cores
-H100_PEAK_F32_TFLOPS = 67.0  # outside the tensor cores
-H100_HBM_GBPS = 3350.0
+RING = 65_536  # spans (and, apart, counts) kept in memory
 
 DEFAULT_TRACE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_trace",
 )
+TRACE_PID = 0x6E5  # the trace.json process whose track holds the program's spans
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int  # time.time_ns(): the clock of the profiler's events
+    end_ns: int
+    id: int
+    parent: int  # the enclosing span's id; 0 for a root
+    unit: int  # the root's id: every span one root caused shares it
+
+
+class Count(NamedTuple):
+    name: str
+    t_ns: int
+    n: int
+    unit: int  # the unit of the innermost open span; 0 where none was open
+
+
+class Recorded(NamedTuple):
+    """What the tracer holds: spans in the order they ended, counts in the
+    order they were made."""
+
+    spans: List[Span]
+    counts: List[Count]
+
+    def seconds(self, unit: Optional[int] = None) -> Dict[str, float]:
+        """Seconds per span name, of one unit or of all."""
+        out = collections.defaultdict(float)
+        for s in self.spans:
+            if unit is None or s.unit == unit:
+                out[s.name] += (s.end_ns - s.start_ns) / 1e9
+        return dict(out)
+
+    def counted(self, unit: Optional[int] = None) -> Dict[str, int]:
+        """Each counter's total, of one unit or of all."""
+        out = collections.defaultdict(int)
+        for c in self.counts:
+            if unit is None or c.unit == unit:
+                out[c.name] += c.n
+        return dict(out)
+
+
+class _Off:
+    """The context a span is while nothing records: shared, does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("tracer", "name", "id", "parent", "unit", "start")
+
+    def __init__(self, tracer: "Tracer", name: str):
+        self.tracer = tracer
+        self.name = name
+
+    def __enter__(self):
+        stack = self.tracer._stack()
+        self.id = next(self.tracer._ids)
+        self.parent, self.unit = (stack[-1].id, stack[-1].unit) if stack else (0, self.id)
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        self.tracer._stack().pop()
+        self.tracer._spans.append(
+            Span(self.name, self.start, end, self.id, self.parent, self.unit))
+        return False
+
+
+class Tracer:
+    """Spans and counts in bounded rings of `ring` entries each. The
+    module's functions use one process-wide tracer; a test may make its
+    own."""
+
+    def __init__(self, ring: int = RING):
+        self._spans = collections.deque(maxlen=ring)
+        self._counts = collections.deque(maxlen=ring)
+        self._ids = itertools.count(1)
+        self._local = threading.local()  # .open: this thread's open spans
+        self._depth = 0  # open recording() blocks
+        self._lock = threading.Lock()  # guards _depth
+
+    def _stack(self) -> list:
+        try:
+            return self._local.open
+        except AttributeError:
+            self._local.open = []
+            return self._local.open
+
+    def span(self, name: str):
+        """A context manager timing the block as span `name`, if anything
+        records when it is entered."""
+        if self._depth or _autograd_profiler._is_profiler_enabled:
+            return _Span(self, name)
+        return _OFF
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add n to counter `name`, if anything records."""
+        if self._depth or _autograd_profiler._is_profiler_enabled:
+            stack = self._stack()
+            self._counts.append(Count(name, time.time_ns(), n, stack[-1].unit if stack else 0))
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record spans and counts inside the block. The outermost block
+        starts a fresh record."""
+        with self._lock:
+            if not self._depth:
+                self._spans.clear()
+                self._counts.clear()
+            self._depth += 1
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._depth -= 1
+
+    def recorded(self) -> Recorded:
+        return Recorded(list(self._spans), list(self._counts))
+
+
+_TRACER = Tracer()
+span = _TRACER.span
+count = _TRACER.count
+recording = _TRACER.recording
+recorded = _TRACER.recorded
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = DEFAULT_TRACE_DIR):
     """Profile the block (CPU and, where there is a card, CUDA activity)
-    and write a Chrome / Perfetto trace to `log_dir`/trace.json. Yields
-    the directory."""
+    and write a Chrome / Perfetto trace to `log_dir`/trace.json, with the
+    program's spans of the session as complete events on a track of their
+    own ("gns_torch spans") and its counts as counter events, on the
+    profiler's clock. Yields the directory."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -40,108 +229,36 @@ def trace(log_dir: str = DEFAULT_TRACE_DIR):
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield log_dir
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_program_track(path, recorded(), prof.profiler.kineto_results.trace_start_ns())
 
 
-def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-def time_step(fn, *args, iters: int = 10, warmup: int = 2) -> float:
-    """Mean wall seconds per call of fn(*args): `warmup` calls, then
-    `iters` timed calls closed by a device synchronise (CUDA work is
-    asynchronous)."""
-    for _ in range(warmup):
-        fn(*args)
-    _sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args)
-    _sync()
-    return (time.perf_counter() - t0) / iters
-
-
-@dataclass
-class Roofline:
-    flops: float  # per step
-    hbm_bytes: float  # per step
-    sec: float  # measured
-
-    @property
-    def achieved_tflops(self) -> float:
-        return self.flops / self.sec / 1e12
-
-    @property
-    def achieved_gbps(self) -> float:
-        return self.hbm_bytes / self.sec / 1e9
-
-    @property
-    def hbm_bound_frac(self) -> float:
-        """Fraction of the H100's memory rate achieved."""
-        return self.achieved_gbps / H100_HBM_GBPS
-
-    @property
-    def mfu_bf16(self) -> float:
-        """Model FLOP utilization against the H100's bf16 tensor-core peak."""
-        return self.achieved_tflops / H100_PEAK_BF16_TFLOPS
-
-    def summary(self) -> str:
-        return (
-            f"{self.sec*1e6:.0f} us/step | {self.achieved_tflops:.2f} TFLOP/s | "
-            f"{self.achieved_gbps:.0f} GB/s HBM ({self.hbm_bound_frac*100:.0f}% of H100 peak)"
-        )
-
-
-def train_step_roofline(cfg, batch, sec: float, fwd_only: bool = False) -> Roofline:
-    """Analytic FLOP / byte estimate of one GNS train step on `batch`.
-
-    Counts the dominant terms: the per-K-step MLP matmuls on E and N rows
-    and the trig physics messages, with the backward counted as 2x the
-    forward's (the standard estimate), and the aggregation at the buses.
-
-    The aggregation is counted as the work a segment-sum does: one add per
-    edge per aggregated column (3H columns with the aggregate-then-project
-    fold, 3L with multiple phi heads, 1 with the single phi head), reading
-    each edge's row and its CSR id once and writing each bus's row once,
-    in both branches. Its backward is a gather of the same bytes and no
-    adds. gns_tpu counts the TPU's one-hot (N, E) contraction here, 2*N*E
-    multiply-adds per column, which bench.py puts at about 69% of the
-    step's FLOPs; K1 on the card never does that work, so a count of it
-    would report a utilization made of work the H100 does not do.
-    """
-    s, n, _ = batch.buses.shape
-    e = batch.lines.shape[1]
-    L, H, K = cfg.latent_dim, cfg.hidden_dim, cfg.K
-    phi_in, upd_in = cfg.phi_in_dim, cfg.update_in_dim
-
-    def mlp(rows, din, dout):
-        return 2 * rows * (din * H + H * H + H * dout)
-
-    n_phi = 3 if cfg.multiple_phi else 1
-    if cfg.resolved_fold_output and cfg.multiple_phi and cfg.fused_heads:
-        # aggregate-then-project fold: phi runs layers 1-2 only (fused trio
-        # width 3H), the aggregation sums 3H columns, and L's first layer
-        # consumes [base | agg3H | deg] (see models/gns.py)
-        h3 = 3 * H
-        base = 4 + L
-        phi_flops = 2 * e * (phi_in * h3 + h3 * h3)
-        upd_flops = 2 * n * ((base + h3 + 1) * h3 + h3 * h3 + h3 * (2 + L))
-        agg_cols = h3
-    else:
-        phi_flops = n_phi * mlp(e, phi_in, L if cfg.multiple_phi else 1)
-        upd_flops = mlp(n, upd_in, 1) * 2 + mlp(n, upd_in, L)
-        agg_cols = n_phi * L if cfg.multiple_phi else 1
-    agg_adds = e * agg_cols  # one add per edge per column
-    elt = 2 if cfg.compute_dtype == "bfloat16" else 4  # the aggregated rows' type
-    agg_bytes = e * agg_cols * elt + e * 4 + (n + 1) * 4 + n * agg_cols * 4
-    trig_flops = 40 * e  # physics messages, ~10 trig ops x amortized cost
-    dense_flops = (phi_flops + upd_flops + trig_flops) * K * s
-    total_flops = dense_flops * (1 if fwd_only else 3) + agg_adds * K * s
-
-    state_bytes = 4 * s * (n * (6 + 2 + L) + e * 7 + batch.generators.shape[1] * 7)
-    hbm = (state_bytes + agg_bytes * s) * K * (1 if fwd_only else 2)  # rough per-step traffic
-    return Roofline(flops=float(total_flops), hbm_bytes=float(hbm), sec=sec)
+def _add_program_track(path: str, rec: Recorded, start_ns: int) -> None:
+    """Append to the Chrome trace at `path` the spans and counts recorded
+    from start_ns on. The file's "ts" are microseconds after its
+    baseTimeNanoseconds (absolute where it has none), on the clock of
+    time.time_ns."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "process_name", "pid": TRACE_PID,
+                   "args": {"name": "gns_torch spans"}})
+    for s in sorted(rec.spans, key=lambda s: s.start_ns):
+        if s.start_ns >= start_ns:
+            events.append({"ph": "X", "cat": "gns_torch", "name": s.name, "pid": TRACE_PID,
+                           "tid": 1, "ts": (s.start_ns - base) / 1e3,
+                           "dur": (s.end_ns - s.start_ns) / 1e3,
+                           "args": {"id": s.id, "parent": s.parent, "unit": s.unit}})
+    totals = collections.defaultdict(int)
+    for c in rec.counts:
+        if c.t_ns >= start_ns:
+            totals[c.name] += c.n
+            events.append({"ph": "C", "name": c.name, "pid": TRACE_PID, "ts": (c.t_ns - base) / 1e3,
+                           "args": {c.name: totals[c.name]}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def assert_finite(tree, name: str = "tree") -> None:

@@ -1,90 +1,163 @@
-"""gns_torch's profiling module (utils/profiling.py) and its bench entry
-point (python -m gns_torch.bench), on the CPU.
-
-The roofline's counts are checked against the arithmetic written out by
-hand for a small batch (4 case14 grids: N=14, E=20, G=5), in both of its
-branches; the bench CLI runs the plain path at case14, K=2, batch 4, 2
-steps, and must print one JSON line with bench.py's keys.
-"""
+"""gns_torch's profiling module (utils/profiling.py) on the CPU: the
+tracer's spans and counts (off by default; on inside `recording()` or a
+torch.profiler session; nesting, units, the ring's bound; host-only), the
+trace exporter's program track on the profiler's clock, and the NaN
+guard."""
 
 import json
 import os
-import subprocess
-import sys
+import time
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from gns_torch.utils import profiling
-from gns_torch.utils.augment import generate_cases
-from gns_torch.utils.config import GNSConfig
-from gns_torch.utils.prepare import batch_from_cases
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "achieved_tflops", "mfu_bf16",
-              "hbm_bw_util"}
 
 
-@pytest.fixture(scope="module")
-def batch():
-    b = batch_from_cases(list(generate_cases(14, 3, seed=0)))
-    assert (b.buses.shape, b.lines.shape, b.generators.shape) == ((4, 14, 6), (4, 20, 7), (4, 5, 7))
-    return b
+def test_spans_are_off_by_default():
+    before = profiling.recorded()
+    with profiling.span("off.outer"):
+        with profiling.span("off.inner"):
+            profiling.count("off.count")
+    after = profiling.recorded()
+    assert after == before
+    # off, a span is one shared do-nothing context: nothing is allocated
+    assert profiling.span("a") is profiling.span("b")
 
 
-def test_roofline_counts_unfolded(batch):
-    """float32 parity, three phi heads of width L=8 (H=8, K=2): the phi and
-    L MLPs and the trig term x K x S, tripled for the backward; the
-    segment-sum's 24 columns x 20 edges adds once (its backward is a
-    gather); bytes: the state and the segment-sum's rows, ids and sums."""
-    cfg = GNSConfig(case_nr=14, K=2, latent_dim=8, hidden_dim=8, multiple_phi=True,
-                    reference_parity=True)
-    assert not cfg.resolved_fold_output
-    rl = profiling.train_step_roofline(cfg, batch, sec=1e-3)
-    phi = 3 * 2 * 20 * (13 * 8 + 8 * 8 + 8 * 8)  # 3 heads, E rows, in 13 = L + 5
-    upd = 2 * (2 * 14 * (20 * 8 + 64 + 8 * 1)) + 2 * 14 * (20 * 8 + 64 + 8 * 8)  # in 4 + 2L
-    trig = 40 * 20
-    adds = 20 * 24  # one add per edge per aggregated column (3 x L)
-    assert rl.flops == (phi + upd + trig) * 2 * 4 * 3 + adds * 2 * 4
-    state = 4 * 4 * (14 * (6 + 2 + 8) + 20 * 7 + 5 * 7)
-    agg = 20 * 24 * 4 + 20 * 4 + 15 * 4 + 14 * 24 * 4  # rows, CSR ids, indptr, sums
-    assert rl.hbm_bytes == (state + 4 * agg) * 2 * 2
-    assert rl.flops == 1196544 and rl.hbm_bytes == 80000
+def test_spans_record_inside_recording():
+    with profiling.recording():
+        with profiling.span("rec.outer"):
+            time.sleep(0.001)
+            profiling.count("rec.count", 3)
+        profiling.count("rec.count")
+    rec = profiling.recorded()
+    assert [s.name for s in rec.spans] == ["rec.outer"]
+    span = rec.spans[0]
+    assert span.end_ns - span.start_ns >= 1_000_000 and span.parent == 0 and span.unit == span.id
+    assert rec.counted() == {"rec.count": 4}
+    assert rec.counted(span.unit) == {"rec.count": 3}  # the second count had no open span
+    assert rec.seconds()["rec.outer"] == pytest.approx((span.end_ns - span.start_ns) / 1e9)
+    with profiling.span("rec.after"):
+        pass
+    assert profiling.recorded() == rec  # closed: nothing more records
+    with profiling.recording():
+        pass
+    assert profiling.recorded().spans == []  # the outermost block starts a fresh record
 
 
-def test_roofline_counts_folded(batch):
-    """bfloat16, the paper physics, fold on: phi runs layers 1-2 (width 3H
-    = 24), the segment-sum aggregates 24 bf16 columns, L's first layer
-    takes [base | agg | deg]."""
-    cfg = GNSConfig(case_nr=14, K=2, latent_dim=8, hidden_dim=8, multiple_phi=True,
-                    compute_dtype="bfloat16", reference_parity=False)
-    assert cfg.resolved_fold_output
-    rl = profiling.train_step_roofline(cfg, batch, sec=1e-3)
-    phi = 2 * 20 * (13 * 24 + 24 * 24)
-    upd = 2 * 14 * ((12 + 24 + 1) * 24 + 24 * 24 + 24 * (2 + 8))
-    trig = 40 * 20
-    adds = 20 * 24
-    assert rl.flops == (phi + upd + trig) * 2 * 4 * 3 + adds * 2 * 4 == 2020608
-    state = 4 * 4 * (14 * 16 + 20 * 7 + 5 * 7)
-    agg = 20 * 24 * 2 + 20 * 4 + 15 * 4 + 14 * 24 * 4
-    assert rl.hbm_bytes == (state + 4 * agg) * 2 * 2 == 64640
-    fwd = profiling.train_step_roofline(cfg, batch, sec=1e-3, fwd_only=True)
-    assert fwd.flops == (phi + upd + trig) * 8 + adds * 8 and fwd.hbm_bytes == rl.hbm_bytes / 2
+def test_spans_record_under_the_profiler():
+    with profiling.recording():  # a fresh record
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("prof.outer"):
+            torch.ones(8).sum()
+            profiling.count("prof.count")
+    rec = profiling.recorded()
+    assert [s.name for s in rec.spans] == ["prof.outer"]
+    assert rec.counted() == {"prof.count": 1}
+    # host-only: the span is no profiler event (no annotation, no device work)
+    assert not [e for e in prof.events() if e.name.startswith("prof.")]
 
 
-def test_roofline_reads_the_h100_peaks():
-    rl = profiling.Roofline(flops=989e12, hbm_bytes=3.35e12, sec=2.0)
-    assert rl.achieved_tflops == pytest.approx(494.5)
-    assert rl.mfu_bf16 == pytest.approx(0.5)
-    assert rl.hbm_bound_frac == pytest.approx(0.5)
-    assert "of H100 peak" in rl.summary()
+def test_span_tree_nests_and_shares_one_unit_per_root():
+    with profiling.recording():
+        for _ in range(2):
+            with profiling.span("tree.root"):
+                with profiling.span("tree.a"):
+                    with profiling.span("tree.a1"):
+                        profiling.count("tree.count")
+                with profiling.span("tree.b"):
+                    pass
+    rec = profiling.recorded()
+    by_id = {s.id: s for s in rec.spans}
+    roots = [s for s in rec.spans if s.parent == 0]
+    assert [r.name for r in roots] == ["tree.root", "tree.root"]
+    assert roots[0].unit != roots[1].unit
+    for s in rec.spans:
+        if s.parent:
+            parent = by_id[s.parent]
+            assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+            assert s.unit == parent.unit
+    names = {(by_id[s.parent].name if s.parent else None, s.name) for s in rec.spans}
+    assert names == {(None, "tree.root"), ("tree.root", "tree.a"), ("tree.a", "tree.a1"),
+                     ("tree.root", "tree.b")}
+    assert [rec.counted(r.unit) for r in roots] == [{"tree.count": 1}] * 2
+
+
+def test_ring_is_bounded():
+    tracer = profiling.Tracer(ring=8)
+    with tracer.recording():
+        for i in range(20):
+            with tracer.span(f"ring.{i}"):
+                tracer.count("ring.count")
+    rec = tracer.recorded()
+    assert [s.name for s in rec.spans] == [f"ring.{i}" for i in range(12, 20)]
+    assert len(rec.counts) == 8
+    assert profiling.RING == 65_536
+
+
+def test_spans_of_threads_nest_apart():
+    import threading
+
+    tracer = profiling.Tracer()
+    ready = threading.Barrier(2, timeout=10)
+
+    def worker(tag):
+        with tracer.span(f"thread.{tag}"):
+            ready.wait()
+            with tracer.span(f"thread.{tag}.child"):
+                ready.wait()
+
+    with tracer.recording():
+        threads = [threading.Thread(target=worker, args=(t,)) for t in "ab"]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    spans = {s.name: s for s in tracer.recorded().spans}
+    for tag in "ab":
+        assert spans[f"thread.{tag}.child"].parent == spans[f"thread.{tag}"].id
+
+
+def test_trace_json_puts_program_spans_on_the_profilers_clock(tmp_path):
+    """A program span around a record_function("probe") block encloses the
+    probe's event in trace.json to 50 us; counts appear as counter events."""
+    with profiling.trace(str(tmp_path / "t")) as d:
+        with profiling.span("clock.outer"):
+            with record_function("probe"):
+                time.sleep(0.002)
+            profiling.count("clock.count", 2)
+    with open(os.path.join(d, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    probe = [e for e in events if e.get("name") == "probe" and e.get("ph") == "X"]
+    outer = [e for e in events if e.get("name") == "clock.outer"]
+    assert len(probe) == 1 and len(outer) == 1
+    p, o = probe[0], outer[0]
+    assert o["pid"] == profiling.TRACE_PID and o["ph"] == "X" and o["cat"] == "gns_torch"
+    assert o["ts"] <= p["ts"] + 50 and p["ts"] + p["dur"] <= o["ts"] + o["dur"] + 50
+    assert p["dur"] >= 2000
+    counter = [e for e in events if e.get("name") == "clock.count"]
+    assert len(counter) == 1 and counter[0]["ph"] == "C" and counter[0]["args"] == {
+        "clock.count": 2}
+    assert counter[0]["pid"] == profiling.TRACE_PID
+
+
+def test_profiler_flag_is_read_where_the_tracer_reads_it():
+    """The tracer decides by torch.autograd.profiler._is_profiler_enabled:
+    False outside a session, True inside."""
+    import torch.autograd.profiler as autograd_profiler
+
+    assert autograd_profiler._is_profiler_enabled is False
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert autograd_profiler._is_profiler_enabled is True
+        assert profiling.span("flag") is not profiling.span("flag")
 
 
 def test_time_step_trace_and_assert_finite(tmp_path):
-    calls = []
-    sec = profiling.time_step(lambda x: calls.append(x), 1, iters=3, warmup=2)
-    assert sec >= 0 and len(calls) == 5
     with profiling.trace(str(tmp_path / "t")) as d:
         torch.ones(4).sum()
     assert os.path.getsize(os.path.join(d, "trace.json")) > 0
@@ -97,21 +170,3 @@ def test_time_step_trace_and_assert_finite(tmp_path):
         model.bias.fill_(float("inf"))
     with pytest.raises(FloatingPointError, match="model"):
         profiling.assert_finite(model, "model")
-
-
-def test_bench_cli_prints_one_json_line():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run(
-        [sys.executable, "-m", "gns_torch.bench", "--cpu", "--case", "14", "--K", "2",
-         "--batch", "4", "--inner-steps", "2"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert res.returncode == 0, res.stderr
-    lines = res.stdout.strip().splitlines()
-    assert len(lines) == 1
-    line = json.loads(lines[0])
-    assert set(line) == BENCH_KEYS
-    assert line["metric"] == "train_edges_per_sec_case14_K2_b4" and line["unit"] == "edges/s"
-    assert line["value"] > 0 and line["vs_baseline"] is None  # not the baseline's case300 K4
-    for key in ("achieved_tflops", "mfu_bf16", "hbm_bw_util"):
-        assert np.isfinite(line[key]) and line[key] >= 0

@@ -25,6 +25,7 @@ from gns_torch.models.gns import gns_forward_batch
 from gns_torch.serve import GNSPredictor, predict
 from gns_torch.utils.augment import generate_cases
 from gns_torch.utils.config import GNSConfig
+from gns_torch.utils import profiling
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
 
 torch.set_num_threads(1)
@@ -95,6 +96,55 @@ def test_predictor_chunks_large_requests(models):
         assert out["v"].shape == (n_req, 9) and out["last_loss"].shape == (n_req,)
         _assert_same(out, jpred.predict(cases))
     assert len(pred._compiled) == 1
+
+
+# the spans of one predict call: the root's children in the order they run
+PREDICT_CHILDREN = ["pack.prepare", "pack.stack", "pack.topology", "serve.graph", "serve.upload",
+                    "serve.forward", "serve.readback", "serve.decode"]
+
+
+def test_predict_span_tree(models):
+    """Recorded, each predict call is one serve.predict root whose children
+    are PREDICT_CHILDREN, in order, each inside its parent, all of the
+    root's unit; two requests, two units."""
+    _, model = models
+    pred = GNSPredictor(model, CFG, batch_size=4, device="cpu")
+    cases = list(generate_cases(14, 3, seed=31))
+    with profiling.recording():
+        for _ in range(2):
+            pred.predict(cases)
+    rec = profiling.recorded()
+    roots = [s for s in rec.spans if s.parent == 0]
+    assert [r.name for r in roots] == ["serve.predict"] * 2
+    assert roots[0].unit != roots[1].unit
+    by_id = {s.id: s for s in rec.spans}
+    for root in roots:
+        unit = [s for s in rec.spans if s.unit == root.unit]
+        children = sorted((s for s in unit if s.parent == root.id), key=lambda s: s.start_ns)
+        assert [c.name for c in children] == PREDICT_CHILDREN
+        assert len(unit) == 1 + len(PREDICT_CHILDREN)
+        for s in unit:
+            if s.parent:
+                parent = by_id[s.parent]
+                assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+
+
+def test_index_builds_counted_on_a_cache_miss(models):
+    """serve.index_builds: 1 on a predictor's first request of a topology,
+    0 on the next; a request without a shared topology builds per batch."""
+    _, model = models
+    pred = GNSPredictor(model, CFG, batch_size=4, align_slack=False, device="cpu")
+    cases = list(generate_cases(14, 3, seed=31))
+    with profiling.recording():
+        pred.predict(cases)
+        pred.predict(cases)
+    rec = profiling.recorded()
+    units = [s.unit for s in rec.spans if s.name == "serve.predict"]
+    assert [rec.counted(u).get("serve.index_builds", 0) for u in units] == [1, 0]
+    mixed = [*generate_cases(9, 1, seed=51), *generate_cases(14, 1, seed=52)]
+    with profiling.recording():
+        pred.predict(mixed)
+    assert profiling.recorded().counted() == {"serve.index_builds": 1}
 
 
 @pytest.mark.parametrize("key", [14, 300, "300-deep", "multi-paper", "118-deep-n1"])

@@ -57,6 +57,7 @@ from gns_torch.train.trainer import (
 )
 from gns_torch.utils.augment import generate_cases
 from gns_torch.utils.config import GNSConfig
+from gns_torch.utils import profiling
 from gns_torch.utils.prepare import (
     batch_from_cases,
     extract_shared_topology,
@@ -266,6 +267,26 @@ def test_epoch_step_equals_step_loop(data14):
     for x, y in zip(_tensors(a), _tensors(b)):
         assert torch.equal(x, y)
     assert int(a.step) == 2
+
+
+def test_eager_epoch_span_tree(data14):
+    """Recorded, an eager epoch (the CPU) is one train.epoch root with one
+    train.step per batch inside it, all of the root's unit."""
+    topo = extract_shared_topology(data14)
+    state = _state(CFG, _np_params(CFG))
+    epoch = make_epoch_step(CFG, topo=topo, dense=True)
+    with profiling.recording():
+        for _ in range(2):
+            epoch(state, stack_epoch(data14, 8))
+    rec = profiling.recorded()
+    roots = [s for s in rec.spans if s.parent == 0]
+    assert [r.name for r in roots] == ["train.epoch"] * 2
+    for root in roots:
+        steps = [s for s in rec.spans if s.unit == root.unit and s is not root]
+        assert [s.name for s in steps] == ["train.step"] * 2
+        assert all(s.parent == root.id and root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+                   for s in steps)
+    assert rec.counted() == {}  # no capture on the CPU
 
 
 def test_remat_gradients_equal(data14):
