@@ -14,9 +14,11 @@ before its root (the benchmark's span entering), but ends after the call's
 frame is torn down, which frees a request's batch (about 1.3 ms on the H100
 host) and sometimes runs the collector. So the mapped spans sit early by
 that fixed entry, tens of us. `mapped` returns None where the program
-recorded nothing (a program without the tracer) or any paired root then
-lies outside its label by more than TOLERANCE_US: a broken mapping shows as
-a missing reading, not a wrong one.
+recorded nothing (a program without the tracer), where any paired root then
+lies outside its label by more than TOLERANCE_US, or where the trace's
+device activity does not sit where the host launched and awaited it
+(`device_aligned`): a broken mapping shows as a missing reading, not a
+wrong one.
 """
 
 from __future__ import annotations
@@ -29,6 +31,17 @@ from benchmark.lib import trace as tr
 
 TOLERANCE_US = 50.0
 ROOTS = {"request": "serve.predict", "epoch": "train.epoch"}
+# the spans inside which a unit launches its first device work (serve.graph
+# only on an index build): none of its device activity starts before the
+# earliest of them
+LAUNCHING = {"request": ("serve.graph", "serve.upload"),
+             "epoch": ("train.capture", "train.copy_in", "train.step")}
+# On the H100 a sound trace's device clock drifts from its host clock by up
+# to 70 us a second, over windows of about a second; a trace whose device
+# clock ran 3 ms a second early read each later request's first kernel
+# 0.6-2.9 ms before its upload began. The gaps the readers sort are
+# milliseconds long.
+DEVICE_TOLERANCE_US = 200.0
 
 
 class Mapped(NamedTuple):
@@ -76,7 +89,34 @@ def mapped(trace, label: str, record=None) -> Optional[Mapped]:
     units = {s.unit for s in roots}
     spans = sorted((us(s.start_ns) + offset, us(s.end_ns) + offset, s.name, s.unit)
                    for s in record.spans if s.unit in units)
+    if not device_aligned(trace, label, labels, spans, [s.unit for s in roots]):
+        return None
     return Mapped(spans, spans_on, labels, len(labels))
+
+
+def device_aligned(trace, label: str, labels: list, spans: list, units: list) -> bool:
+    """Whether the device's activity sits where the host launched and
+    awaited it, to DEVICE_TOLERANCE_US: what starts from one label's start
+    to the next one's starts no earlier than the unit's first launching
+    span (LAUNCHING), and ends before the next label starts (the unit's
+    call, or the loss read after an epoch, waited for it). units: the unit
+    of each label, in order; spans: as Mapped's."""
+    launch = {}
+    for a, _, name, unit in spans:
+        if name in LAUNCHING[label]:
+            launch[unit] = min(launch.get(unit, a), a)
+    starts = [a for a, _, _ in trace.device]  # Trace keeps them sorted
+    bounds = [lo for lo, _ in labels] + [float("inf")]
+    for i, unit in enumerate(units):
+        acts = trace.device[bisect.bisect_left(starts, bounds[i]):
+                            bisect.bisect_left(starts, bounds[i + 1])]
+        if not acts:
+            continue
+        if unit in launch and acts[0][0] < launch[unit] - DEVICE_TOLERANCE_US:
+            return False
+        if max(b for _, b, _ in acts) > bounds[i + 1] + DEVICE_TOLERANCE_US:
+            return False
+    return True
 
 
 def host_labels(trace, label: str) -> list:
@@ -105,35 +145,6 @@ def idle_intervals(trace) -> list:
     w0, w1 = trace.window
     edges = [w0] + [x for iv in tr.union(trace.device) for x in iv] + [w1]
     return [(lo, hi) for lo, hi in zip(edges[::2], edges[1::2]) if hi > lo]
-
-
-def idle_split(trace, m: Mapped) -> dict:
-    """Idle seconds of the window by the innermost mapped program span at
-    each instant ("outside" where none is): each gap is cut at the spans'
-    edges."""
-    edges = sorted({x for a, b, _, _ in m.spans for x in (a, b)})
-    timeline = []  # (start, end, innermost name) between consecutive edges
-    for lo, hi in zip(edges, edges[1:]):
-        mid = (lo + hi) / 2
-        around = [(b - a, name) for a, b, name, _ in m.spans if a <= mid <= b]
-        timeline.append((lo, hi, min(around)[1] if around else "outside"))
-    out = {}
-    i = 0
-    for lo, hi in idle_intervals(trace):
-        t = lo
-        while i < len(timeline) and timeline[i][1] <= t:
-            i += 1
-        j = i
-        while t < hi:
-            if j < len(timeline) and timeline[j][0] <= t:
-                end, name = min(hi, timeline[j][1]), timeline[j][2]
-                j += 1
-            else:  # before the next segment, or past the last
-                end = min(hi, timeline[j][0]) if j < len(timeline) else hi
-                name = "outside"
-            out[name] = out.get(name, 0.0) + (end - t) / 1e6
-            t = end
-    return out
 
 
 def inside(intervals: list, t: float) -> bool:

@@ -1,5 +1,6 @@
-"""The program's spans on a traced run's clock (lib/program_spans.py) and
-the five readers of them, on synthetic traces on the CPU; on the card, the
+"""The program's spans on a traced run's clock (lib/program_spans.py), its
+check of the device's activity, and the five readers of them, on
+synthetic traces on the CPU; on the card, the
 captured epoch's spans and a traced serving window whose spans map onto
 its trace."""
 
@@ -93,7 +94,7 @@ def test_no_program_spans_no_mapping(monkeypatch):
 
 def test_serve_readers(monkeypatch):
     labels, spans = _requests(4)
-    trace = tr.Trace([(100, 200, "k")], labels, (0, 10_000), 4)
+    trace = tr.Trace([(320, 360, "k")], labels, (0, 10_000), 4)
     monkeypatch.setattr(ps, "program_record", lambda: Recorded(spans, [Count("x", T0, 1, 100)]))
     rec = _record("serve", trace, units=4)
     read = {n: harness.reader(n)(rec) for n in SERVE_READERS}
@@ -102,25 +103,30 @@ def test_serve_readers(monkeypatch):
     assert harness.reader("idle_in_epoch_pct.train")(rec) is None  # a serve record
 
 
-def test_idle_split_cuts_gaps_at_span_edges():
-    """One request (see _requests) with the device busy from 360 to 780 us
-    in a window of 0-1100 us: the gap before is cut into the root's own
-    10 us, prepare, stack and upload; the one after into readback, the
-    root's own time and 100 us outside."""
-    labels, spans = _requests(1)
-    trace = tr.Trace([(360, 780, "k")], labels, (0, 1100), 1)
-    split = ps.idle_split(trace, ps.mapped(trace, "request", Recorded(spans, [])))
-    want = {"serve.predict": 220, "pack.prepare": 200, "pack.stack": 100, "serve.upload": 50,
-            "serve.readback": 10, "outside": 100}
-    assert sorted(split) == sorted(want)
-    assert [split[k] for k in sorted(want)] == pytest.approx([want[k] / 1e6 for k in sorted(want)])
+@pytest.mark.parametrize("device, ok", [
+    ([(320, 360, "k"), (2320, 2700, "k")], True),  # each request's kernels inside it
+    ([(140, 360, "k")], True),  # 170 us before its upload starts (310 us): within 200 us
+    ([(100, 360, "k")], False),  # 210 us before it
+    ([(2320, 2700, "k"), (4320, 5950, "k")], True),  # the last request's: no next label
+    ([(320, 2150, "k")], True),  # the first request's ends 150 us into the next
+    ([(320, 2250, "k")], False),  # 250 us into it: the host did not wait for it
+])
+def test_mapping_refuses_device_activity_off_its_launch(device, ok):
+    """A mapping whose device activity starts before its unit's first
+    launching span (serve.upload here) or ends after the next label starts,
+    each by more than 200 us, is refused: the device's clock has drifted
+    from the host's, so its idle gaps cannot be put under program spans."""
+    labels, spans = _requests(3)
+    trace = tr.Trace(sorted(device), labels, (0, 10_000), 3)
+    assert (ps.mapped(trace, "request", Recorded(spans, [])) is not None) is ok
 
 
-def test_idle_in_epoch_reader_and_split(monkeypatch):
+def test_idle_in_epoch_reader(monkeypatch):
     """Two epochs of 1000 us, each a copy-in (100 / 200 us) then a replay
     that keeps the device busy, and a loss read between them on the device
     from 1500 to 2000 us. Idle inside the epochs: the copy-ins, 300 us;
-    outside: 1000-1500 and 3000-3100, 600 us."""
+    outside: 1000-1500 and 3000-3100, 600 us. A replay whose kernels read
+    as starting 250 us before the copy-in that launched them reads nothing."""
     epochs = [(0, 1000), (2000, 3000)]
     labels = [(lo, hi + 5, "epoch") for lo, hi in epochs]
     # the device's view of each epoch label: from its first kernel on, past
@@ -138,12 +144,11 @@ def test_idle_in_epoch_reader_and_split(monkeypatch):
     monkeypatch.setattr(ps, "program_record", lambda: Recorded(spans, []))
     rec = _record("train", trace, units=2)
     assert harness.reader("idle_in_epoch_pct.train")(rec) == pytest.approx(100 * 300 / 900)
-    m = ps.mapped(trace, "epoch")
-    split = ps.idle_split(trace, m)
-    assert sorted(split) == ["outside", "train.copy_in"]
-    assert [split["train.copy_in"], split["outside"]] == pytest.approx([300e-6, 600e-6])
     for name in SERVE_READERS:
         assert harness.reader(name)(rec) is None  # a train record
+    early = sorted(device[:2] + [(1750, 3000, "kernel")])  # the second epoch's, 250 us early
+    rec = _record("train", tr.Trace(early, labels, (0, 3100), 2), units=2)
+    assert harness.reader("idle_in_epoch_pct.train")(rec) is None
 
 
 @pytest.mark.card
