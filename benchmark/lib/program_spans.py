@@ -14,11 +14,12 @@ before its root (the benchmark's span entering), but ends after the call's
 frame is torn down, which frees a request's batch (about 1.3 ms on the H100
 host) and sometimes runs the collector. So the mapped spans sit early by
 that fixed entry, tens of us. `mapped` returns None where the program
-recorded nothing (a program without the tracer), where any paired root then
-lies outside its label by more than TOLERANCE_US, or where the trace's
-device activity does not sit where the host launched and awaited it
-(`device_aligned`): a broken mapping shows as a missing reading, not a
-wrong one.
+recorded nothing (a program without the tracer) or any paired root then
+lies outside its label by more than TOLERANCE_US: a broken mapping shows as
+a missing reading, not a wrong one. The host's spans and labels share one
+clock; the device's activity is stamped by the profiler on another, mapped
+onto the host's, so a reader that sets program spans against device
+activity also asks `device_aligned`.
 """
 
 from __future__ import annotations
@@ -36,11 +37,12 @@ ROOTS = {"request": "serve.predict", "epoch": "train.epoch"}
 # earliest of them
 LAUNCHING = {"request": ("serve.graph", "serve.upload"),
              "epoch": ("train.capture", "train.copy_in", "train.step")}
-# On the H100 a sound trace's device clock drifts from its host clock by up
-# to 70 us a second, over windows of about a second; a trace whose device
-# clock ran 3 ms a second early read each later request's first kernel
-# 0.6-2.9 ms before its upload began. The gaps the readers sort are
-# milliseconds long.
+# On the H100 the profiler's device timestamps sit up to 11 us off its host
+# ones (kernels stamped before the runtime calls that launched them) and
+# drift from them by up to 75 us a second, over windows of about a second;
+# one traced serving run of nine read each later request's first kernel
+# 0.6-2.9 ms before its upload began, 3 ms a second. The idle gaps a reader
+# sorts under program spans are milliseconds long.
 DEVICE_TOLERANCE_US = 200.0
 
 
@@ -89,24 +91,23 @@ def mapped(trace, label: str, record=None) -> Optional[Mapped]:
     units = {s.unit for s in roots}
     spans = sorted((us(s.start_ns) + offset, us(s.end_ns) + offset, s.name, s.unit)
                    for s in record.spans if s.unit in units)
-    if not device_aligned(trace, label, labels, spans, [s.unit for s in roots]):
-        return None
     return Mapped(spans, spans_on, labels, len(labels))
 
 
-def device_aligned(trace, label: str, labels: list, spans: list, units: list) -> bool:
-    """Whether the device's activity sits where the host launched and
-    awaited it, to DEVICE_TOLERANCE_US: what starts from one label's start
-    to the next one's starts no earlier than the unit's first launching
-    span (LAUNCHING), and ends before the next label starts (the unit's
-    call, or the loss read after an epoch, waited for it). units: the unit
-    of each label, in order; spans: as Mapped's."""
+def device_aligned(trace, m: Mapped, label: str) -> bool:
+    """Whether the trace's device activity sits where the host launched
+    and awaited it, on `m`'s mapping, to DEVICE_TOLERANCE_US: what starts
+    from one label's start to the next one's starts no earlier than the
+    unit's first launching span (LAUNCHING), and ends before the next label
+    starts (the unit's call, or the loss read after an epoch, waited for
+    it)."""
+    units = [unit for _, _, name, unit in m.spans if name == ROOTS[label]]
     launch = {}
-    for a, _, name, unit in spans:
+    for a, _, name, unit in m.spans:
         if name in LAUNCHING[label]:
             launch[unit] = min(launch.get(unit, a), a)
     starts = [a for a, _, _ in trace.device]  # Trace keeps them sorted
-    bounds = [lo for lo, _ in labels] + [float("inf")]
+    bounds = [lo for lo, _ in m.labels] + [float("inf")]
     for i, unit in enumerate(units):
         acts = trace.device[bisect.bisect_left(starts, bounds[i]):
                             bisect.bisect_left(starts, bounds[i + 1])]

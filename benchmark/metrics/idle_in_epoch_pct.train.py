@@ -2,7 +2,8 @@
 epoch calls: 100 x the idle gaps whose middles lie under a program root
 "train.epoch" mapped onto the trace (lib/program_spans.py), over all idle
 gaps of the window. The rest lies between epoch calls: the per-epoch loss
-read and the caller.
+read and the caller. None where the device's activity is off its launch
+(program_spans.device_aligned): the device's clock drifted from the host's.
 
 Under the profiler this reads the tracing's own cost, not the program's:
 traced, a CUDA graph's replay is traced kernel by kernel and its host call
@@ -19,7 +20,7 @@ def read(rec):
     if rec.kind != "train":
         return None
     m = ps.mapped(rec.trace, "epoch")
-    if m is None:
+    if m is None or not ps.device_aligned(rec.trace, m, "epoch"):
         return None
     gaps = ps.idle_intervals(rec.trace)
     total = sum(hi - lo for lo, hi in gaps)

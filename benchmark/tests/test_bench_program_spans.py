@@ -111,14 +111,16 @@ def test_serve_readers(monkeypatch):
     ([(320, 2150, "k")], True),  # the first request's ends 150 us into the next
     ([(320, 2250, "k")], False),  # 250 us into it: the host did not wait for it
 ])
-def test_mapping_refuses_device_activity_off_its_launch(device, ok):
-    """A mapping whose device activity starts before its unit's first
-    launching span (serve.upload here) or ends after the next label starts,
-    each by more than 200 us, is refused: the device's clock has drifted
-    from the host's, so its idle gaps cannot be put under program spans."""
+def test_device_check_refuses_activity_off_its_launch(device, ok):
+    """Device activity that starts before its unit's first launching span
+    (serve.upload here) or ends after the next label starts, each by more
+    than 200 us, fails the device check: the device's clock has drifted
+    from the host's, so its idle gaps cannot be put under program spans.
+    The host's spans still map."""
     labels, spans = _requests(3)
     trace = tr.Trace(sorted(device), labels, (0, 10_000), 3)
-    assert (ps.mapped(trace, "request", Recorded(spans, [])) is not None) is ok
+    m = ps.mapped(trace, "request", Recorded(spans, []))
+    assert m is not None and ps.device_aligned(trace, m, "request") is ok
 
 
 def test_idle_in_epoch_reader(monkeypatch):
