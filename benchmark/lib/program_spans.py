@@ -40,7 +40,7 @@ LAUNCHING = {"request": ("serve.graph", "serve.upload"),
 # On the H100 the profiler's device timestamps sit up to 11 us off its host
 # ones (kernels stamped before the runtime calls that launched them) and
 # drift from them by up to 75 us a second, over windows of about a second;
-# one traced serving run of nine read each later request's first kernel
+# one traced serving run of twelve read each later request's first kernel
 # 0.6-2.9 ms before its upload began, 3 ms a second. The idle gaps a reader
 # sorts under program spans are milliseconds long.
 DEVICE_TOLERANCE_US = 200.0
