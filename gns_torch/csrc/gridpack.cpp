@@ -6,6 +6,9 @@
 // prepare_case transform of gns_torch/utils/prepare.py, reference
 // GNS/utils.py:17-41, plus bucket padding), multithreaded across grids,
 // and builds CSR edge orderings (edges sorted by destination bus).
+// gridpack_prepare_cases reads each grid's tables where they lie in memory
+// (utils/native.py pack_batch, the port's packer); gridpack_prepare_batch
+// reads them from staged slabs (the JAX package's ABI).
 //
 // Exposed as a C ABI for ctypes; no Python dependencies. The wrapper,
 // gns_torch/utils/native.py, builds this file with the host C++ compiler
@@ -30,6 +33,10 @@ constexpr double kPi = 3.14159265358979323846;
 constexpr int kBusCols = 6;   // bus_i, type, Pd, Qd, Gs, Bs
 constexpr int kLineCols = 7;  // f_bus, t_bus, r, x, b, tau, theta_shift
 constexpr int kGenCols = 7;   // bus_i, Pmax, Pmin, Pg_set, vg, qg, Pg
+
+// The raw columns prepare_one reads: bus 0-5, branch up to 9 (tau 8,
+// shift 9), gen up to 9 (Pmax 8, Pmin 9). A narrower table is refused.
+constexpr int64_t kRawWidth[3] = {6, 10, 10};
 
 struct GridDims {
   int64_t n_bus, n_line, n_gen;
@@ -117,6 +124,24 @@ void prepare_one(
   }
 }
 
+// Run work(lo, hi) over grids [0, s) in up to n_threads contiguous chunks.
+template <typename Work>
+void for_grids(int64_t s, int n_threads, Work work) {
+  if (n_threads <= 1 || s < 4) {
+    work(int64_t{0}, s);
+    return;
+  }
+  const int nt = static_cast<int>(std::min<int64_t>(n_threads, s));
+  std::vector<std::thread> threads;
+  const int64_t chunk = (s + nt - 1) / nt;
+  for (int t = 0; t < nt; ++t) {
+    const int64_t lo = t * chunk;
+    const int64_t hi = std::min<int64_t>(lo + chunk, s);
+    if (lo < hi) threads.emplace_back(work, lo, hi);
+  }
+  for (auto& th : threads) th.join();
+}
+
 }  // namespace
 
 extern "C" {
@@ -171,19 +196,66 @@ int gridpack_prepare_batch(
     }
   };
 
-  if (n_threads <= 1 || s < 4) {
-    work(0, s);
-  } else {
-    const int nt = std::min<int64_t>(n_threads, s);
-    std::vector<std::thread> threads;
-    const int64_t chunk = (s + nt - 1) / nt;
-    for (int t = 0; t < nt; ++t) {
-      const int64_t lo = t * chunk;
-      const int64_t hi = std::min<int64_t>(lo + chunk, s);
-      if (lo < hi) threads.emplace_back(work, lo, hi);
+  for_grids(s, n_threads, work);
+  return 0;
+}
+
+// Prepare S grids in parallel from their tables where they lie: no staging.
+//
+// tables (S, 3) holds the addresses of each grid's float64 bus, branch and
+// gen tables, each C-contiguous, rows (S, 3) their row counts and cols
+// (S, 3) their column counts (the row strides). Outputs as in
+// gridpack_prepare_batch. Every input is checked before anything is
+// written; on a bad one the index of the first bad grid goes to *bad and
+// the return is 1 (pad_e < pad_n), 2 (a grid larger than the pad sizes),
+// 3 (a table narrower than the columns read: bus 6, branch 10, gen 10) or
+// 4 (a negative count, or rows at a null address). Returns 0 on success.
+int gridpack_prepare_cases(
+    const int64_t* tables, const int64_t* rows, const int64_t* cols,
+    const double* base_mva,  // (S,)
+    int64_t s, int paper_shunts,
+    int64_t pad_n, int64_t pad_e, int64_t pad_g,
+    float* buses, float* lines, float* gens,
+    float* bus_mask, float* line_mask, float* gen_mask,
+    int32_t* n_bus_out, int64_t* bad,
+    int n_threads) {
+  *bad = -1;
+  if (pad_e < pad_n) return 1;  // E >= N invariant (SURVEY.md Q2)
+  const int64_t pads[3] = {pad_n, pad_e, pad_g};
+  for (int64_t i = 0; i < s; ++i) {
+    for (int k = 0; k < 3; ++k) {
+      const int64_t n = rows[i * 3 + k], w = cols[i * 3 + k];
+      int rc = 0;
+      if (n < 0 || w < 0 || (n > 0 && tables[i * 3 + k] == 0)) rc = 4;
+      else if (n > pads[k]) rc = 2;
+      else if (w < kRawWidth[k]) rc = 3;
+      if (rc != 0) {
+        *bad = i;
+        return rc;
+      }
     }
-    for (auto& th : threads) th.join();
   }
+
+  auto table = [&](int64_t i, int k) {
+    return reinterpret_cast<const double*>(static_cast<uintptr_t>(tables[i * 3 + k]));
+  };
+  for_grids(s, n_threads, [&](int64_t lo, int64_t hi) {
+    for (int64_t i = lo; i < hi; ++i) {
+      const int64_t nb = rows[i * 3 + 0];
+      prepare_one(
+          table(i, 0), nb, cols[i * 3 + 0],
+          table(i, 1), rows[i * 3 + 1], cols[i * 3 + 1],
+          table(i, 2), rows[i * 3 + 2], cols[i * 3 + 2],
+          base_mva[i], paper_shunts, pad_n, pad_e, pad_g,
+          buses + i * pad_n * kBusCols,
+          lines + i * pad_e * kLineCols,
+          gens + i * pad_g * kGenCols,
+          bus_mask + i * pad_n,
+          line_mask + i * pad_e,
+          gen_mask + i * pad_g);
+      n_bus_out[i] = static_cast<int32_t>(nb);
+    }
+  });
   return 0;
 }
 

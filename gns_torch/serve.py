@@ -36,7 +36,7 @@ from gns_torch.ops.segment import check_method
 from gns_torch.parallel.solver_dp import dp_block, dp_group, dp_size
 from gns_torch.physics.common import build_graph
 from gns_torch.physics.fused import stack_switches
-from gns_torch.utils import profiling
+from gns_torch.utils import native, profiling
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
@@ -89,6 +89,8 @@ class GNSPredictor:
             for s in steps
         ]
         self._compiled: Dict[tuple, object] = {}
+        if native.HAVE_NATIVE:  # the packer is built here, not in a request
+            native.load()
 
     def _graph_for(self, batch, topo):
         if topo is None:

@@ -3,8 +3,10 @@
 
 The C++ packer performs prepare_case's transform and the bucket padding of
 _stack_to_batch (utils/prepare.py), multithreaded across grids, and the
-CSR edge sort. prepare.py's numpy path stays the reference: `pack_batch`
-is bit-equal to it (tests/test_torch_native.py).
+CSR edge sort. `pack_batch` reads each case's float64 tables where they
+lie (no staging copy) and is the path of prepare.py batch_from_cases
+wherever a host compiler exists. prepare.py's numpy path stays the
+reference: `pack_batch` is bit-equal to it (tests/test_torch_native.py).
 
 The library is built at first use with the host C++ compiler ($CXX, else
 c++ or g++) and native/Makefile's flags into build/torch_kernels/, keyed
@@ -16,7 +18,8 @@ with -march=native on another machine.
 
   pack_batch(cases, ...)  raises RuntimeError, with the compiler's output,
                           when the library cannot be built; it never packs
-                          with numpy instead.
+                          with numpy instead. ValueError on a table the
+                          packer cannot read, naming the case.
   csr_by_dst(lines, n)    keeps its numpy path when the library cannot be
                           built, as gns_tpu's does when its library is
                           missing.
@@ -34,6 +37,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from gns_torch.ops import segment_kernels as kern
+from gns_torch.utils import profiling
 from gns_torch.utils.prepare import GridBatch
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -83,8 +87,8 @@ def build_packer() -> dict:
     return info
 
 
-def _load():
-    """The library, built at first use, with its two C functions typed.
+def load():
+    """The library, built at first use, with its C functions typed.
     Keyed by $CXX as set, so a call finds a loaded library without
     searching the PATH for the compiler again."""
     key = os.environ.get("CXX", "")
@@ -98,18 +102,16 @@ def _load():
         ctypes.POINTER(ctypes.c_float),
         ctypes.POINTER(ctypes.c_double),
     )
-    lib.gridpack_prepare_batch.restype = ctypes.c_int
-    lib.gridpack_prepare_batch.argtypes = [
-        f64, i64, i64,  # bus_raw, bus_cols, max_nb
-        f64, i64, i64,  # br_raw, br_cols, max_ne
-        f64, i64, i64,  # gen_raw, gen_cols, max_ng
-        ctypes.POINTER(ctypes.c_int64),  # dims
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    lib.gridpack_prepare_cases.restype = ctypes.c_int
+    lib.gridpack_prepare_cases.argtypes = [
+        p64, p64, p64,  # tables, rows, cols
         f64,  # base_mva
         i64, ctypes.c_int,  # s, paper_shunts
         i64, i64, i64,  # pad_n, pad_e, pad_g
         f32, f32, f32,  # buses, lines, gens
         f32, f32, f32,  # masks
-        i32,  # n_bus_out
+        i32, p64,  # n_bus_out, bad
         ctypes.c_int,  # n_threads
     ]
     lib.gridpack_csr_by_dst.restype = ctypes.c_int
@@ -122,6 +124,17 @@ def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
+TABLES = ("bus", "branch", "gen")
+_F64 = np.dtype(np.float64)
+_NO_BYTES = ctypes.c_char * 0  # from_buffer gives a writable array's address at half t.ctypes' cost
+_REFUSED = {3: "a table narrower than the columns the packer reads (bus 6, branch 10, gen 10)",
+            4: "a table of negative size or without data"}
+
+
+def _address(t: np.ndarray) -> int:
+    return ctypes.addressof(_NO_BYTES.from_buffer(t)) if t.flags.writeable else t.ctypes.data
+
+
 def pack_batch(
     cases: List[dict],
     pad_sizes: Optional[Tuple[int, int, int]] = None,
@@ -129,65 +142,72 @@ def pack_batch(
     n_threads: Optional[int] = None,
 ) -> GridBatch:
     """The native equivalent of prepare_case + _stack_to_batch
-    (utils/prepare.py batch_from_cases), bit for bit: a GridBatch of numpy
-    arrays. pad_sizes: (N, E, G) at least the grids' largest; E >= N is
-    enforced. Raises RuntimeError if the library cannot be built."""
-    lib = _load()
+    (utils/prepare.py), bit for bit: a GridBatch of fresh numpy arrays.
+    Each case's bus / branch / gen table is read where it lies when it is
+    a 2-D C-contiguous float64 array, else converted to one for this call.
+    pad_sizes: (N, E, G) at least the grids' largest; E >= N is enforced.
+
+    Records the spans pack.prepare (the pass over the cases) and
+    pack.stack (the C call that converts and pads) and counts
+    pack.native_batches. Raises RuntimeError if the library cannot be
+    built, ValueError on pad sizes below the data or a table it cannot
+    read."""
+    lib = load()
+    if not cases:
+        raise ValueError("no cases to pack")
     s = len(cases)
-    dims = np.zeros((s, 3), np.int64)
-    base = np.zeros((s,), np.float64)
-    for i, c in enumerate(cases):
-        dims[i] = (c["bus"].shape[0], c["branch"].shape[0], c["gen"].shape[0])
-        base[i] = c["baseMVA"]
-    max_nb, max_ne, max_ng = dims.max(axis=0)
+    with profiling.span("pack.prepare"):
+        tables, addr, dims = [], [], []  # tables: each one read, alive until the call returns
+        for i, c in enumerate(cases):
+            for key in TABLES:
+                t = c[key]
+                if (type(t) is not np.ndarray or t.dtype is not _F64 or t.ndim != 2
+                        or not t.flags.c_contiguous):
+                    t = np.ascontiguousarray(np.asarray(t, np.float64))
+                    if t.ndim != 2:
+                        raise ValueError(f"case {i}: its {key} table is not 2-D")
+                tables.append(t)
+                addr.append(_address(t))
+                dims += t.shape
+        addr = np.array(addr, np.int64)
+        dims = np.array(dims, np.int64).reshape(s, 3, 2)
+        rows, cols = np.ascontiguousarray(dims[..., 0]), np.ascontiguousarray(dims[..., 1])
+        base = np.array([c["baseMVA"] for c in cases], np.float64)
 
-    # the raw float64 tables staged into contiguous slabs
-    bus_cols = max(c["bus"].shape[1] for c in cases)
-    br_cols = max(c["branch"].shape[1] for c in cases)
-    gen_cols = max(c["gen"].shape[1] for c in cases)
-    bus_raw = np.zeros((s, max_nb, bus_cols), np.float64)
-    br_raw = np.zeros((s, max_ne, br_cols), np.float64)
-    gen_raw = np.zeros((s, max_ng, gen_cols), np.float64)
-    for i, c in enumerate(cases):
-        nb, ne, ng = dims[i]
-        bus_raw[i, :nb, : c["bus"].shape[1]] = c["bus"]
-        br_raw[i, :ne, : c["branch"].shape[1]] = c["branch"]
-        gen_raw[i, :ng, : c["gen"].shape[1]] = c["gen"]
-
-    if pad_sizes is None:
-        pad_n, pad_e, pad_g = int(max_nb), int(max_ne), int(max_ng)
-    else:
-        pad_n, pad_e, pad_g = pad_sizes
-    pad_e = max(pad_e, pad_n)  # E >= N invariant
-
-    buses = np.empty((s, pad_n, 6), np.float32)
-    lines = np.empty((s, pad_e, 7), np.float32)
-    gens = np.empty((s, pad_g, 7), np.float32)
-    bus_mask = np.empty((s, pad_n), np.float32)
-    line_mask = np.empty((s, pad_e), np.float32)
-    gen_mask = np.empty((s, pad_g), np.float32)
-    n_bus = np.empty((s,), np.int32)
-
-    if n_threads is None:
-        n_threads = min(os.cpu_count() or 1, 16)
-
-    rc = lib.gridpack_prepare_batch(
-        _ptr(bus_raw, ctypes.c_double), bus_cols, max_nb,
-        _ptr(br_raw, ctypes.c_double), br_cols, max_ne,
-        _ptr(gen_raw, ctypes.c_double), gen_cols, max_ng,
-        _ptr(dims, ctypes.c_int64),
-        _ptr(base, ctypes.c_double),
-        s, int(paper_shunts),
-        pad_n, pad_e, pad_g,
-        _ptr(buses, ctypes.c_float), _ptr(lines, ctypes.c_float),
-        _ptr(gens, ctypes.c_float),
-        _ptr(bus_mask, ctypes.c_float), _ptr(line_mask, ctypes.c_float),
-        _ptr(gen_mask, ctypes.c_float),
-        _ptr(n_bus, ctypes.c_int32),
-        n_threads,
-    )
+    with profiling.span("pack.stack"):
+        n, e, g = (int(x) for x in rows.max(axis=0))
+        pad_n, pad_e, pad_g = (n, e, g) if pad_sizes is None else pad_sizes
+        if pad_n < n or pad_e < e or pad_g < g:  # _stack_to_batch's check and words
+            raise ValueError(f"pad_sizes {pad_sizes} smaller than data ({n},{e},{g})")
+        pad_e = max(pad_e, pad_n)  # E >= N invariant
+        buses = np.empty((s, pad_n, 6), np.float32)
+        lines = np.empty((s, pad_e, 7), np.float32)
+        gens = np.empty((s, pad_g, 7), np.float32)
+        bus_mask = np.empty((s, pad_n), np.float32)
+        line_mask = np.empty((s, pad_e), np.float32)
+        gen_mask = np.empty((s, pad_g), np.float32)
+        n_bus = np.empty((s,), np.int32)
+        bad = np.full((1,), -1, np.int64)
+        if n_threads is None:
+            n_threads = min(os.cpu_count() or 1, 16)
+        i64 = ctypes.c_int64
+        rc = lib.gridpack_prepare_cases(
+            _ptr(addr, i64), _ptr(rows, i64), _ptr(cols, i64),
+            _ptr(base, ctypes.c_double),
+            s, int(paper_shunts),
+            pad_n, pad_e, pad_g,
+            _ptr(buses, ctypes.c_float), _ptr(lines, ctypes.c_float),
+            _ptr(gens, ctypes.c_float),
+            _ptr(bus_mask, ctypes.c_float), _ptr(line_mask, ctypes.c_float),
+            _ptr(gen_mask, ctypes.c_float),
+            _ptr(n_bus, ctypes.c_int32), _ptr(bad, i64),
+            n_threads,
+        )
+    if rc in _REFUSED:
+        raise ValueError(f"case {int(bad[0])}: {_REFUSED[rc]}")
     if rc != 0:
-        raise RuntimeError(f"gridpack_prepare_batch failed with code {rc}")
+        raise RuntimeError(f"gridpack_prepare_cases failed with code {rc}")
+    profiling.count("pack.native_batches")
     return GridBatch(buses, lines, gens, bus_mask, line_mask, gen_mask, n_bus)
 
 
@@ -207,7 +227,7 @@ def csr_by_dst(lines: np.ndarray, n_bus: int):
     be built."""
     lines = np.ascontiguousarray(lines, np.float32)
     try:
-        lib = _load()
+        lib = load()
     except RuntimeError:
         return csr_by_dst_numpy(lines, n_bus)
     e = lines.shape[0]

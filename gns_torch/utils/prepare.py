@@ -242,7 +242,18 @@ def load_prepared(
 
 
 def batch_from_cases(case_dicts, pad_sizes=None, paper_shunts=True) -> GridBatch:
-    """Build a (possibly mixed-size, padded) batch straight from case dicts."""
+    """Build a (possibly mixed-size, padded) batch straight from case dicts.
+
+    Where a host C++ compiler exists (utils/native.py HAVE_NATIVE), the
+    native packer does it in one pass, bit-equal to this module's numpy path
+    (prepare_case + _stack_to_batch), which runs otherwise. Both record the
+    spans pack.prepare (numpy: the prepare_case calls; native: the pass over
+    the cases) and pack.stack (numpy: _stack_to_batch; native: the C call
+    that converts and pads); the native path counts pack.native_batches."""
+    from gns_torch.utils import native  # native.py imports GridBatch from here
+
+    if native.HAVE_NATIVE:
+        return native.pack_batch(case_dicts, pad_sizes, paper_shunts)
     with profiling.span("pack.prepare"):
         triples = [prepare_case(c, paper_shunts=paper_shunts) for c in case_dicts]
     with profiling.span("pack.stack"):

@@ -19,8 +19,13 @@ last RING spans and counts are kept in memory.
 Spans of the serving path (serve.py, utils/prepare.py):
 
     serve.predict    the root, one per predict call
-      pack.prepare   the per-grid prepare_case calls of batch_from_cases
-      pack.stack     _stack_to_batch: the grids into one padded batch
+      pack.prepare   batch_from_cases' pass over the cases: natively
+                     (utils/native.py pack_batch) each table's address and
+                     shape, any table converted to float64; else the
+                     per-grid prepare_case calls
+      pack.stack     the grids into one padded batch: natively the C call
+                     that converts and pads (counter pack.native_batches,
+                     one a batch); else _stack_to_batch
       pack.topology  extract_shared_topology and is_dense
       serve.graph    the index sets (counter serve.index_builds on a build)
       serve.upload   batch_tensors: the batch copied to the device

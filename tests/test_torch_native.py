@@ -1,20 +1,26 @@
 """gns_torch's host packer (utils/native.py over csrc/gridpack.cpp, built
-at first use with the host C++ compiler) against the port's numpy path
+at first use with the host C++ compiler), directly and as batch_from_cases
+and GNSPredictor.predict take it, against the port's numpy path
 (prepare_case + _stack_to_batch) and gns_tpu's packer
 (gns_tpu/utils/native.py over the committed native/libgridpack.so): the
 same arrays, bit for bit."""
 
+import ctypes
+import mmap
 import os
 
 import numpy as np
 import pytest
 
 from gns_tpu.utils import native as j_native
+from gns_torch.models.gns import GNS
 from gns_torch.ops import segment_kernels as kern
-from gns_torch.utils import native
+from gns_torch.serve import GNSPredictor
+from gns_torch.utils import native, profiling
 from gns_torch.utils.augment import generate_cases
 from gns_torch.utils.cases import load_case
-from gns_torch.utils.prepare import _stack_to_batch, prepare_case
+from gns_torch.utils.config import GNSConfig
+from gns_torch.utils.prepare import _stack_to_batch, batch_from_cases, prepare_case
 
 
 def _assert_batch_equal(a, b):
@@ -24,8 +30,28 @@ def _assert_batch_equal(a, b):
         np.testing.assert_array_equal(x, y, err_msg=f"field {name} differs")
 
 
+def _tables_as(form, cases):
+    """The cases with each table passed through `form`."""
+    return [{**c, **{k: form(np.asarray(c[k], np.float64)) for k in native.TABLES}}
+            for c in cases]
+
+
+def _column_view(t):
+    """A view of `t` inside a wider array: rows strided past its columns."""
+    wide = np.zeros((t.shape[0], t.shape[1] + 3))
+    wide[:, 1:-2] = t
+    return wide[:, 1:-2]
+
+
+def _read_only(t):
+    t = t.copy()
+    t.setflags(write=False)
+    return t
+
+
 PACKS = {
     "case9": (lambda: list(generate_cases(9, 5, seed=21)), {}),
+    "one_grid": (lambda: list(generate_cases(300, 0)), {}),
     "case14": (lambda: list(generate_cases(14, 5, seed=21)), {}),
     "case300": (lambda: list(generate_cases(300, 5, seed=21)), {}),
     "mixed": (lambda: [load_case(9), load_case(14), load_case(30)], {}),
@@ -34,27 +60,119 @@ PACKS = {
     "pad_e_below_n": (lambda: list(generate_cases(14, 2, seed=3)), dict(pad_sizes=(24, 20, 6))),
     "true_shunts": (lambda: list(generate_cases(14, 3, seed=4)), dict(paper_shunts=False)),
     "true_shunts_mixed": (lambda: [load_case(9), load_case(300)], dict(paper_shunts=False)),
+    # tables that are not C-contiguous float64 arrays are converted, each alone
+    "tables_list": (lambda: _tables_as(np.ndarray.tolist, generate_cases(14, 3, seed=6)), {}),
+    "tables_float32": (lambda: _tables_as(lambda t: t.astype(np.float32),
+                                          generate_cases(30, 3, seed=7)), {}),
+    "tables_column_view": (lambda: _tables_as(_column_view, generate_cases(9, 3, seed=8)),
+                           dict(pad_sizes=(12, 12, 4))),
+    "tables_mixed_forms": (lambda: [*_tables_as(np.ndarray.tolist, generate_cases(9, 1, seed=9)),
+                                    *_tables_as(_read_only, generate_cases(14, 1, seed=9))], {}),
 }
 
 
+@pytest.mark.parametrize("entry", ["pack_batch", "batch_from_cases"])
 @pytest.mark.parametrize("pack", sorted(PACKS))
-def test_pack_batch_bit_equal(pack):
-    """pack_batch against _stack_to_batch([prepare_case(c) ...]) and
-    gns_tpu's pack_batch, every field bit for bit."""
+def test_pack_batch_bit_equal(pack, entry):
+    """pack_batch, and batch_from_cases on its native path, against
+    _stack_to_batch([prepare_case(c) ...]) and gns_tpu's pack_batch, every
+    field bit for bit."""
     make, kw = PACKS[pack]
     cases = make()
     ref = _stack_to_batch([prepare_case(c, paper_shunts=kw.get("paper_shunts", True))
                            for c in cases], kw.get("pad_sizes"))
-    out = native.pack_batch(cases, **kw)
+    if entry == "pack_batch":
+        out = native.pack_batch(cases, **kw)
+    else:
+        with profiling.recording():
+            out = batch_from_cases(cases, **kw)
+        assert profiling.recorded().counted() == {"pack.native_batches": 1}
     assert type(out).__name__ == "GridBatch"
     _assert_batch_equal(ref, out)
-    _assert_batch_equal(j_native.pack_batch(cases, **kw), out)
+    arrays = [{**c, **{k: np.asarray(c[k]) for k in native.TABLES}} for c in cases]
+    _assert_batch_equal(j_native.pack_batch(arrays, **kw), out)
 
 
 @pytest.mark.parametrize("n_threads", [1, 3])
 def test_pack_batch_threads(n_threads):
+    """Any thread count gives the same bits, into fresh arrays each call."""
     cases = list(generate_cases(30, 9, seed=5))
-    _assert_batch_equal(native.pack_batch(cases), native.pack_batch(cases, n_threads=n_threads))
+    first = native.pack_batch(cases)
+    again = native.pack_batch(cases, n_threads=n_threads)
+    _assert_batch_equal(first, again)
+    assert not any(np.shares_memory(a, b) for a, b in zip(first, again))
+
+
+def _before_unreadable_page(table):
+    """A float64 copy of `table` whose last byte is the last one before a
+    page this process may not read: a read past the table faults."""
+    table = np.ascontiguousarray(table, np.float64)
+    pages = -(-table.nbytes // mmap.PAGESIZE)
+    buf = mmap.mmap(-1, (pages + 1) * mmap.PAGESIZE)
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mprotect.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+    guard = ctypes.addressof(ctypes.c_char.from_buffer(buf)) + pages * mmap.PAGESIZE
+    assert libc.mprotect(guard, mmap.PAGESIZE, 0) == 0, ctypes.get_errno()  # PROT_NONE
+    out = np.frombuffer(buf, np.float64, table.size, pages * mmap.PAGESIZE - table.nbytes)
+    out = out.reshape(table.shape)
+    out[...] = table
+    return out  # keeps buf mapped while it lives
+
+
+def test_tables_read_within_their_bounds():
+    """Tables of exactly the columns the packer reads (bus 6, branch 10,
+    gen 10), each ending at an unreadable page, pack bit-equal to the numpy
+    path: the packer reads nothing past a table."""
+    cases = [{**c, **{k: _before_unreadable_page(c[k][:, :w])
+                      for k, w in zip(native.TABLES, (6, 10, 10))}}
+             for c in generate_cases(14, 2, seed=9)]
+    _assert_batch_equal(_stack_to_batch([prepare_case(c) for c in cases]),
+                        native.pack_batch(cases))
+
+
+@pytest.mark.parametrize("key,width", [("bus", 5), ("branch", 9), ("gen", 9)])
+def test_narrow_table_refused(key, width):
+    """A table narrower than the columns the packer reads is refused with
+    its case's index, before a read past it: it ends at an unreadable page,
+    so a read of its missing column would fault."""
+    cases = list(generate_cases(14, 3, seed=9))
+    cases[2] = {**cases[2], key: _before_unreadable_page(cases[2][key][:, :width])}
+    with pytest.raises(ValueError, match=r"case 2: a table narrower than the columns"):
+        native.pack_batch(cases)
+
+
+@pytest.mark.parametrize("pads", [(4, 20, 5), (30, 10, 5)])
+def test_pad_sizes_below_the_data_refused(pads):
+    """Pad sizes below the data raise as _stack_to_batch does, E below the
+    data too where N would pad it past."""
+    cases = list(generate_cases(14, 1, seed=9))
+    for pack in (lambda: _stack_to_batch([prepare_case(c) for c in cases], pads),
+                 lambda: native.pack_batch(cases, pad_sizes=pads)):
+        with pytest.raises(ValueError, match=r"pad_sizes .* smaller than data \(14,20,5\)"):
+            pack()
+
+
+@pytest.mark.parametrize("case_nr", [14, 30])
+def test_predict_packs_natively_bit_equal(case_nr, monkeypatch):
+    """GNSPredictor.predict returns the same v, theta and last_loss, bit for
+    bit, with the native packer and with the numpy path. Recorded, each
+    batch of a request records pack.prepare and pack.stack, and
+    pack.native_batches counts one a batch on the native path, none on
+    the numpy path."""
+    cfg = GNSConfig(K=2, latent_dim=8, hidden_dim=8)
+    pred = GNSPredictor(GNS(cfg, seed=0, device="cpu"), cfg, batch_size=4, device="cpu")
+    cases = list(generate_cases(case_nr, 5, seed=12))  # 6 grids: two batches
+    out = {}
+    for have in (True, False):
+        monkeypatch.setattr(native, "HAVE_NATIVE", have)
+        with profiling.recording():
+            out[have] = pred.predict(cases)
+        rec = profiling.recorded()
+        names = [s.name for s in rec.spans]
+        assert names.count("pack.prepare") == names.count("pack.stack") == 2
+        assert rec.counted().get("pack.native_batches", 0) == (2 if have else 0)
+    for k in ("v", "theta", "last_loss"):
+        np.testing.assert_array_equal(out[True][k], out[False][k], err_msg=k)
 
 
 @pytest.mark.parametrize("case_nr", [14, 300])

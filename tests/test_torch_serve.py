@@ -25,7 +25,7 @@ from gns_torch.models.gns import gns_forward_batch
 from gns_torch.serve import GNSPredictor, predict
 from gns_torch.utils.augment import generate_cases
 from gns_torch.utils.config import GNSConfig
-from gns_torch.utils import profiling
+from gns_torch.utils import native, profiling
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
 
 torch.set_num_threads(1)
@@ -144,7 +144,8 @@ def test_index_builds_counted_on_a_cache_miss(models):
     mixed = [*generate_cases(9, 1, seed=51), *generate_cases(14, 1, seed=52)]
     with profiling.recording():
         pred.predict(mixed)
-    assert profiling.recorded().counted() == {"serve.index_builds": 1}
+    packed = {"pack.native_batches": 1} if native.HAVE_NATIVE else {}
+    assert profiling.recorded().counted() == {"serve.index_builds": 1, **packed}
 
 
 @pytest.mark.parametrize("key", [14, 300, "300-deep", "multi-paper", "118-deep-n1"])
