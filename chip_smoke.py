@@ -3948,7 +3948,7 @@ DATA_EPOCHS = 2
 DATA_EVAL = 64  # held-out pickles evaluated: the last 64 of the data set
 DATA_REPLAY = 10  # steps per replayed epoch when the refresh's options are timed
 PACK_REPS = 5
-PREDICT_PACKING_MS = 85.96  # predict's packing of 1024 requests on the H100's host (PERF.md section 5)
+PREDICT_PACKING_MS = 14.14  # predict's packing of 1024 requests on the H100's host (PERF.md section 5)
 # the shipped case300 checkpoint's v MSE in the eval phase (a) on the H100 (PERF.md),
 # on generate_cases' 64 grids, not the data set's
 PRETRAINED_V_MSE = 0.010343

@@ -1,5 +1,5 @@
-// gridpack: the host data-loader of gns_torch (the port's own copy of the
-// JAX package's native/gridpack.cpp, with the same C ABI).
+// gridpack: the host data-loader of gns_torch (grown from the JAX package's
+// native/gridpack.cpp; the entry points differ).
 //
 // Converts raw MATPOWER-style case arrays (float64 bus/branch/gen tables)
 // into the port's padded, masked, static-shape float32 grid batches (the
@@ -7,8 +7,7 @@
 // GNS/utils.py:17-41, plus bucket padding), multithreaded across grids,
 // and builds CSR edge orderings (edges sorted by destination bus).
 // gridpack_prepare_cases reads each grid's tables where they lie in memory
-// (utils/native.py pack_batch, the port's packer); gridpack_prepare_batch
-// reads them from staged slabs (the JAX package's ABI).
+// (utils/native.py pack_batch, the port's packer).
 //
 // Exposed as a C ABI for ctypes; no Python dependencies. The wrapper,
 // gns_torch/utils/native.py, builds this file with the host C++ compiler
@@ -37,10 +36,6 @@ constexpr int kGenCols = 7;   // bus_i, Pmax, Pmin, Pg_set, vg, qg, Pg
 // The raw columns prepare_one reads: bus 0-5, branch up to 9 (tau 8,
 // shift 9), gen up to 9 (Pmax 8, Pmin 9). A narrower table is refused.
 constexpr int64_t kRawWidth[3] = {6, 10, 10};
-
-struct GridDims {
-  int64_t n_bus, n_line, n_gen;
-};
 
 // prepare one grid: raw MATPOWER rows -> framework tensors (float32),
 // written into pre-padded output slabs.
@@ -124,89 +119,18 @@ void prepare_one(
   }
 }
 
-// Run work(lo, hi) over grids [0, s) in up to n_threads contiguous chunks.
-template <typename Work>
-void for_grids(int64_t s, int n_threads, Work work) {
-  if (n_threads <= 1 || s < 4) {
-    work(int64_t{0}, s);
-    return;
-  }
-  const int nt = static_cast<int>(std::min<int64_t>(n_threads, s));
-  std::vector<std::thread> threads;
-  const int64_t chunk = (s + nt - 1) / nt;
-  for (int t = 0; t < nt; ++t) {
-    const int64_t lo = t * chunk;
-    const int64_t hi = std::min<int64_t>(lo + chunk, s);
-    if (lo < hi) threads.emplace_back(work, lo, hi);
-  }
-  for (auto& th : threads) th.join();
-}
-
 }  // namespace
 
 extern "C" {
-
-// Batch-prepare S grids in parallel.
-//
-// Inputs are flat float64 slabs: bus_raw (S, max_nb, bus_cols_raw) etc.,
-// with per-grid true sizes in dims (S x 3: nb, ne, ng). Raw column counts
-// (strides) are the MATPOWER table widths (>=13 bus, >=13 branch, >=21 gen
-// normally; only the columns named above are read).
-//
-// Outputs are float32 slabs shaped (S, pad_n, 6), (S, pad_e, 7),
-// (S, pad_g, 7) plus masks (S, pad_n), (S, pad_e), (S, pad_g).
-// Returns 0 on success.
-int gridpack_prepare_batch(
-    const double* bus_raw, int64_t bus_cols_raw, int64_t max_nb,
-    const double* br_raw, int64_t br_cols_raw, int64_t max_ne,
-    const double* gen_raw, int64_t gen_cols_raw, int64_t max_ng,
-    const int64_t* dims,  // (S, 3)
-    const double* base_mva,  // (S,)
-    int64_t s, int paper_shunts,
-    int64_t pad_n, int64_t pad_e, int64_t pad_g,
-    float* buses, float* lines, float* gens,
-    float* bus_mask, float* line_mask, float* gen_mask,
-    int32_t* n_bus_out,
-    int n_threads) {
-  if (pad_e < pad_n) return 1;  // E >= N invariant (SURVEY.md Q2)
-  for (int64_t i = 0; i < s; ++i) {
-    if (dims[i * 3 + 0] > pad_n || dims[i * 3 + 1] > pad_e ||
-        dims[i * 3 + 2] > pad_g) {
-      return 2;  // grid larger than bucket
-    }
-  }
-
-  auto work = [&](int64_t lo, int64_t hi) {
-    for (int64_t i = lo; i < hi; ++i) {
-      const int64_t nb = dims[i * 3 + 0];
-      const int64_t ne = dims[i * 3 + 1];
-      const int64_t ng = dims[i * 3 + 2];
-      prepare_one(
-          bus_raw + i * max_nb * bus_cols_raw, nb, bus_cols_raw,
-          br_raw + i * max_ne * br_cols_raw, ne, br_cols_raw,
-          gen_raw + i * max_ng * gen_cols_raw, ng, gen_cols_raw,
-          base_mva[i], paper_shunts, pad_n, pad_e, pad_g,
-          buses + i * pad_n * kBusCols,
-          lines + i * pad_e * kLineCols,
-          gens + i * pad_g * kGenCols,
-          bus_mask + i * pad_n,
-          line_mask + i * pad_e,
-          gen_mask + i * pad_g);
-      n_bus_out[i] = static_cast<int32_t>(nb);
-    }
-  };
-
-  for_grids(s, n_threads, work);
-  return 0;
-}
 
 // Prepare S grids in parallel from their tables where they lie: no staging.
 //
 // tables (S, 3) holds the addresses of each grid's float64 bus, branch and
 // gen tables, each C-contiguous, rows (S, 3) their row counts and cols
-// (S, 3) their column counts (the row strides). Outputs as in
-// gridpack_prepare_batch. Every input is checked before anything is
-// written; on a bad one the index of the first bad grid goes to *bad and
+// (S, 3) their column counts (the row strides). Outputs are float32 slabs
+// shaped (S, pad_n, 6), (S, pad_e, 7), (S, pad_g, 7), masks (S, pad_n),
+// (S, pad_e), (S, pad_g) and each grid's bus count. Every input is checked
+// before anything is written; on a bad one the index of the first bad grid goes to *bad and
 // the return is 1 (pad_e < pad_n), 2 (a grid larger than the pad sizes),
 // 3 (a table narrower than the columns read: bus 6, branch 10, gen 10) or
 // 4 (a negative count, or rows at a null address). Returns 0 on success.
@@ -239,7 +163,7 @@ int gridpack_prepare_cases(
   auto table = [&](int64_t i, int k) {
     return reinterpret_cast<const double*>(static_cast<uintptr_t>(tables[i * 3 + k]));
   };
-  for_grids(s, n_threads, [&](int64_t lo, int64_t hi) {
+  auto work = [&](int64_t lo, int64_t hi) {
     for (int64_t i = lo; i < hi; ++i) {
       const int64_t nb = rows[i * 3 + 0];
       prepare_one(
@@ -255,7 +179,22 @@ int gridpack_prepare_cases(
           gen_mask + i * pad_g);
       n_bus_out[i] = static_cast<int32_t>(nb);
     }
-  });
+  };
+
+  // Up to n_threads contiguous chunks of grids.
+  if (n_threads <= 1 || s < 4) {
+    work(int64_t{0}, s);
+    return 0;
+  }
+  const int nt = static_cast<int>(std::min<int64_t>(n_threads, s));
+  const int64_t chunk = (s + nt - 1) / nt;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nt; ++t) {
+    const int64_t lo = t * chunk;
+    const int64_t hi = std::min<int64_t>(lo + chunk, s);
+    if (lo < hi) threads.emplace_back(work, lo, hi);
+  }
+  for (auto& th : threads) th.join();
   return 0;
 }
 

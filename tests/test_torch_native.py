@@ -204,9 +204,9 @@ def test_built_from_the_port_source_into_build_dir():
     assert "-std=c++17" in first["flags"] and "-ffast-math" not in first["flags"]
     again = native.build_packer()
     assert again["path"] == first["path"] and again["seconds"] == 0.0
-    src = open(native.SOURCE).read()
-    for sym in ("gridpack_prepare_batch", "gridpack_csr_by_dst"):
-        assert sym in src
+    lib = ctypes.CDLL(first["path"])
+    for sym in ("gridpack_prepare_cases", "gridpack_csr_by_dst"):
+        assert hasattr(lib, sym)
 
 
 def test_build_key_sees_the_host(monkeypatch):
