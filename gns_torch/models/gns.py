@@ -44,6 +44,7 @@ from gns_torch.ops.segment import (
 )
 from gns_torch.physics.common import Graph, build_graph, edge_geometry
 from gns_torch.physics.fused import physics_refresh, q2_geometry
+from gns_torch.utils import profiling
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 from gns_torch.utils.prepare import GridBatch
@@ -389,6 +390,7 @@ def gns_machinery(
         return sq.sum(-1) / n_real
 
     def single_phi_sum(p, edge_in):
+        profiling.count("model.single_phi_sums")
         phi_out = mlp(p, edge_in)
         if cfg.reference_parity:
             return psum(broadcast_col0_segment_sum(
@@ -472,13 +474,15 @@ def run_steps(step, carry, steps, discounts, remat: bool):
     zip(steps, discounts). remat: each step keeps only its inputs for the
     backward and recomputes its activations there, as gns_tpu wraps its
     scan body in jax.checkpoint (no randomness, so no generator state to
-    keep)."""
+    keep). Each step is a program span "model.step": its host time, the
+    step's work queued (run, on the CPU); none inside a train.capture."""
     for p, disc in zip(steps, discounts):
-        if remat:
-            carry = checkpoint(step, p, disc, *carry, use_reentrant=False,
-                               preserve_rng_state=False)
-        else:
-            carry = step(p, disc, *carry)
+        with profiling.span("model.step", outside="train.capture"):
+            if remat:
+                carry = checkpoint(step, p, disc, *carry, use_reentrant=False,
+                                   preserve_rng_state=False)
+            else:
+                carry = step(p, disc, *carry)
     return carry
 
 

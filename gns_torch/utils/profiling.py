@@ -30,6 +30,9 @@ Spans of the serving path (serve.py, utils/prepare.py):
       serve.graph    the index sets (counter serve.index_builds on a build)
       serve.upload   batch_tensors: the batch copied to the device
       serve.forward  gns_forward, host side: the kernels queued
+        model.step   one of the K correction steps (models/gns.py
+                     run_steps), host side; a single-phi step adds one to
+                     counter model.single_phi_sums
       serve.readback v, theta and last_loss to the host (waits for the device)
       serve.decode   align_slack_angle per grid
 
@@ -40,6 +43,11 @@ and of the training epoch (train/trainer.py make_epoch_step):
       train.copy_in  a batch copied into the graph's static inputs
       train.replay   CUDAGraph.replay
       train.step     an eager update step (no shared topology, or the CPU)
+
+with K model.step spans inside each train.step. A capture's forwards (its
+warm-ups and the captured one) record no model.step span, since they are
+the capture's set-up; each of them adds K to model.single_phi_sums, as it
+builds the aggregations. A replay runs no Python and records neither.
 
 A request's or an epoch's breakdown:
 
@@ -180,11 +188,13 @@ class Tracer:
             self._local.open = []
             return self._local.open
 
-    def span(self, name: str):
+    def span(self, name: str, outside: Optional[str] = None):
         """A context manager timing the block as span `name`, if anything
-        records when it is entered."""
+        records when it is entered and, given `outside`, no span of that
+        name is open on this thread."""
         if self._depth or _autograd_profiler._is_profiler_enabled:
-            return _Span(self, name)
+            if outside is None or all(s.name != outside for s in self._stack()):
+                return _Span(self, name)
         return _OFF
 
     def count(self, name: str, n: int = 1) -> None:

@@ -87,6 +87,22 @@ def test_span_tree_nests_and_shares_one_unit_per_root():
     assert [rec.counted(r.unit) for r in roots] == [{"tree.count": 1}] * 2
 
 
+def test_span_outside_a_named_span_is_not_kept():
+    """span(name, outside=x) records as a span does, except while a span x
+    is open on the thread; off, it is the shared do-nothing context."""
+    assert profiling.span("quiet", outside="loud") is profiling.span("a")
+    with profiling.recording():
+        with profiling.span("quiet", outside="loud"):
+            pass
+        with profiling.span("loud"):
+            with profiling.span("mid"):
+                with profiling.span("quiet", outside="loud"):
+                    profiling.count("quiet.count")
+    rec = profiling.recorded()
+    assert sorted(s.name for s in rec.spans) == ["loud", "mid", "quiet"]
+    assert rec.counted() == {"quiet.count": 1}
+
+
 def test_ring_is_bounded():
     tracer = profiling.Tracer(ring=8)
     with tracer.recording():
@@ -170,3 +186,44 @@ def test_time_step_trace_and_assert_finite(tmp_path):
         model.bias.fill_(float("inf"))
     with pytest.raises(FloatingPointError, match="model"):
         profiling.assert_finite(model, "model")
+
+
+@pytest.mark.parametrize("multiple_phi", [False, True])
+def test_model_steps_and_single_phi_sums(multiple_phi):
+    """A forward records one model.step span for each of its K steps, and a
+    single-phi one counts K model.single_phi_sums (a multi-phi one none):
+    in predict, inside serve.forward, and in an eager update step; with
+    nothing recording, neither is kept."""
+    from gns_torch.models.gns import GNS, batch_tensors
+    from gns_torch.serve import GNSPredictor
+    from gns_torch.train import trainer
+    from gns_torch.utils.augment import generate_cases
+    from gns_torch.utils.config import GNSConfig
+    from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+
+    cfg = GNSConfig(K=3, latent_dim=4, hidden_dim=3, multiple_phi=multiple_phi)
+    sums = 0 if multiple_phi else cfg.K
+    model = GNS(cfg, seed=0, device="cpu")
+    pred = GNSPredictor(model, cfg, batch_size=4, align_slack=False, device="cpu")
+    cases = list(generate_cases(14, 3, seed=31))
+    before = profiling.recorded()
+    pred.predict(cases)
+    assert profiling.recorded() == before
+    with profiling.recording():
+        pred.predict(cases)
+    rec = profiling.recorded()
+    forward = next(s for s in rec.spans if s.name == "serve.forward")
+    steps = [s for s in rec.spans if s.name == "model.step"]
+    assert len(steps) == cfg.K and all(s.parent == forward.id for s in steps)
+    assert rec.counted().get("model.single_phi_sums", 0) == sums
+
+    data = batch_from_cases(cases)
+    state = trainer.init_train_state(0, cfg, device="cpu")
+    epoch = trainer.make_epoch_step(cfg, topo=extract_shared_topology(data),
+                                    dense=data.is_dense())
+    stacked = batch_tensors(trainer.stack_epoch(data, 2), "cpu")  # two update steps
+    with profiling.recording():
+        epoch(state, stacked)
+    rec = profiling.recorded()
+    assert [s.name for s in rec.spans].count("model.step") == 2 * cfg.K
+    assert rec.counted().get("model.single_phi_sums", 0) == 2 * sums

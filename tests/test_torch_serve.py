@@ -105,7 +105,8 @@ PREDICT_CHILDREN = ["pack.prepare", "pack.stack", "pack.topology", "serve.graph"
 
 def test_predict_span_tree(models):
     """Recorded, each predict call is one serve.predict root whose children
-    are PREDICT_CHILDREN, in order, each inside its parent, all of the
+    are PREDICT_CHILDREN, in order, with one model.step span for each of
+    the K steps inside serve.forward, each inside its parent, all of the
     root's unit; two requests, two units."""
     _, model = models
     pred = GNSPredictor(model, CFG, batch_size=4, device="cpu")
@@ -122,7 +123,10 @@ def test_predict_span_tree(models):
         unit = [s for s in rec.spans if s.unit == root.unit]
         children = sorted((s for s in unit if s.parent == root.id), key=lambda s: s.start_ns)
         assert [c.name for c in children] == PREDICT_CHILDREN
-        assert len(unit) == 1 + len(PREDICT_CHILDREN)
+        forward = next(c for c in children if c.name == "serve.forward")
+        steps = [s for s in unit if s.name == "model.step"]
+        assert len(steps) == CFG.K and all(s.parent == forward.id for s in steps)
+        assert len(unit) == 1 + len(PREDICT_CHILDREN) + CFG.K
         for s in unit:
             if s.parent:
                 parent = by_id[s.parent]

@@ -271,7 +271,8 @@ def test_epoch_step_equals_step_loop(data14):
 
 def test_eager_epoch_span_tree(data14):
     """Recorded, an eager epoch (the CPU) is one train.epoch root with one
-    train.step per batch inside it, all of the root's unit."""
+    train.step per batch inside it, and K model.step spans inside each
+    train.step, all of the root's unit."""
     topo = extract_shared_topology(data14)
     state = _state(CFG, _np_params(CFG))
     epoch = make_epoch_step(CFG, topo=topo, dense=True)
@@ -282,10 +283,13 @@ def test_eager_epoch_span_tree(data14):
     roots = [s for s in rec.spans if s.parent == 0]
     assert [r.name for r in roots] == ["train.epoch"] * 2
     for root in roots:
-        steps = [s for s in rec.spans if s.unit == root.unit and s is not root]
+        unit = [s for s in rec.spans if s.unit == root.unit and s is not root]
+        steps = [s for s in unit if s.parent == root.id]
         assert [s.name for s in steps] == ["train.step"] * 2
-        assert all(s.parent == root.id and root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
-                   for s in steps)
+        assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in steps)
+        inner = [s for s in unit if s.parent != root.id]
+        assert [s.name for s in inner] == ["model.step"] * (2 * CFG.K)
+        assert sorted(s.parent for s in inner) == sorted([s.id for s in steps] * CFG.K)
     assert rec.counted() == {}  # no capture on the CPU
 
 
