@@ -40,7 +40,7 @@ from gns_torch.ops.segment import check_method
 from gns_torch.physics.common import build_graph
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import _stack_to_batch, pickle_path, prepare_case
-from gns_torch.utils.schema import LINE
+from gns_torch.utils.schema import BUS_TYPE_SLACK, LINE
 
 
 def _np_active_line_flow(v, theta, x, src, dst):
@@ -112,21 +112,47 @@ def run_nr_oracle(cases: List[Dict], backend: str = "scipy", device="cuda"):
     }
 
 
-def align_slack_angle(theta: np.ndarray, case: Dict) -> np.ndarray:
-    """Shift a predicted angle vector so the slack bus hits its known angle.
+def align_slack_angle(theta: np.ndarray, cases, bus_type=None, n_bus=None) -> np.ndarray:
+    """Shift predicted angles so each grid's slack bus hits its known angle.
 
     The physics residual is invariant under a global angle shift, so the
     network's raw angle gauge is arbitrary; the slack-bus angle is an input
     of the power-flow problem (Newton-Raphson holds it at the case's Va).
     Decoding into that gauge changes no angle difference, flow or residual.
+
+    theta (N,) with one case dict, or (S, N) with the S case dicts of its
+    rows, decoded in one shift over the block. bus_type (S, N) and n_bus
+    (S,), optional: the grids' packed bus types and bus counts
+    (GridBatch.buses[..., BUS["type"]], GridBatch.n_bus), which spare
+    reading each case's type column. A grid's slack row is its first of
+    type BUS_TYPE_SLACK below n_bus; its Va is read from the case's own
+    table in float64, and a grid without a slack bus keeps its angles.
     """
-    bus = np.asarray(case["bus"], dtype=np.float64)
-    slack = np.flatnonzero(bus[:, 1] == 3)
-    if slack.size == 0:
-        return theta
-    i = int(slack[0])
-    va_rad = float(np.deg2rad(bus[i, 8]))
-    return theta - theta[i] + va_rad
+    theta = np.asarray(theta)
+    if theta.ndim == 1:
+        return align_slack_angle(theta[None], [cases])[0]
+    if bus_type is None:  # each case's own type column; rows past it stay 0
+        bus_type = np.zeros(theta.shape)
+        for r, case in enumerate(cases):
+            types = np.asarray(case["bus"], dtype=np.float64)[:theta.shape[1], 1]
+            bus_type[r, :len(types)] = types
+        n_bus = theta.shape[1]
+    # padding rows trail the real ones, so a grid's first slack row is real
+    # exactly when it lies below n_bus
+    is_slack = np.asarray(bus_type) == BUS_TYPE_SLACK
+    first = is_slack.argmax(axis=1)
+    rows = np.flatnonzero(is_slack[np.arange(len(first)), first] & (first < n_bus))
+    idx = first[rows]
+    va = np.array([cases[r]["bus"][i][8] for r, i in zip(rows.tolist(), idx.tolist())],
+                  dtype=np.float64)
+    va = np.deg2rad(va).astype(theta.dtype)[:, None]
+    if rows.size == len(theta):
+        out = theta - theta[rows, idx][:, None]
+        out += va
+        return out
+    out = theta.copy()
+    out[rows] = theta[rows] - theta[rows, idx][:, None] + va
+    return out
 
 
 def _sync(device: torch.device) -> None:

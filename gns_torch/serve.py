@@ -4,7 +4,8 @@ gns_tpu/serve.py).
 A request set is chunked into batch_size-sized batches (the last padded
 with copies of its last case), each batch runs one K-step forward on the
 device, and the angles are decoded into Newton-Raphson's slack-pinned
-gauge (eval/harness.py align_slack_angle). On the card every segment-sum
+gauge (eval/harness.py align_slack_angle, one call over the request, the
+slack rows found in the packed bus types). On the card every segment-sum
 and gather of the forward is a K1 / K2 launch (ops/segment.py).
 
 Usage:
@@ -40,6 +41,7 @@ from gns_torch.utils import native, profiling
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
 from gns_torch.utils.prepare import batch_from_cases, extract_shared_topology
+from gns_torch.utils.schema import BUS
 
 
 class GNSPredictor:
@@ -127,11 +129,14 @@ class GNSPredictor:
             raise ValueError("empty request")
         span = profiling.span
         with span("serve.predict"):
-            outs = []
+            outs, types, n_bus = [], [], []
             for lo in range(0, len(cases), self.batch_size):
                 chunk = cases[lo:lo + self.batch_size]
                 padded = chunk + [chunk[-1]] * (self.batch_size - len(chunk))
                 batch = batch_from_cases(padded, paper_shunts=not self.cfg.true_shunts)
+                # the whole chunk's bus types: every dp rank decodes the gathered answer
+                types.append(batch.buses[:len(chunk), :, BUS["type"]])
+                n_bus.append(batch.n_bus[:len(chunk)])
                 with span("pack.topology"):
                     topo = extract_shared_topology(batch)
                     dense = batch.is_dense()
@@ -154,7 +159,9 @@ class GNSPredictor:
                 last_loss = np.concatenate([o.last_loss[:k].cpu().numpy() for o, k in outs])
             if self.align_slack:
                 with span("serve.decode"):
-                    theta = np.stack([align_slack_angle(t, c) for t, c in zip(theta, cases)])
+                    profiling.count("serve.batched_decodes")
+                    theta = align_slack_angle(theta, cases, np.concatenate(types),
+                                              np.concatenate(n_bus))
         return {"v": v, "theta": theta, "last_loss": last_loss}
 
 

@@ -34,7 +34,8 @@ Spans of the serving path (serve.py, utils/prepare.py):
                      run_steps), host side; a single-phi step adds one to
                      counter model.single_phi_sums
       serve.readback v, theta and last_loss to the host (waits for the device)
-      serve.decode   align_slack_angle per grid
+      serve.decode   align_slack_angle, one call a request (counter
+                     serve.batched_decodes)
 
 and of the training epoch (train/trainer.py make_epoch_step):
 
