@@ -212,14 +212,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      64 pickles (no fallback; the grids it reads equal the generated ones)
      and with the shipped checkpoint, its accuracy metrics equal to
      evaluate() in this process (launches: serving's per forward); (f) the
-     physics refresh's lowerings at bench.py's problem: "degree" on config
-     A, _STACK_GATHER, _STACK_AGG and both on config B, each one step's K1
-     / K2 launches against refresh_launches, every distinct launch
-     bit-equal to its twin, outputs and gradients against the card's run
-     with the switches off (bit-equal for "degree") and the port's CPU run
-     with the same setting, a replayed step's ms with and without the
-     setting (a b b a), and the epoch captured with the switches off,
-     called with a stacking switch on, capturing anew (its launches).
+     physics refresh's method="degree" at bench.py's problem (config A):
+     one step's K1 / K2 launches against train_launches, every distinct
+     launch bit-equal to its twin, outputs and gradients bit-equal to the
+     card's "auto" run and against the port's CPU run, the launches while
+     capturing its epoch, and a replayed step's ms against "auto"'s (a b b
+     a).
 Then one JSON line with every kernel's numbers (K1 / K2 with each rank's
 launches per phase-14 path under "parallel_launches" and the data phase's
 under "data_launches"; K3 and K4 an entry per width), and last the
@@ -3946,7 +3944,7 @@ DATA_NUM = 1023
 DATA_SCALE = 0.5
 DATA_EPOCHS = 2
 DATA_EVAL = 64  # held-out pickles evaluated: the last 64 of the data set
-DATA_REPLAY = 10  # steps per replayed epoch when the refresh's options are timed
+DATA_REPLAY = 10  # steps per replayed epoch when the refresh's "degree" is timed
 PACK_REPS = 5
 PREDICT_PACKING_MS = 14.14  # predict's packing of 1024 requests on the H100's host (PERF.md section 5)
 # the shipped case300 checkpoint's v MSE in the eval phase (a) on the H100 (PERF.md),
@@ -3978,45 +3976,9 @@ def ms_text(readings) -> str:
             f"{max(readings):.3f}, n={len(readings)})")
 
 
-def refresh_options() -> dict:
-    """The refresh's lowerings at bench.py's problem: (config, method,
-    _STACK_GATHER, _STACK_AGG) by name; "degree" on config A (parity), the
-    stacking switches on config B (paper)."""
-    cfgs = train_configs()
-    return {"degree": (cfgs["A"], "degree", False, False),
-            "stack_gather": (cfgs["B"], "auto", True, False),
-            "stack_agg": (cfgs["B"], "auto", False, True),
-            "stack_both": (cfgs["B"], "auto", True, True)}
-
-
-def refresh_launches(cfg, stack_gather: bool, stack_agg: bool):
-    """train_launches with the refresh's stacking switches (paper mode;
-    physics/fused.py): _STACK_GATHER makes the two (v, theta) gathers of
-    each step one K2 (forward K2 - K, their adjoints backward K1 - K);
-    _STACK_AGG makes the two edge sums and the generator sum of each step
-    one K1 (forward K1 - 2K, backward K2 - 2K). "degree" launches as
-    "auto" does."""
-    fwd, bwd = train_launches(cfg)
-    k = cfg.K
-    if not cfg.reference_parity:
-        if stack_gather:
-            fwd["K2"] -= k
-            bwd["K1"] -= k
-        if stack_agg:
-            fwd["K1"] -= 2 * k
-            bwd["K2"] -= 2 * k
-    return fwd, bwd
-
-
-def set_stacking(gather_on: bool, agg_on: bool) -> None:
-    from gns_torch.physics import fused
-
-    fused._STACK_GATHER, fused._STACK_AGG = gather_on, agg_on
-
-
 def refresh_step(kern, seg, cfg, method, batch, topo, device):
     """One update step's forward and backward (loss_and_grads) on `device`
-    from init_train_state(0, cfg), with the switches as they are now: the
+    from init_train_state(0, cfg) with the refresh's `method`: the
     forward's outputs, the gradients, and on the card the K1 / K2 launches
     (forward and backward apart) and their recordings."""
     from gns_torch.models.gns import batch_tensors, gns_forward, step_params
@@ -4085,39 +4047,22 @@ def hold_refresh(tag, label, cfg, got, want, exact: bool) -> float:
     return worst[0]
 
 
-def replay_ms(kern, cfg, method, topo, bt, switches, reps: int = DATA_REPLAY):
-    """A make_epoch_step of `reps` copies of the batch under the given
-    switches, captured at its first call. Returns the launches while
-    capturing, a closure timing one more epoch under those switches in
-    CUDA-event ms per step, and a closure running one epoch under other
-    switches that returns its launches (a capture of its own, since the
-    captured step is keyed by the switches)."""
+def replay_ms(kern, cfg, method, topo, bt, reps: int = DATA_REPLAY):
+    """A make_epoch_step of `reps` copies of the batch with the refresh's
+    `method`, captured at its first call. Returns the launches while
+    capturing and a closure timing one more epoch in CUDA-event ms per
+    step."""
     from gns_torch.train.trainer import init_train_state, make_epoch_step
     from gns_torch.utils.prepare import GridBatch
 
     state = init_train_state(0, cfg, device="cuda")
     epoch = make_epoch_step(cfg, method=method, topo=topo, dense=True)
     xs = GridBatch(*(a.unsqueeze(0).expand((reps,) + tuple(a.shape)) for a in bt))
-    set_stacking(*switches)
     reset_counts()
     with NoPlainTwins(kern):
         epoch(state, xs)
         torch.cuda.synchronize()
-    captured = counts()
-
-    def timed():
-        set_stacking(*switches)  # the capture's key: a replay under other switches would recapture
-        return steps_ms(lambda: epoch(state, xs), reps=1)[1] / reps
-
-    def under(other):
-        set_stacking(*other)
-        reset_counts()
-        with NoPlainTwins(kern):
-            epoch(state, xs)
-            torch.cuda.synchronize()
-        return counts()
-
-    return captured, timed, under
+    return counts(), lambda: steps_ms(lambda: epoch(state, xs), reps=1)[1] / reps
 
 
 def phase_data(kern, seg, card) -> dict:
@@ -4308,56 +4253,37 @@ def phase_data(kern, seg, card) -> dict:
                        pretrained_v_mse=eval_cli["pretrained"]["v_mse"])
     del model, cases, held, read
 
-    # (f) the refresh's lowerings at bench.py's problem
+    # (f) the refresh's "degree" at bench.py's problem (config A)
     batch, topo, bt, _ = train_problem()
-    base = {}  # config tag -> (outputs, gradients) on the card, switches off
-    out["refresh"] = {}
-    try:
-        for tag, (cfg, method, g_on, a_on) in refresh_options().items():
-            cfg_tag = "A" if cfg.reference_parity else "B"
-            if cfg_tag not in base:
-                set_stacking(False, False)
-                outs, grads, *_ = refresh_step(kern, seg, cfg, "auto", batch, topo, "cuda")
-                base[cfg_tag] = (outs, grads)
-            set_stacking(g_on, a_on)
-            outs, grads, fwd, bwd, rec = refresh_step(kern, seg, cfg, method, batch, topo, "cuda")
-            want_f, want_b = refresh_launches(cfg, g_on, a_on)
-            want_f.update(K3=0, K4=0)
-            want_b.update(K3=0, K4=0)
-            log(f"[data] (f) {tag} (config {cfg_tag}, method {method!r}, _STACK_GATHER {g_on}, "
-                f"_STACK_AGG {a_on}): one step's launches forward {fwd} (predicted {want_f}), "
-                f"backward {bwd} (predicted {want_b})")
-            check(fwd == want_f and bwd == want_b, f"{tag}: launches {fwd} / {bwd}")
-            held_n = hold_recorded(kern, rec, f"data {tag}", quiet=True)
-            log(f"[data] (f) {tag}: all {held_n} distinct K1 / K2 launches bit-equal to their twins")
-            del rec
-            hold_refresh(tag, "card vs the card's run with the switches off", cfg, (outs, grads),
-                         base[cfg_tag], exact=method == "degree")
-            cpu_outs, cpu_grads, *_ = refresh_step(kern, seg, cfg, method, batch, topo, "cpu")
-            share = hold_refresh(tag, "card vs the port's CPU run with the same setting", cfg,
-                                 (outs, grads), (cpu_outs, cpu_grads), exact=False)
-            # one replayed step with the setting and without, a b b a
-            off_cap, off, off_under = replay_ms(kern, cfg, "auto", topo, bt, (False, False))
-            on_cap, on, _ = replay_ms(kern, cfg, method, topo, bt, (g_on, a_on))
-            want_cap = {k: (CAPTURE_WARMUP + 1) * (want_f[k] + want_b[k]) for k in want_f}
-            check(on_cap == want_cap, f"{tag}: launches while capturing {on_cap} != {want_cap}")
-            r_off, r_on = abba(off, on)
-            log(f"[data] (f) {tag}: replayed step (CUDA events, {DATA_REPLAY} steps an epoch) "
-                f"{ms_text(r_on)} with the setting, {ms_text(r_off)} without; slower: "
-                f"{behind(r_on, r_off)} (launches while capturing {on_cap}, without {off_cap}; "
-                f"card: {card})")
-            if method != "degree":
-                # the epoch captured with the switches off, called with the
-                # setting: it must capture anew, never replay the other graph
-                flipped = off_under((g_on, a_on))
-                log(f"[data] (f) {tag}: the epoch captured with the switches off, called with "
-                    f"the setting: launches {flipped} (a capture of the setting: {want_cap})")
-                check(flipped == want_cap, f"{tag}: a captured step served another setting")
-            out["refresh"][tag] = dict(forward=fwd, backward=bwd, grad_share=share,
-                                       replay_ms=statistics.median(r_on),
-                                       replay_ms_off=statistics.median(r_off))
-    finally:
-        set_stacking(False, False)
+    cfg, tag = train_configs()["A"], "degree"
+    auto_outs, auto_grads, *_ = refresh_step(kern, seg, cfg, "auto", batch, topo, "cuda")
+    outs, grads, fwd, bwd, rec = refresh_step(kern, seg, cfg, "degree", batch, topo, "cuda")
+    want_f, want_b = train_launches(cfg)
+    want_f.update(K3=0, K4=0)
+    want_b.update(K3=0, K4=0)
+    log(f"[data] (f) {tag} (config A): one step's launches forward {fwd} (predicted {want_f}), "
+        f"backward {bwd} (predicted {want_b})")
+    check(fwd == want_f and bwd == want_b, f"{tag}: launches {fwd} / {bwd}")
+    held_n = hold_recorded(kern, rec, f"data {tag}", quiet=True)
+    log(f"[data] (f) {tag}: all {held_n} distinct K1 / K2 launches bit-equal to their twins")
+    del rec
+    hold_refresh(tag, 'card vs the card\'s "auto" run', cfg, (outs, grads),
+                 (auto_outs, auto_grads), exact=True)
+    cpu_outs, cpu_grads, *_ = refresh_step(kern, seg, cfg, "degree", batch, topo, "cpu")
+    share = hold_refresh(tag, "card vs the port's CPU run", cfg, (outs, grads),
+                         (cpu_outs, cpu_grads), exact=False)
+    # one replayed step with "degree" and with "auto", a b b a
+    auto_cap, auto = replay_ms(kern, cfg, "auto", topo, bt)
+    deg_cap, deg = replay_ms(kern, cfg, "degree", topo, bt)
+    want_cap = {k: (CAPTURE_WARMUP + 1) * (want_f[k] + want_b[k]) for k in want_f}
+    check(deg_cap == want_cap, f"{tag}: launches while capturing {deg_cap} != {want_cap}")
+    r_auto, r_deg = abba(auto, deg)
+    log(f"[data] (f) {tag}: replayed step (CUDA events, {DATA_REPLAY} steps an epoch) "
+        f"{ms_text(r_deg)}, \"auto\" {ms_text(r_auto)}; slower: {behind(r_deg, r_auto)} "
+        f"(launches while capturing {deg_cap}, \"auto\" {auto_cap}; card: {card})")
+    out["refresh"] = {tag: dict(forward=fwd, backward=bwd, grad_share=share,
+                                replay_ms=statistics.median(r_deg),
+                                replay_ms_auto=statistics.median(r_auto))}
     log(f"[data] phase took {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -4513,7 +4439,7 @@ def main() -> int:
             # the data phase: train() from the generated data set (its capture:
             # warm-up steps and the captured step; the replays call no
             # wrapper), evaluate() on its held-out pickles, and one step of
-            # each of the refresh's lowerings (forward + backward)
+            # the refresh's "degree" (forward + backward)
             kernels[-1]["data_launches"] = dict(
                 train_capture=data["train"]["launches"][k], train_per_step=data["train"]["per_step"][k],
                 eval=data["eval"]["launches"][k],

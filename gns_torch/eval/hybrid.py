@@ -40,7 +40,6 @@ import torch
 
 from gns_torch.eval.fdpf import _fdpf_core, solve_batched_fdpf
 from gns_torch.eval.nr_batched import (
-    _cache_put,
     _compact_stragglers,
     _nr_core,
     _on,
@@ -56,16 +55,15 @@ from gns_torch.models.gns import GNS, gns_forward, step_params
 from gns_torch.parallel.solver_dp import (
     agree, dp_group, gather_rows, pad_rows, padded_rows, shard_chunk,
 )
-from gns_torch.physics.common import build_graph
-from gns_torch.physics.fused import stack_switches
+from gns_torch.physics.common import GraphCache
 from gns_torch.serve import GNSPredictor
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch, GridTopology
 
-# The forward's index sets (physics/common.py Graph) per (topology,
-# device), module-level so repeated hybrid_solve calls reuse them as
-# GNSPredictor does; bounded by nr_batched._cache_put.
-_FUSED_CACHE: Dict[tuple, object] = {}
+# The forward's index sets (physics/common.py Graph) per topology and
+# device, module-level so repeated hybrid_solve calls reuse them as
+# GNSPredictor does.
+_GRAPHS = GraphCache()
 
 
 def _prepare_stacked(bus, branch, gen, base, paper_shunts: bool):
@@ -100,13 +98,7 @@ def _forward_graph(bus, branch, gen, device):
         dst=branch[0, :, 1].astype(np.int32) - 1,
         gen_idx=gen[0, :, 0].astype(np.int32) - 1,
     )
-    key = (bus.shape[1], branch.shape[1], topo.src.tobytes(), topo.dst.tobytes(),
-           topo.gen_idx.tobytes(), str(device), stack_switches())
-    graph = _FUSED_CACHE.get(key)
-    if graph is None:
-        graph = build_graph(bus[:1], branch[:1], gen[:1], topo, device)
-        _cache_put(_FUSED_CACHE, key, graph)
-    return graph
+    return _GRAPHS(bus[:1], branch[:1], gen[:1], topo, device)
 
 
 def _fused_fn(steps, cfg: GNSConfig, method: str, graph, topo, slack_idx: int,

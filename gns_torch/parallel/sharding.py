@@ -46,8 +46,7 @@ import torch.distributed as dist
 from gns_torch.models.gns import GNSOutput, batch_tensors, gns_forward, step_params
 from gns_torch.ops import collectives
 from gns_torch.parallel.solver_dp import mesh_device
-from gns_torch.physics.common import build_graph
-from gns_torch.physics.fused import stack_switches
+from gns_torch.physics.common import GraphCache
 from gns_torch.train.trainer import TrainState, _state_tensors, _update_core, make_optimizer
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch, GridTopology
@@ -168,7 +167,7 @@ def replicate(tree, mesh):
 class _Local:
     """One rank's view of the whole host batch on a mesh: its block, the
     Graph of that block and the groups the forward and the step reduce
-    over. Graphs of a shared topology are cached per shape."""
+    over. Graphs of a shared topology are kept in a GraphCache."""
 
     def __init__(self, cfg, mesh, dp, gp, topo, method):
         self.cfg, self.mesh, self.dp, self.gp = cfg, mesh, dp, gp
@@ -179,7 +178,7 @@ class _Local:
         self.gp_size = axis_coord(mesh, gp)[1]
         self.dp_group = axis_group(mesh, dp)
         self.all_group = axis_group(mesh, _names(mesh))
-        self.graphs = {}
+        self.graphs = GraphCache()
 
     def __call__(self, batch: GridBatch):
         """(local tensors, graph, dense, global rows) of a whole batch."""
@@ -192,13 +191,8 @@ class _Local:
             step = e_all // size
             part = slice(idx * step, (idx + 1) * step)
             topo = GridTopology(topo.src[part], topo.dst[part], topo.gen_idx)
-        key = (local.buses.shape, local.lines.shape, local.generators.shape, stack_switches())
-        graph = self.graphs.get(key) if topo is not None else None
-        if graph is None:
-            graph = build_graph(local.buses, local.lines, local.generators, topo, self.device,
-                                line_rows=e_all)
-            if topo is not None:
-                self.graphs[key] = graph
+        graph = self.graphs(local.buses, local.lines, local.generators, topo, self.device,
+                            line_rows=e_all)
         return batch_tensors(local, self.device), graph, host.is_dense(), host.buses.shape[0]
 
     def forward(self, steps, tensors, graph, dense):

@@ -3,12 +3,13 @@ gns_tpu/physics/common.py).
 
 Batched shapes: v/theta (S, N), buses (S, N, 6), lines (S, E, 7),
 gens (S, G, 7). Graph indices come as a `Graph` of SegmentIndex objects
-(models/gns.py build_graph).
+(build_graph below; GraphCache keeps a shared topology's).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import threading
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -24,11 +25,6 @@ class Graph(NamedTuple):
     bus -> edge gathers). src_rows/dst_rows are the same bus ids as
     indices into the E rows of per-line arrays: the reference's quirk Q2
     gathers (physics/fused.py), valid because batches keep E >= N.
-
-    src_dst ([src; dst], 2E ids) and src_dst_gen ([src; dst; gen], 2E + G
-    ids) index the paper-mode refresh's stacked gather and stacked
-    aggregation (physics/fused.py _STACK_GATHER, _STACK_AGG); each is built
-    only while its switch is on, else None.
     """
 
     src: SegmentIndex
@@ -36,8 +32,6 @@ class Graph(NamedTuple):
     gen: SegmentIndex
     src_rows: SegmentIndex
     dst_rows: SegmentIndex
-    src_dst: Optional[SegmentIndex] = None
-    src_dst_gen: Optional[SegmentIndex] = None
 
 
 def build_graph(buses, lines, gens, topo=None, device="cpu", line_rows=None) -> Graph:
@@ -45,12 +39,7 @@ def build_graph(buses, lines, gens, topo=None, device="cpu", line_rows=None) -> 
     lines (S, E, 7) and gens (S, G, 7). topo: the batch's shared
     GridTopology, or None for per-sample indices (a mixed-size request).
     line_rows: the row count Q2's gathers index (default E); a rank that
-    holds a slice of the lines passes the whole line count. The stacked
-    indexes are built when physics/fused.py's switches are on at this call
-    (a cache of Graphs keys them by fused.stack_switches())."""
-    from gns_torch.physics.fused import stack_switches  # fused imports this module
-
-    stack_gather, stack_agg = stack_switches()
+    holds a slice of the lines passes the whole line count."""
     if topo is not None:
         src, dst, gen = topo.src, topo.dst, topo.gen_idx
     else:
@@ -65,11 +54,49 @@ def build_graph(buses, lines, gens, topo=None, device="cpu", line_rows=None) -> 
         gen=SegmentIndex(gen, n, device),
         src_rows=SegmentIndex(src, e, device),
         dst_rows=SegmentIndex(dst, e, device),
-        src_dst=SegmentIndex(np.concatenate([src, dst], axis=-1), n, device)
-        if stack_gather else None,
-        src_dst_gen=SegmentIndex(np.concatenate([src, dst, gen], axis=-1), n, device)
-        if stack_agg else None,
     )
+
+
+GRAPH_CACHE_CAP = 64  # Graphs a GraphCache holds before it drops its oldest
+
+
+def host_array(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+class GraphCache:
+    """build_graph with a shared topology's Graphs kept: one per device,
+    N, E, G, line_rows and topology ids, the oldest dropped past
+    GRAPH_CACHE_CAP. With topo None (per-sample indices) every call builds
+    anew from the host view of the arrays (numpy, or tensors the host can
+    read). Inserts and `builds`, the count of Graphs built, are
+    thread-safe."""
+
+    def __init__(self):
+        self._graphs: Dict[tuple, Graph] = {}
+        self._lock = threading.Lock()
+        self.builds = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __call__(self, buses, lines, gens, topo, device, line_rows=None) -> Graph:
+        if topo is None:
+            with self._lock:
+                self.builds += 1
+            return build_graph(host_array(buses), host_array(lines), host_array(gens), None,
+                               device, line_rows)
+        key = (str(device), buses.shape[-2], lines.shape[-2], gens.shape[-2], line_rows,
+               topo.src.tobytes(), topo.dst.tobytes(), topo.gen_idx.tobytes())
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = build_graph(buses, lines, gens, topo, device, line_rows)
+            with self._lock:
+                self.builds += 1
+                while len(self._graphs) >= GRAPH_CACHE_CAP:
+                    self._graphs.pop(next(iter(self._graphs)))
+                self._graphs[key] = graph
+        return graph
 
 
 class EdgeGeom(NamedTuple):
@@ -103,17 +130,12 @@ def ones_mask(n, dtype=torch.float32, device="cpu") -> torch.Tensor:
     return torch.ones(n, dtype=dtype, device=device)
 
 
-def branch_flows(v, theta, geom: EdgeGeom, graph: Graph, at_src=None, at_dst=None):
+def branch_flows(v, theta, geom: EdgeGeom, graph: Graph):
     """Textbook AC branch flows (paper mode): per-line (p_f, q_f, p_t, q_t),
-    the power flowing into the line at its from- and to-side.
-
-    at_src / at_dst: the (S, E, 2) [v, theta] rows at the from- and to-bus,
-    when the caller gathered them already (the stacked gather of
-    physics/fused.py); gathered here when None."""
-    if at_src is None or at_dst is None:
-        vth = torch.stack([v, theta], dim=-1)
-        at_src = gather(vth, graph.src)
-        at_dst = gather(vth, graph.dst)
+    the power flowing into the line at its from- and to-side."""
+    vth = torch.stack([v, theta], dim=-1)
+    at_src = gather(vth, graph.src)
+    at_dst = gather(vth, graph.dst)
     vf = at_src[..., 0] / geom.tau
     vt = at_dst[..., 0]
     th = at_src[..., 1] - at_dst[..., 1] - geom.shift

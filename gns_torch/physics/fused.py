@@ -20,23 +20,13 @@ this process group, bus and generator state replicated; the Joule sum and
 the paired mismatch sums are local partials all-reduced over it, at
 gns_tpu's psum sites (gns_tpu/physics/fused.py:210, 220-221, 238-239).
 
-Lowerings, as gns_tpu's options (fused.py:41-57, 117-140):
-  * method="degree": gns_tpu's lowering for host-known ids
-    (ops/segment.py make_degree_segment_sum). K1 over the Graph's prebuilt
-    CSR is such a lowering already, so "degree" runs the refresh's sums on
-    K1 and its gathers on K2 on the card (the plain twins on the CPU), as
-    "auto" does, and turns the stacking below off, as gns_tpu does.
-  * _STACK_GATHER (paper mode): the from- and to-side (v, theta) gathers
-    become one K2 launch over the 2E ids [src; dst] (Graph.src_dst).
-  * _STACK_AGG (paper mode): the two edge-side mismatch sums and the
-    generator injection become one K1 launch over the 2E + G rows of
-    [src; dst; gen] (Graph.src_dst_gen): column 0 is p_sum + pg_bus,
-    column 1 q_sum. K1 adds each bus's rows in that order, so the float32
-    sums are not bit-equal to the unstacked path's.
-Neither switch applies in parity mode or under an edge partition. Both are
-off by default, as in gns_tpu; build_graph builds a switch's index only
-while it is on, and caches of Graphs or captured steps key them by
-stack_switches().
+One lowering: the refresh's sums run on K1 over the Graph's prebuilt CSR
+and its gathers on K2 on the card (the plain twins on the CPU). gns_tpu's
+method="degree" (its lowering for host-known ids, ops/segment.py
+make_degree_segment_sum) is such a lowering already, so "degree" computes
+what "auto" does. gns_tpu's two paper-mode stacking switches (one gather
+over [src; dst], one sum over [src; dst; gen]) have no counterpart: the
+port computes what they compute the unstacked way.
 """
 
 from __future__ import annotations
@@ -50,15 +40,6 @@ from gns_torch.ops.segment import check_method, gather, segment_sum
 from gns_torch.physics.common import EdgeGeom, Graph, branch_flows, edge_geometry
 from gns_torch.physics.compensation import _lambda_dispatch
 from gns_torch.utils.schema import BUS, BUS_TYPE_SLACK, GEN
-
-_STACK_GATHER = False
-_STACK_AGG = False
-
-
-def stack_switches() -> Tuple[bool, bool]:
-    """(_STACK_GATHER, _STACK_AGG) as they are now."""
-    return _STACK_GATHER, _STACK_AGG
-
 
 def q2_geometry(geom: EdgeGeom, graph: Graph, line_group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,15 +93,7 @@ def physics_refresh(
         )
     if dispatch not in ("lambda", "setpoint_slack"):
         raise ValueError(f"dispatch must be lambda/setpoint_slack, got {dispatch!r}")
-    degree = check_method(method, v.device) == "degree"
-    stackable = not reference_parity and edge_group is None and not degree
-    stack_gather = stackable and _STACK_GATHER
-    stack_agg = stackable and _STACK_AGG
-    for on, index, name in ((stack_gather, graph.src_dst, "_STACK_GATHER"),
-                            (stack_agg, graph.src_dst_gen, "_STACK_AGG")):
-        if on and index is None:
-            raise ValueError(f"{name} is on, but the Graph was built while it was off: "
-                             f"build the Graph (physics/common.py build_graph) after the switch")
+    check_method(method, v.device)
 
     if geom is None:
         geom = edge_geometry(lines)
@@ -170,12 +143,7 @@ def physics_refresh(
         q_to = -vv_d * cos_angd + v_d**2 * (y_d * sin_djd - b_d / 2)
         from_idx, to_idx = graph.dst, graph.src
     else:
-        at_src = at_dst = None
-        if stack_gather:
-            at_both = gather(torch.stack([v, theta], dim=-1), graph.src_dst)
-            e = at_both.shape[1] // 2
-            at_src, at_dst = at_both[:, :e], at_both[:, e:]
-        p_f, q_f, p_t, q_t = branch_flows(v, theta, geom, graph, at_src, at_dst)
+        p_f, q_f, p_t, q_t = branch_flows(v, theta, geom, graph)
         p_joule = all_reduce_sum(((p_f + p_t) * lm).sum(-1), edge_group)
         p_from, p_to = -p_f, -p_t  # the imbalance subtracts the line draw
         q_from, q_to = -q_f, -q_t
@@ -184,11 +152,10 @@ def physics_refresh(
     lm_col = line_mask[..., None] if line_mask is not None else 1.0
     from_pair = torch.stack([p_from, q_from], dim=-1) * lm_col
     to_pair = torch.stack([p_to, q_to], dim=-1) * lm_col
-    if not stack_agg:  # else after pg_new, which the generator rows need
-        agg_from = all_reduce_sum(segment_sum(from_pair, from_idx), edge_group)
-        agg_to = all_reduce_sum(segment_sum(to_pair, to_idx), edge_group)
-        p_sum = agg_from[..., 0] + agg_to[..., 0]
-        q_sum = agg_from[..., 1] + agg_to[..., 1]
+    agg_from = all_reduce_sum(segment_sum(from_pair, from_idx), edge_group)
+    agg_to = all_reduce_sum(segment_sum(to_pair, to_idx), edge_group)
+    p_sum = agg_from[..., 0] + agg_to[..., 0]
+    q_sum = agg_from[..., 1] + agg_to[..., 1]
 
     if dispatch == "setpoint_slack":
         pg_new = gens[..., GEN["Pg_set"]]
@@ -201,15 +168,8 @@ def physics_refresh(
         pg_new = _lambda_dispatch(p_global, gens, gen_mask)
 
     pg = pg_new * gen_mask if gen_mask is not None else pg_new
-    if stack_agg:
-        rows = torch.cat([from_pair, to_pair, torch.stack([pg, torch.zeros_like(pg)], dim=-1)],
-                         dim=1)
-        agg = segment_sum(rows, graph.src_dst_gen)
-        q_sum = agg[..., 1]
-        delta_p = agg[..., 0] - pd - gs * v2  # column 0 is p_sum + pg_bus
-    else:
-        pg_bus = segment_sum(pg, graph.gen)
-        delta_p = pg_bus - pd - gs * v2 + p_sum
+    pg_bus = segment_sum(pg, graph.gen)
+    delta_p = pg_bus - pd - gs * v2 + p_sum
 
     qg_start = qd - bs * v2
     qg_new = qg_start - q_sum

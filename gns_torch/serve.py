@@ -35,8 +35,7 @@ from gns_torch.models.gns import GNS, batch_tensors, gns_forward, step_params
 from gns_torch.ops import collectives
 from gns_torch.ops.segment import check_method
 from gns_torch.parallel.solver_dp import dp_block, dp_group, dp_size
-from gns_torch.physics.common import build_graph
-from gns_torch.physics.fused import stack_switches
+from gns_torch.physics.common import GraphCache
 from gns_torch.utils import native, profiling
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.device import resolve_device
@@ -48,10 +47,11 @@ class GNSPredictor:
     """Batched predictor that reuses per-shape state.
 
     The step weights are fused and cast once. The index sets of a shared
-    topology (ids and the CSR that K1 walks) are built once per (shape,
-    topology) and cached in `_compiled`, the way the JAX package caches
-    one compiled program per shape; per-sample indices of a mixed-size
-    request are built per batch.
+    topology (ids and the CSR that K1 walks) are built once per shape and
+    topology and kept in `_graphs` (physics/common.py GraphCache), the way
+    the JAX package caches one compiled program per shape; per-sample
+    indices of a mixed-size request are built per batch. The counter
+    serve.index_builds counts the Graphs a request had built.
 
     With compute_dtype "float32" the constructor turns TF32 off for
     matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -90,21 +90,15 @@ class GNSPredictor:
             {h: {n: t.to(self.device) for n, t in p.items()} for h, p in s.items()}
             for s in steps
         ]
-        self._compiled: Dict[tuple, object] = {}
+        self._graphs = GraphCache()
         if native.HAVE_NATIVE:  # the packer is built here, not in a request
             native.load()
 
     def _graph_for(self, batch, topo):
-        if topo is None:
+        builds = self._graphs.builds
+        graph = self._graphs(batch.buses, batch.lines, batch.generators, topo, self.device)
+        if self._graphs.builds != builds:
             profiling.count("serve.index_builds")
-            return build_graph(batch.buses, batch.lines, batch.generators, None, self.device)
-        key = (batch.buses.shape, batch.lines.shape, batch.generators.shape,
-               topo.src.tobytes(), topo.dst.tobytes(), topo.gen_idx.tobytes(), stack_switches())
-        graph = self._compiled.get(key)
-        if graph is None:
-            profiling.count("serve.index_builds")
-            graph = build_graph(batch.buses, batch.lines, batch.generators, topo, self.device)
-            self._compiled[key] = graph
         return graph
 
     def _gather(self, out):

@@ -33,12 +33,12 @@ import numpy as np
 import torch
 
 from gns_torch.models.gns import gns_forward, step_params
+from gns_torch.physics.common import GraphCache
 from gns_torch.train.trainer import (
     GradientTransformation,
     TrainState,
     _device,
     _epoch_fn,
-    _Graphs,
     _on,
     _update_core,
     init_train_state,
@@ -136,12 +136,12 @@ def make_supervised_train_step(
     (TrainState, GridBatch, NRLabels of the batch) -> (TrainState, {"sup",
     "physics"} device tensors), the state updated in place."""
     core = _supervised_core(cfg, w_physics, optimizer, method, dense)
-    graphs = _Graphs(topo)
+    graphs = GraphCache()
 
     def step_fn(state: TrainState, batch: GridBatch, labels: NRLabels):
         device = _device(state)
-        sup, physics = core(state, _on(batch, device), graphs(batch, device),
-                            *_labels_on(labels, device))
+        graph = graphs(batch.buses, batch.lines, batch.generators, topo, device)
+        sup, physics = core(state, _on(batch, device), graph, *_labels_on(labels, device))
         return state, {"sup": sup, "physics": physics}
 
     return step_fn

@@ -31,13 +31,11 @@ import math
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from gns_torch.models.gns import GNS, batch_tensors, gns_forward, step_params
 from gns_torch.ops.segment import check_method
-from gns_torch.physics.common import build_graph
-from gns_torch.physics.fused import stack_switches
+from gns_torch.physics.common import GraphCache, host_array
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch, extract_shared_topology
 from gns_torch.utils.profiling import count, span
@@ -233,36 +231,11 @@ def _update_core(cfg, optimizer, method, dense, grads_fn=None):
     return core
 
 
-def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
-
-
-class _Graphs:
-    """The index sets (physics/common.py Graph) of a batch on a device: one
-    per device, shape and setting of the refresh's stacking switches
-    (physics/fused.py stack_switches) for a shared topology, else built
-    anew from each batch's own line and generator ids (host data)."""
-
-    def __init__(self, topo):
-        self.topo = topo
-        self.cache = {}
-
-    def __call__(self, batch: GridBatch, device: torch.device):
-        if self.topo is None:
-            return build_graph(_host(batch.buses), _host(batch.lines), _host(batch.generators),
-                               None, device)
-        key = (str(device), batch.buses.shape[-2], batch.lines.shape[-2], stack_switches())
-        if key not in self.cache:
-            self.cache[key] = build_graph(batch.buses, batch.lines, batch.generators, self.topo,
-                                          device)
-        return self.cache[key]
-
-
 def _on(batch: GridBatch, device: torch.device) -> GridBatch:
     """The batch as tensors on `device` (a no-op for tensors already there)."""
     if all(torch.is_tensor(a) and a.device == device for a in batch):
         return batch
-    return batch_tensors(GridBatch(*(_host(a) for a in batch)), device)
+    return batch_tensors(GridBatch(*(host_array(a) for a in batch)), device)
 
 
 def make_train_step(
@@ -285,11 +258,11 @@ def make_train_step(
     (GridBatch.is_dense()), so the masks are skipped (exact).
     """
     core = _update_core(cfg, optimizer or make_optimizer(cfg), method, dense)
-    graphs = _Graphs(topo)
+    graphs = GraphCache()
 
     def step_fn(state: TrainState, batch: GridBatch):
         device = _device(state)
-        graph = graphs(batch, device)
+        graph = graphs(batch.buses, batch.lines, batch.generators, topo, device)
         loss, last = core(state, _on(batch, device), graph)
         return state, {"loss": loss, "last_loss": last}
 
@@ -354,7 +327,9 @@ def make_epoch_step(
     step runs eagerly per batch, on the card as on the CPU, with each
     batch's index sets built once per stacked dataset. On the CPU the step
     always runs in a Python loop. Every way, the result equals a loop of
-    make_train_step.
+    make_train_step. The shared topology's index sets come from the
+    epoch's own GraphCache (physics/common.py), one Graph per device and
+    shape.
     """
     return _epoch_fn(_update_core(cfg, optimizer or make_optimizer(cfg), method, dense), topo)
 
@@ -363,7 +338,7 @@ def _epoch_fn(core, topo) -> Callable:
     """make_epoch_step's epoch around an update core (see there); shared
     with train/supervised.py, whose batches carry their labels beside the
     GridBatch (core(state, batch, graph, *extra))."""
-    graphs = _Graphs(topo)
+    graphs = GraphCache()
     captured = {}
     per_batch = {}  # without a shared topology: the last stacked data's index sets
 
@@ -375,17 +350,16 @@ def _epoch_fn(core, topo) -> Callable:
         device = _device(state)
         n = batches.buses.shape[0]
         if device.type != "cuda" or topo is None:
-            if topo is None and (per_batch.get("of") is not batches
-                                 or per_batch["stack"] != stack_switches()):
-                per_batch.clear()
+            if topo is None and per_batch.get("of") is not batches:
                 per_batch["of"] = batches  # held, so it is not freed and its id reused
-                per_batch["stack"] = stack_switches()
-                per_batch["graphs"] = [graphs(GridBatch(*(a[i] for a in batches)), device)
+                per_batch["graphs"] = [graphs(batches.buses[i], batches.lines[i],
+                                              batches.generators[i], None, device)
                                        for i in range(n)]
             losses, lasts = [], []
             for i in range(n):
                 batch = GridBatch(*(a[i] for a in batches))
-                graph = per_batch["graphs"][i] if topo is None else graphs(batch, device)
+                graph = (per_batch["graphs"][i] if topo is None
+                         else graphs(batch.buses, batch.lines, batch.generators, topo, device))
                 with span("train.step"):
                     loss, last = core(state, _on(batch, device), graph, *(x[i] for x in extra))
                 losses.append(loss)
@@ -394,15 +368,12 @@ def _epoch_fn(core, topo) -> Callable:
         xs = _on(batches, device)
         flat = (*xs, *extra)
         sample = tuple(a[0] for a in flat)
-        # a captured step replays the refresh it was captured with: keyed
-        # by the stacking switches, as its Graph is
         key = (tuple(t.data_ptr() for t in _state_tensors(state)),
-               tuple((a.shape, a.dtype) for a in sample), stack_switches())
+               tuple((a.shape, a.dtype) for a in sample))
         if key not in captured:
             captured.clear()  # a graph holds its state's tensors and its memory pool
             with span("train.capture"):
-                captured[key] = _capture(core, state, graphs(GridBatch(*sample[:_NB]), device),
-                                         sample)
+                captured[key] = _capture(core, state, graphs(*sample[:3], topo, device), sample)
             count("train.captures")
         cap = captured[key]
         losses = xs.buses.new_empty((n,))
@@ -432,13 +403,14 @@ def stack_epoch(data: GridBatch, batch_size: int) -> GridBatch:
 def make_eval_step(cfg: GNSConfig, method: str = "auto", topo=None, dense: bool = False) -> Callable:
     """Inference: (model, GridBatch) -> batched GNSOutput, without
     gradients."""
-    graphs = _Graphs(topo)
+    graphs = GraphCache()
 
     def fn(model: GNS, batch: GridBatch):
         device = next(model.parameters()).device
         with torch.no_grad():
-            return gns_forward(step_params(model, cfg), cfg, _on(batch, device),
-                               graphs(batch, device), dense=dense, method=method)
+            graph = graphs(batch.buses, batch.lines, batch.generators, topo, device)
+            return gns_forward(step_params(model, cfg), cfg, _on(batch, device), graph,
+                               dense=dense, method=method)
 
     return fn
 

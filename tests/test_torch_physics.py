@@ -124,12 +124,13 @@ def test_geometry_flows_and_dispatch_match():
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
 
 
-# ---- the refresh's lowerings: method="degree", _STACK_GATHER, _STACK_AGG --
+# ---- the refresh's one lowering against gns_tpu's lowerings ----------------
 
 import gns_tpu.physics.fused as j_fused  # noqa: E402
-import gns_torch.physics.fused as fused  # noqa: E402
 
-# (reference_parity, method, _STACK_GATHER, _STACK_AGG)
+# (reference_parity, method, gns_tpu's _STACK_GATHER, gns_tpu's _STACK_AGG):
+# the port runs its one refresh under `method`; gns_tpu runs the lowering
+# the method and its stacking switches pick.
 LOWERINGS = {
     "degree_parity": (True, "degree", False, False),
     "degree_paper": (False, "degree", False, False),
@@ -145,11 +146,10 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 @pytest.fixture
 def switches(monkeypatch):
-    """Set the stacking switches of both packages; monkeypatch restores them."""
+    """Set gns_tpu's stacking switches; monkeypatch restores them."""
     def set_(gather_on, agg_on):
-        for mod in (fused, j_fused):
-            monkeypatch.setattr(mod, "_STACK_GATHER", gather_on)
-            monkeypatch.setattr(mod, "_STACK_AGG", agg_on)
+        monkeypatch.setattr(j_fused, "_STACK_GATHER", gather_on)
+        monkeypatch.setattr(j_fused, "_STACK_AGG", agg_on)
     return set_
 
 
@@ -189,10 +189,10 @@ def _refresh_both(batch, v, theta, parity, method, masks):
 @pytest.mark.parametrize("lowering", sorted(LOWERINGS))
 @pytest.mark.parametrize("mixed", [False, True])
 def test_refresh_lowerings_match_gns_tpu(lowering, mixed, switches):
-    """physics_refresh with method="degree" (both modes) and each stacking
-    switch (paper mode) against gns_tpu's refresh with the same setting:
-    forward within TOL, the gradients of the loss wrt v and theta within
-    GRAD_TOL."""
+    """The port's one physics_refresh (method "degree" in both modes, "auto"
+    in paper mode) against gns_tpu's refresh with that method and each of
+    its stacking settings: forward within TOL, the gradients of the loss
+    wrt v and theta within GRAD_TOL."""
     parity, method, gather_on, agg_on = LOWERINGS[lowering]
     switches(gather_on, agg_on)
     batch = _batch(mixed)
@@ -207,7 +207,7 @@ def test_refresh_lowerings_match_gns_tpu(lowering, mixed, switches):
 @pytest.mark.parametrize("parity", [True, False])
 def test_refresh_degree_equals_auto(parity):
     """The port's "degree" runs the same sums and gathers as "auto": its
-    outputs are bit-equal, and stacking stays off under it."""
+    outputs are bit-equal."""
     batch = _batch(False)
     v, theta = _state(batch, 8)
     bt = batch_tensors(batch, "cpu")
@@ -222,58 +222,6 @@ def test_refresh_degree_equals_auto(parity):
         assert torch.equal(a, b)
 
 
-def test_stack_switch_needs_its_index(switches):
-    """A Graph built while a switch was off has no stacked index: the
-    refresh raises instead of running the other lowering; one built after
-    the switch has it."""
-    batch = _batch(False)
-    v, theta = _state(batch, 9)
-    bt = batch_tensors(batch, "cpu")
-    topo = extract_shared_topology(batch)
-    graph = build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu")
-    assert graph.src_dst is None and graph.src_dst_gen is None
-    args = (torch.from_numpy(v), torch.from_numpy(theta), bt.buses, bt.lines, bt.generators)
-    for flags in ((True, False), (False, True)):
-        switches(*flags)
-        with pytest.raises(ValueError, match="built while it was off"):
-            physics_refresh(*args, graph, reference_parity=False)
-        rebuilt = build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu")
-        assert (rebuilt.src_dst is not None) == flags[0]
-        assert (rebuilt.src_dst_gen is not None) == flags[1]
-        physics_refresh(*args, rebuilt, reference_parity=False)
-        # parity mode and "degree" never stack, so the old Graph serves them
-        physics_refresh(*args, graph, reference_parity=True)
-        physics_refresh(*args, graph, reference_parity=False, method="degree")
-
-
-def test_train_step_rebuilds_after_a_switch_flips(switches):
-    """make_train_step's Graph cache is keyed by the switches: a step
-    taken after _STACK_AGG flips builds its own Graph (with the stacked
-    index) instead of reusing the other setting's, and updates the state as
-    a step built fresh under that setting does."""
-    from gns_torch.train.trainer import init_train_state, make_train_step
-    from gns_torch.utils.config import GNSConfig
-
-    batch = _batch(False)
-    topo = extract_shared_topology(batch)
-    cfg = GNSConfig(case_nr=30, K=2, latent_dim=4, hidden_dim=4, reference_parity=False,
-                    qg_gen_only=True, batch_size=3)
-    switches(False, False)
-    step = make_train_step(cfg, topo=topo, dense=True)
-    state = init_train_state(0, cfg, device="cpu")
-    step(state, batch)
-    switches(False, True)
-    _, m_flipped = step(state, batch)  # reusing the old Graph would raise here
-    switches(False, False)
-    state2 = init_train_state(0, cfg, device="cpu")
-    step(state2, batch)
-    switches(False, True)
-    _, m_fresh = make_train_step(cfg, topo=topo, dense=True)(state2, batch)
-    assert torch.equal(m_flipped["loss"], m_fresh["loss"])
-    for a, b in zip(state.model.parameters(), state2.model.parameters()):
-        assert torch.equal(a, b)
-
-
 # ---- the forward hands its method to the refresh and checks it there ----
 
 PAPER_CFG = dict(case_nr=30, K=2, latent_dim=4, hidden_dim=4, reference_parity=False,
@@ -282,30 +230,32 @@ PAPER_CFG = dict(case_nr=30, K=2, latent_dim=4, hidden_dim=4, reference_parity=F
 
 @pytest.mark.parametrize("flags", [(True, False), (False, True), (True, True)])
 def test_forward_degree_reaches_the_refresh(flags, switches):
-    """gns_forward(method="degree") in paper mode with a stacking switch on
-    runs the refresh unstacked, as gns_tpu's does: it runs on a Graph built
-    while the switches were off (with "auto" the refresh asks for the
-    stacked index and raises), and equals the unstacked "auto" forward bit
-    for bit."""
-    from gns_torch.models.gns import GNS, gns_forward, step_params
+    """The port's paper-mode gns_forward and GNS.forward with
+    method="degree" against gns_tpu's paper-mode forward with its stacking
+    switches `flags` on (the same weights): within TOL."""
+    from gns_tpu.models.gns import gns_forward_batch as j_forward_batch
+    from gns_tpu.models.gns import init_gns_params
+    from gns_torch.models.convert import module_from_jax_params
+    from gns_torch.models.gns import gns_forward, step_params
     from gns_torch.utils.config import GNSConfig
 
     cfg = GNSConfig(**PAPER_CFG)
     batch = _batch(False)
+    topo = extract_shared_topology(batch)
+    params = init_gns_params(jax.random.key(0), cfg)
+    model = module_from_jax_params(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    switches(*flags)
+    ref = j_forward_batch(params, cfg, batch, method="scatter", topo=topo, dense=True)
     bt = batch_tensors(batch, "cpu")
-    graph = build_graph(batch.buses, batch.lines, batch.generators,
-                        extract_shared_topology(batch), "cpu")
-    model = GNS(cfg, seed=0, device="cpu")
-    steps = step_params(model, cfg)
+    graph = build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu")
     with torch.no_grad():
-        unstacked = gns_forward(steps, cfg, bt, graph, dense=True)
-        switches(*flags)
-        with pytest.raises(ValueError, match="built while it was off"):
-            gns_forward(steps, cfg, bt, graph, dense=True)
-        for out in (gns_forward(steps, cfg, bt, graph, dense=True, method="degree"),
-                    model(bt, graph, dense=True, method="degree")):
-            for a, b in zip(out, unstacked):
-                assert torch.equal(a, b)
+        outs = (gns_forward(step_params(model, cfg), cfg, bt, graph, dense=True,
+                            method="degree"),
+                model(bt, graph, dense=True, method="degree"))
+    for out in outs:
+        for name in ("v", "theta", "total_loss", "last_loss", "delta_p", "delta_q"):
+            np.testing.assert_allclose(getattr(out, name).numpy(),
+                                       np.asarray(getattr(ref, name)), err_msg=name, **TOL)
 
 
 def _cuda_check(monkeypatch):
@@ -362,3 +312,123 @@ def test_forward_checks_method_against_the_device(entry, monkeypatch):
         run(method)
     assert [m for m, _ in seen] == ["scatter", "auto", "degree"]
     assert {d for _, d in seen} == {"cpu"}
+
+
+# ---- GraphCache: a topology's Graph per device, shape and line_rows -------
+
+from gns_torch.physics import common  # noqa: E402
+from gns_torch.utils.prepare import GridTopology  # noqa: E402
+
+
+def _same_ids(a, b):
+    for name in a._fields:
+        assert torch.equal(getattr(a, name).ids, getattr(b, name).ids), name
+
+
+def _stub_builds(monkeypatch):
+    """Replace build_graph under the cache by a stub that records each
+    call and returns a fresh object."""
+    built = []
+
+    def stub(buses, lines, gens, topo=None, device="cpu", line_rows=None):
+        built.append((topo, device, line_rows))
+        return object()
+
+    monkeypatch.setattr(common, "build_graph", stub)
+    return built
+
+
+def test_graph_cache_hits_the_same_topology_shape_and_device():
+    """A second call with the same topology, N / E / G and device, from
+    numpy or tensors and at another batch size, returns the cached Graph,
+    which equals build_graph's."""
+    batch = _batch(False)
+    topo = extract_shared_topology(batch)
+    cache = common.GraphCache()
+    graph = cache(batch.buses, batch.lines, batch.generators, topo, "cpu")
+    bt = batch_tensors(batch[:2], "cpu")
+    assert cache(bt.buses, bt.lines, bt.generators, topo, torch.device("cpu")) is graph
+    assert cache.builds == 1 and len(cache) == 1
+    _same_ids(graph, build_graph(batch.buses, batch.lines, batch.generators, topo, "cpu"))
+
+
+@pytest.mark.parametrize("change", ["topology", "device", "line_rows"])
+def test_graph_cache_builds_anew_for_another_key(change, monkeypatch):
+    """Another topology, device or line_rows is another Graph; the first
+    stays cached."""
+    built = _stub_builds(monkeypatch)
+    batch = _batch(False)
+    topo = extract_shared_topology(batch)
+    cache = common.GraphCache()
+    args = dict(topo=topo, device="cpu", line_rows=None)
+    other = {"topology": dict(topo=GridTopology(topo.dst, topo.src, topo.gen_idx)),
+             "device": dict(device="cuda:1"),
+             "line_rows": dict(line_rows=2 * batch.lines.shape[1])}[change]
+    new = {**args, **other}
+    first = cache(batch.buses, batch.lines, batch.generators, **args)
+    again = cache(batch.buses, batch.lines, batch.generators, **new)
+    assert again is not first and cache.builds == 2 and len(cache) == 2
+    assert cache(batch.buses, batch.lines, batch.generators, **args) is first
+    assert len(built) == 2 and built[1][0] is new["topo"]
+    assert built[1][1:] == (new["device"], new["line_rows"])
+
+
+def test_graph_cache_builds_per_call_without_a_topology():
+    """topo=None: every call builds the batch's per-sample Graph anew from
+    the host view of its arrays, and nothing is cached."""
+    batch = _batch(True)
+    cache = common.GraphCache()
+    bt = batch_tensors(batch, "cpu")
+    want = build_graph(batch.buses, batch.lines, batch.generators, None, "cpu")
+    graphs = [cache(batch.buses, batch.lines, batch.generators, None, "cpu"),
+              cache(bt.buses, bt.lines, bt.generators, None, "cpu")]
+    assert graphs[0] is not graphs[1] and cache.builds == 2 and len(cache) == 0
+    for graph in graphs:
+        _same_ids(graph, want)
+
+
+def test_graph_cache_drops_its_oldest_past_the_cap(monkeypatch):
+    """Past GRAPH_CACHE_CAP Graphs the oldest goes: the newest is still a
+    hit, the first is built again."""
+    _stub_builds(monkeypatch)
+    batch = _batch(False)
+    topo = extract_shared_topology(batch)
+    cache = common.GraphCache()
+    first, *_, last = [cache(batch.buses, batch.lines, batch.generators, topo, "cpu", rows)
+                       for rows in range(1, common.GRAPH_CACHE_CAP + 2)]
+    assert len(cache) == common.GRAPH_CACHE_CAP
+    rows = common.GRAPH_CACHE_CAP + 1
+    assert cache(batch.buses, batch.lines, batch.generators, topo, "cpu", rows) is last
+    assert cache(batch.buses, batch.lines, batch.generators, topo, "cpu", 1) is not first
+    assert cache.builds == common.GRAPH_CACHE_CAP + 2
+
+
+def test_graph_cache_inserts_from_many_threads(monkeypatch):
+    """Threads past the core count insert distinct Graphs with a short
+    switch interval: every build is counted and the cache ends at its cap."""
+    import sys
+    import threading
+
+    _stub_builds(monkeypatch)
+    batch = _batch(False)
+    topo = extract_shared_topology(batch)
+    cache = common.GraphCache()
+    n_threads, per_thread = 16, 200
+
+    def insert(t):
+        for i in range(per_thread):
+            cache(batch.buses, batch.lines, batch.generators, topo, "cpu", t * per_thread + i + 1)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=insert, args=(t,)) for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert cache.builds == n_threads * per_thread
+    assert len(cache) == common.GRAPH_CACHE_CAP

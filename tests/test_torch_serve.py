@@ -68,7 +68,7 @@ def test_predictor_pads_and_reuses_state(models):
     for n_aug, seed in ((2, 33), (4, 34)):
         cases = list(generate_cases(9, n_aug, seed=seed))
         _assert_same(pred.predict(cases), jpred.predict(cases))
-    assert len(pred._compiled) == 1  # one topology state served both requests
+    assert len(pred._graphs) == 1  # one topology state served both requests
     with pytest.raises(ValueError):
         pred.predict([])
 
@@ -82,7 +82,7 @@ def test_predict_mixed_size_request(models):
     mixed = [c9[0], c14[0], c9[1], c14[1]]
     pred = GNSPredictor(model, CFG, batch_size=4, align_slack=False, device="cpu")
     ours = pred.predict(mixed)
-    assert ours["v"].shape == (4, 14) and not pred._compiled
+    assert ours["v"].shape == (4, 14) and not pred._graphs
     _assert_same(ours, j_predict(params, J_CFG, mixed, method="scatter", align_slack=False))
 
 
@@ -95,7 +95,7 @@ def test_predictor_chunks_large_requests(models):
         out = pred.predict(cases)
         assert out["v"].shape == (n_req, 9) and out["last_loss"].shape == (n_req,)
         _assert_same(out, jpred.predict(cases))
-    assert len(pred._compiled) == 1
+    assert len(pred._graphs) == 1
 
 
 # the spans of one predict call: the root's children in the order they run

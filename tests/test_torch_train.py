@@ -415,20 +415,14 @@ def test_unfused_physics_matches(mode):
         np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=f"fused {name}", **tol)
 
 
-def test_masked_batch_trains_through_the_kernel_backward(monkeypatch):
+def test_masked_batch_trains_through_the_kernel_backward():
     """A padded, masked case9 + case14 batch (per-sample topology) takes
     update steps. On the card the backward of every K1 sum is a K2 gather,
     which needs every segment id in range: padded lines and generators
-    point at the dead bus slot, so every index of the batch is in range
-    (the refresh's stacked indexes too, built with its switches on)."""
-    import gns_torch.physics.fused as fused
-
+    point at the dead bus slot, so every index of the batch is in range."""
     batch = _mixed_batch()
     assert not batch.is_dense() and extract_shared_topology(batch) is None
-    with monkeypatch.context() as mp:
-        mp.setattr(fused, "_STACK_GATHER", True)
-        mp.setattr(fused, "_STACK_AGG", True)
-        graph = build_graph(batch.buses, batch.lines, batch.generators, None, "cpu")
+    graph = build_graph(batch.buses, batch.lines, batch.generators, None, "cpu")
     for name, index in graph._asdict().items():
         assert index.in_range, name
     cfg = CFG.replace(batch_size=2)
