@@ -475,6 +475,7 @@ def gns_machinery(
             profiling.count("model.fused_refreshes")
             delta_p, delta_q, total_loss = refresh_cuda(fused, v, theta, disc, total_loss)
             return v, theta, m, delta_p, delta_q, total_loss
+        profiling.count("model.eager_refreshes")
         _, _, delta_p, delta_q = physics_refresh(
             v, theta, buses, lines, gens, graph,
             reference_parity=cfg.reference_parity,

@@ -44,7 +44,7 @@ from gns_torch.ops import collectives
 from gns_torch.parallel.sharding import axis_coord, axis_group, host_batch
 from gns_torch.parallel.solver_dp import mesh_device
 from gns_torch.physics.common import build_graph
-from gns_torch.train.trainer import TrainState, make_optimizer
+from gns_torch.train.trainer import TrainState, make_optimizer, sq_sum64
 from gns_torch.utils.config import GNSConfig
 from gns_torch.utils.prepare import GridBatch, extract_shared_topology
 
@@ -188,13 +188,13 @@ def make_pipelined_forward(
 
 
 def pp_sq_norm(mesh, pp: str = "pp"):
-    """grads -> the squared global norm of the stage-local gradients: one
-    all-reduce of the local squares over pp."""
+    """grads -> the squared global norm of the stage-local gradients, in
+    float64 (trainer.sq_sum64): one all-reduce of the local squares over
+    pp."""
     group = axis_group(mesh, pp)
 
     def sq_norm(grads):
-        part = torch.stack([torch.sum(g.float() * g.float()) for g in grads]).sum()
-        return collectives.all_reduce_(part, group)
+        return collectives.all_reduce_(sq_sum64(grads), group)
 
     return sq_norm
 

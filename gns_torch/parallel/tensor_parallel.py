@@ -42,7 +42,7 @@ from gns_torch.models.gns import GNS, gns_forward, step_params
 from gns_torch.ops import collectives
 from gns_torch.parallel.sharding import _Local, axis_coord, axis_group
 from gns_torch.parallel.solver_dp import mesh_device
-from gns_torch.train.trainer import TrainState, _update_core, make_optimizer
+from gns_torch.train.trainer import TrainState, _update_core, make_optimizer, sq_sum64
 from gns_torch.utils.config import GNSConfig
 
 # the dimension of each LearningBlock parameter split over tp (None: replicated)
@@ -92,17 +92,17 @@ def tp_init_train_state(seed: int, cfg: GNSConfig, mesh, optimizer=None, tp: str
 
 def tp_sq_norm(model: GNS, mesh, tp: str = "tp"):
     """grads -> the squared global norm of a TP gradient list in
-    model.parameters() order: the sharded leaves' squares summed over tp
-    (one all-reduce), each replicated leaf counted once."""
+    model.parameters() order, in float64 (trainer.sq_sum64): the sharded
+    leaves' squares summed over tp (one all-reduce), each replicated leaf
+    counted once."""
     dims = tp_param_shardings(model, mesh, tp)
     sharded = [dims[name] is not None for name, _ in model.named_parameters()]
     group = axis_group(mesh, tp)
 
     def sq_norm(grads):
-        sq = [torch.sum(g.float() * g.float()) for g in grads]
-        part = torch.stack([q for q, s in zip(sq, sharded) if s]).sum()
+        part = sq_sum64([g for g, s in zip(grads, sharded) if s])
         collectives.all_reduce_(part, group)
-        return part + torch.stack([q for q, s in zip(sq, sharded) if not s]).sum()
+        return part + sq_sum64([g for g, s in zip(grads, sharded) if not s])
 
     return sq_norm
 

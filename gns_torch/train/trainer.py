@@ -57,18 +57,26 @@ class GradientTransformation(NamedTuple):
     update: Callable
 
 
+def sq_sum64(leaves: List[torch.Tensor]) -> torch.Tensor:
+    """The sum of the leaves' squares in float64, one reduction over their
+    concatenation: float32 squares overflow past a norm of about 1.8e19,
+    which an untrained K-step map over stiff branches reaches (1e30)."""
+    flat = torch.cat([g.reshape(-1) for g in leaves]).double()
+    return torch.sum(flat * flat)
+
+
 def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
                          sq_norm: Optional[Callable] = None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: select(norm < max_norm, g, g / norm *
     max_norm), with no epsilon on the norm (torch's clip_grad_norm_ adds
     1e-6). The select is written as a divisor and a factor that are 1 where
     the norm is below max_norm, so g / 1 * 1 returns g exactly. sq_norm:
-    grads -> the squared global norm, for gradients sharded over processes
-    (parallel/tensor_parallel.py, pipeline.py); None for local ones."""
-    if sq_norm is None:
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    else:
-        norm = torch.sqrt(sq_norm(grads))
+    grads -> the squared global norm in float64 (sq_sum64 of the local
+    leaves, the default; parallel/tensor_parallel.py and pipeline.py sum
+    it over processes). The norm is rounded to the gradients' type after
+    the root: in float32 an overflowing norm would be inf, g / inf would
+    zero the update and the state would never move."""
+    norm = torch.sqrt((sq_norm or sq_sum64)(grads)).to(grads[0].dtype)
     below = norm < max_norm
     one = torch.ones_like(norm)
     divisor = torch.where(below, one, norm)
@@ -93,8 +101,8 @@ def make_optimizer(cfg: GNSConfig, sq_norm: Optional[Callable] = None) -> Gradie
         before this update, so the first update's step size is 0 while
         Adam's moments still advance.
     The step size multiplies the update last, negated. sq_norm: the
-    squared global norm of a sharded gradient list, for the clip (see
-    _clip_by_global_norm).
+    squared global norm of a sharded gradient list in float64, for the
+    clip (see _clip_by_global_norm).
     """
     if cfg.optimizer not in ("adam", "adagrad"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
@@ -114,9 +122,10 @@ def make_optimizer(cfg: GNSConfig, sq_norm: Optional[Callable] = None) -> Gradie
     def update(grads, state, params=None):
         g = list(grads)
         if clip > 0:
+            count("optim.global_norm_clips")
             g = _clip_by_global_norm(g, clip, sq_norm)
-        count = state["count"]
-        count_inc = count + 1
+        n_done = state["count"]
+        count_inc = n_done + 1
         if adam:
             mu = torch._foreach_add(torch._foreach_mul(g, 1 - ADAM_B1),
                                     torch._foreach_mul(state["mu"], ADAM_B1))
@@ -132,7 +141,7 @@ def make_optimizer(cfg: GNSConfig, sq_norm: Optional[Callable] = None) -> Gradie
             updates = torch._foreach_mul(inv, g)
             new = {"count": count_inc, "sum_of_squares": list(sums)}
         if warmup > 0:
-            frac = 1 - torch.clamp(count, 0, warmup) / warmup
+            frac = 1 - torch.clamp(n_done, 0, warmup) / warmup
             step_size = -1 * ((0.0 - lr) * frac + lr)
         else:
             step_size = -lr
@@ -215,6 +224,7 @@ def _update_core(cfg, optimizer, method, dense, grads_fn=None):
             return loss_and_grads(model, cfg, batch, graph, method, dense)
 
     def core(state: TrainState, batch: GridBatch, graph, *extra):
+        count("train.steps_built")
         loss, last, grads = grads_fn(state.model, batch, graph, *extra)
         params = list(state.model.parameters())
         with torch.no_grad():

@@ -34,7 +34,8 @@ Spans of the serving path (serve.py, utils/prepare.py):
                      run_steps), host side; a single-phi step adds one to
                      counter model.single_phi_sums, a step whose refresh
                      is the fused kernel (ops/refresh.py) one to counter
-                     model.fused_refreshes
+                     model.fused_refreshes, any other step one to counter
+                     model.eager_refreshes (the physics_refresh chain)
       serve.readback v, theta and last_loss to the host (waits for the device)
       serve.decode   align_slack_angle, one call a request (counter
                      serve.batched_decodes)
@@ -47,10 +48,14 @@ and of the training epoch (train/trainer.py make_epoch_step):
       train.replay   CUDAGraph.replay
       train.step     an eager update step (no shared topology, or the CPU)
 
-with K model.step spans inside each train.step. A capture's forwards (its
-warm-ups and the captured one) record no model.step span, since they are
-the capture's set-up; each of them adds K to model.single_phi_sums, as it
-builds the aggregations. A replay runs no Python and records neither.
+with K model.step spans inside each train.step. Every update step built
+(each eager step; a capture's warm-ups and the captured step) adds one to
+counter train.steps_built. A capture's forwards record no model.step
+span, since they are the capture's set-up; each of them adds K to
+model.single_phi_sums, as it builds the aggregations, and K to
+model.eager_refreshes, and each update built with a gradient clip one to
+optim.global_norm_clips (train/trainer.py make_optimizer). A replay runs
+no Python and records none of them.
 
 A request's or an epoch's breakdown:
 

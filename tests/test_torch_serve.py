@@ -149,7 +149,9 @@ def test_index_builds_counted_on_a_cache_miss(models):
     with profiling.recording():
         pred.predict(mixed)
     packed = {"pack.native_batches": 1} if native.HAVE_NATIVE else {}
-    assert profiling.recorded().counted() == {"serve.index_builds": 1, **packed}
+    # the CPU's refresh is the eager chain, one a correction step
+    assert profiling.recorded().counted() == {"serve.index_builds": 1,
+                                              "model.eager_refreshes": CFG.K, **packed}
 
 
 @pytest.mark.parametrize("key", [14, 300, "300-deep", "multi-paper", "118-deep-n1"])

@@ -228,6 +228,19 @@ def test_tp_clipped_step(ranks, single):
     assert ranks[0]["tp_clip_coll"] == {"all_reduce": 4 * CFG.K + 1}
 
 
+@pytest.mark.parametrize("path", ["tp", "pp"])
+def test_sharded_clip_past_float32_squares(ranks, single, path):
+    """grad_clip=1.0 of sharded gradients whose every entry is 1e20: the
+    squared norm summed in float64 over the processes, so the clipped
+    entries are 1 / sqrt(n) of the whole model's n entries, not g / inf."""
+    n = sum(g.size for g in single["clip"]["grads"])
+    for r in ranks:
+        clipped, counted = r[f"{path}_big_clip"]
+        assert counted == n
+        for c in clipped:
+            np.testing.assert_allclose(c, 1 / np.sqrt(n), rtol=1e-6)
+
+
 def _key(case):
     return "/".join(str(x) for x in case)
 

@@ -294,14 +294,28 @@ def job_edge(rank, inp):
 # tensor and pipeline parallel
 
 
+def _big_clip(leaves, sq_norm):
+    """The clip of sharded gradients whose every entry is 1e20, past
+    float32's squares (a norm of about 1.8e19): the clipped leaves, and
+    the global count of entries as sq_norm counts them (the squared norm
+    of ones)."""
+    from gns_torch.train.trainer import _clip_by_global_norm
+
+    with torch.no_grad():
+        clipped = _clip_by_global_norm([torch.full_like(p, 1e20) for p in leaves], 1.0, sq_norm)
+        n = float(sq_norm([torch.ones_like(p) for p in leaves]))
+    return [c.numpy() for c in clipped], n
+
+
 def job_tp_pp(rank, inp):
     from gns_torch.models.gns import gns_forward, step_params
     from gns_torch.parallel.mesh import make_mesh
     from gns_torch.parallel.pipeline import (gather_stage_params, make_pipelined_forward,
-                                             make_pipelined_train_step, stage_param_indices)
+                                             make_pipelined_train_step, pp_sq_norm,
+                                             stage_param_indices)
     from gns_torch.parallel.sharding import _Local, axis_group
     from gns_torch.parallel.tensor_parallel import (make_tp_train_step, shard_params_tp,
-                                                    tp_init_train_state)
+                                                    tp_init_train_state, tp_sq_norm)
     from gns_torch.train.trainer import TrainState, make_optimizer
 
     cfg, params, batch = inp["cfg"], inp["params"], inp["batch"]
@@ -332,6 +346,7 @@ def job_tp_pp(rank, inp):
         lambda: make_tp_train_step(clip, tp_mesh)(state, batch))
     res["tp_clip_params"] = _params_np(state.model)
     res["tp_init_step"] = int(tp_init_train_state(0, cfg, tp_mesh).step)
+    res["tp_big_clip"] = _big_clip(list(local.parameters()), tp_sq_norm(local, tp_mesh))
 
     for stages, micro, remat in inp["pp_cases"]:
         mesh = make_mesh(dp=stages, gp=4 // stages, axis_names=("pp", "unused"),
@@ -356,6 +371,11 @@ def job_tp_pp(rank, inp):
     (_, res["pp_clip_metrics"]), res["pp_clip_coll"] = _counted(
         lambda: make_pipelined_train_step(clip, mesh, microbatch=2)(state, batch))
     res["pp_clip_params"] = _params_np(gather_stage_params(state.model, clip, mesh))
+    model = _module(params, cfg)
+    leaves = list(model.parameters())
+    res["pp_big_clip"] = _big_clip(
+        [leaves[i] for i in stage_param_indices(model, cfg, mesh.get_local_rank("pp"), 2)],
+        pp_sq_norm(mesh))
     prod = inp["prod_cfg"]
     res["pp_prod"] = _np(make_pipelined_forward(prod, mesh, microbatch=2)(
         _module(inp["prod_params"], prod), batch))
